@@ -1,0 +1,102 @@
+"""Decoder stack (the port of ``repro.models.transformer``).
+
+The reference stacks parameters per period position over a ``repeats``
+axis and runs ``lax.scan`` over it.  The port keeps one module per layer
+and a Python loop; ``layer_classes``/``stack_period`` are kept so the
+parameter converter can find layer i in the reference's stacked tree
+(position ``i % period``, repeat ``i // period``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..core.modelspec import ModelSpec
+from .attention import Attention, PackedSegs, PagedAttnCache, attention_block
+from .mlp import MLP, mlp_block
+
+
+@dataclass(frozen=True)
+class LayerClass:
+    kind: str  # attn | mamba | rwkv6
+    is_moe: bool
+
+    @property
+    def key(self) -> str:
+        return f"{self.kind}{'_moe' if self.is_moe else ''}"
+
+
+def layer_classes(spec: ModelSpec) -> list[LayerClass]:
+    kinds = spec.layer_kinds()
+    out = []
+    for i, k in enumerate(kinds):
+        if k == "ssm":
+            kind = "rwkv6" if (spec.ssm and spec.ssm.kind == "rwkv6") \
+                else "mamba"
+        else:
+            kind = "attn"
+        is_moe = spec.moe is not None and spec.moe.is_moe_layer(i)
+        out.append(LayerClass(kind, is_moe))
+    return out
+
+
+def stack_period(spec: ModelSpec) -> tuple[int, int]:
+    """-> (period, repeats): smallest p with class[i] == class[i mod p]."""
+    classes = layer_classes(spec)
+    n = len(classes)
+    for p in range(1, n + 1):
+        if n % p:
+            continue
+        if all(classes[i] == classes[i % p] for i in range(n)):
+            return p, n // p
+    return n, 1
+
+
+class Layer(nn.Module):
+    """One attention layer: ``mixer`` (attention) + ``ffn`` (dense MLP)."""
+
+    def __init__(self, spec: ModelSpec, cls: LayerClass, device, dtype):
+        super().__init__()
+        if cls.kind != "attn":
+            raise NotImplementedError(
+                f"{spec.name!r}: {cls.kind} layers are not ported yet "
+                "(ROADMAP: queue 1, item 13)")
+        if cls.is_moe:
+            raise NotImplementedError(
+                f"{spec.name!r}: MoE layers are not ported yet "
+                "(ROADMAP: queue 1, item 8)")
+        self.cls = cls
+        self.mixer = Attention(spec, device, dtype)
+        self.ffn = MLP(spec, device, dtype) if spec.d_ff > 0 else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.mixer.reset_parameters(generator)
+        if self.ffn is not None:
+            self.ffn.reset_parameters(generator)
+
+
+def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
+               positions: torch.Tensor, cache: PagedAttnCache,
+               packed: PackedSegs, impl: str) -> torch.Tensor:
+    if layer.cls.kind != "attn":
+        raise NotImplementedError(
+            "the token-packed unified step supports attention-only "
+            f"stacks; layer kind {layer.cls.kind!r} carries sequential state")
+    x = x + attention_block(spec, layer.mixer, x, positions, cache, packed,
+                            impl)
+    if layer.ffn is not None:
+        x = x + mlp_block(spec, layer.ffn, x)
+    return x
+
+
+def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
+                positions: torch.Tensor, caches: list[PagedAttnCache],
+                packed: PackedSegs, impl: str = "kernel") -> torch.Tensor:
+    """Run every layer over the (T, D) packed batch; each layer writes its
+    K/V into its own pool (in place)."""
+    for layer, cache in zip(layers, caches, strict=True):
+        x = _apply_one(spec, layer, x, positions, cache, packed, impl)
+    return x

@@ -1,0 +1,560 @@
+"""Continuous-batching serving engine, unified token-packed paged path (the
+port of ``repro.serving.engine`` with ``cache_layout="paged",
+unified=True``).
+
+Slot-based continuous batching: a fixed pool of decode slots shares one
+paged KV pool per layer; prompts are prefilled in ``chunk_size`` pieces by
+up to ``prefill_rows`` concurrent prefill rows.  Every engine step packs
+all active slots' decode tokens and every in-flight prompt's current chunk
+into one fixed ragged layout (slot s's token at offset s, prefill row r's
+chunk at ``max_slots + r * chunk_size``; partial chunks masked by the
+per-segment ``q_len``), runs one forward that writes prefill K/V straight
+into their pages, samples every segment on the device, and copies the
+sampled token vector to the host once.  ``EngineMetrics.dispatches`` and
+``transfers_d2h`` count one each per step, as the reference does: here a
+"dispatch" is one eager forward + sample, not one compiled program
+(capturing it as one CUDA graph is later work).
+
+Two packed profiles, as in the reference: the mixed decode+prefill layout,
+and a decode-only layout (T = max_slots, max_q = 1) when no prefill is in
+flight.  Pages are allocated on append and freed on finish; when the pool
+runs dry the youngest active request is preempted back to the queue
+(recompute-style, so greedy outputs are unchanged).
+
+The scheduler is pure Python over host mirrors (numpy), identical to the
+reference's, so the port's step, preemption and dispatch counts equal the
+reference engine's for the same requests.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.attention import PackedSegs
+from ..models.model import Model
+from .paging import PageAllocator
+from .sampling import SamplingConfig, sample_slots
+
+
+@dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 32
+    eos_id: int | None = None
+    sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    rid: int = -1
+    tenant: str | None = None
+    template_id: str | None = None
+    # filled by the engine:
+    output: list[int] = field(default_factory=list)
+    state: str = "queued"  # queued | prefill | decode | done
+    slot: int = -1
+    n_cached: int = 0  # prompt tokens served from shared pages (always 0)
+    ttft_steps: int = 0
+    tpot_steps: int = 0
+    submit_t: float = 0.0  # wall-clock timestamps (perf_counter)
+    first_token_t: float = 0.0
+    finish_t: float = 0.0
+
+    @property
+    def ttft_s(self) -> float:
+        return max(self.first_token_t - self.submit_t, 0.0)
+
+    @property
+    def tpot_s(self) -> float:
+        n = len(self.output) - 1
+        if n <= 0 or self.finish_t <= self.first_token_t:
+            return 0.0
+        return (self.finish_t - self.first_token_t) / n
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """The reference's fields and defaults.  The port serves only
+    ``cache_layout="paged", unified=True``; the other modes are refused by
+    name (see :class:`ServeEngine`)."""
+    max_slots: int = 8
+    max_seq: int = 512
+    chunk_size: int = 128
+    decode_priority: bool = True
+    prefill_rows: int = 2
+    record_step_log: bool = False
+    cache_layout: str = "dense"
+    page_size: int = 16
+    n_pages: int | None = None
+    unified: bool = False
+    prefix_cache: bool = False
+    debug_guards: bool = False
+    tp: int = 1
+    pp: int = 1
+    n_spec: int = 0
+
+
+@dataclass
+class EngineMetrics:
+    """Wall-clock + step-level serving metrics (the reference's names)."""
+
+    decode_steps: int = 0
+    prefill_calls: int = 0
+    prefill_tokens: int = 0
+    generated_tokens: int = 0
+    dispatches: int = 0  # forward + sample per step
+    transfers_d2h: int = 0  # sampled-token copies to the host
+    start_t: float = 0.0
+    end_t: float = 0.0
+    occupancy_sum: float = 0.0
+    steps: int = 0
+    step_log: list = field(default_factory=list)
+    peak_active: int = 0
+    peak_inflight: int = 0
+    kv_util_sum: float = 0.0
+    kv_used_tokens_peak: int = 0
+    preemptions: int = 0
+    capacity_stops: int = 0
+    pages_in_use_peak: int = 0
+
+    @property
+    def wall_s(self) -> float:
+        return max(self.end_t - self.start_t, 0.0)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.generated_tokens / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def mean_occupancy(self) -> float:
+        return self.occupancy_sum / self.steps if self.steps else 0.0
+
+    @property
+    def mean_kv_utilization(self) -> float:
+        return self.kv_util_sum / self.steps if self.steps else 0.0
+
+    def summary(self, requests=None) -> dict:
+        out = {
+            "steps": self.steps,
+            "decode_steps": self.decode_steps,
+            "prefill_calls": self.prefill_calls,
+            "prefill_tokens": self.prefill_tokens,
+            "generated_tokens": self.generated_tokens,
+            "dispatches": self.dispatches,
+            "transfers_d2h": self.transfers_d2h,
+            "dispatches_per_step": (self.dispatches / self.steps
+                                    if self.steps else 0.0),
+            "transfers_per_step": (self.transfers_d2h / self.steps
+                                   if self.steps else 0.0),
+            "wall_s": self.wall_s,
+            "tokens_per_s": self.tokens_per_s,
+            "mean_slot_occupancy": self.mean_occupancy,
+            "peak_active": self.peak_active,
+            "peak_inflight": self.peak_inflight,
+            "kv_utilization_mean": self.mean_kv_utilization,
+            "preemptions": self.preemptions,
+            "capacity_stops": self.capacity_stops,
+            "pages_in_use_peak": self.pages_in_use_peak,
+            "kv_used_tokens_peak": self.kv_used_tokens_peak,
+        }
+        done = [r for r in (requests or []) if r.state == "done"]
+        if done:
+            ttfts = sorted(r.ttft_s for r in done)
+            tpots = [r.tpot_s for r in done if r.tpot_s > 0]
+            out["requests_done"] = len(done)
+            out["ttft_s_mean"] = sum(ttfts) / len(ttfts)
+            out["ttft_s_p50"] = ttfts[len(ttfts) // 2]
+            out["ttft_s_p95"] = ttfts[min(int(len(ttfts) * 0.95),
+                                          len(ttfts) - 1)]
+            out["tpot_s_mean"] = (sum(tpots) / len(tpots)) if tpots else 0.0
+        return out
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP: queue 1, {item}); the port "
+        "serves EngineConfig(cache_layout='paged', unified=True)")
+
+
+class ServeEngine:
+    """The unified paged engine.  ``device`` defaults to the card (raises
+    without one) and must be where ``model`` lives; ``seed`` seeds the
+    engine's generator for stochastic sampling."""
+
+    def __init__(self, model: Model, config: EngineConfig, *,
+                 device: str | torch.device | None = None, seed: int = 0):
+        if config.max_slots < 1:
+            raise ValueError("EngineConfig.max_slots must be >= 1")
+        if config.prefill_rows < 1:
+            raise ValueError("EngineConfig.prefill_rows must be >= 1")
+        if config.chunk_size < 1:
+            raise ValueError("EngineConfig.chunk_size must be >= 1")
+        if config.cache_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_layout {config.cache_layout!r}")
+        if config.n_spec < 0:
+            raise ValueError("EngineConfig.n_spec must be >= 0")
+        if config.tp < 1 or config.pp < 1:
+            raise ValueError("EngineConfig tp/pp must be >= 1")
+        if config.cache_layout != "paged" or not config.unified:
+            _refuse("the dense layout and the two-dispatch engine "
+                    f"(cache_layout={config.cache_layout!r}, "
+                    f"unified={config.unified})", "item 9")
+        if config.prefix_cache:
+            _refuse("prefix_cache=True", "item 6")
+        if config.n_spec:
+            _refuse(f"speculative decoding (n_spec={config.n_spec})",
+                    "item 7")
+        if config.tp * config.pp > 1:
+            _refuse(f"tp={config.tp} pp={config.pp}", "item 12")
+        if config.debug_guards:
+            _refuse("debug_guards=True", "item 5")
+        spec = model.spec
+        if spec.moe is not None:
+            _refuse(f"MoE layers ({spec.name!r})", "item 8")
+        if any(k != "attn" for k in spec.layer_kinds()):
+            _refuse(f"SSM layers ({spec.name!r})", "item 13")
+        if spec.attn.kind == "swa":
+            _refuse(f"sliding-window attention ({spec.name!r})", "item 13")
+        if config.max_seq % config.page_size:
+            raise ValueError("paged layout needs max_seq to be a multiple "
+                             "of page_size")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model lives on {model.device}, engine on "
+                             f"{self.device}")
+        self.model = model
+        self.cfg = config
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._ids = itertools.count()
+        self.queue: deque[Request] = deque()
+        self.active: dict[int, Request] = {}  # slot -> request
+        self.free_slots = list(range(config.max_slots))
+        self.finished: list[Request] = []
+        self.steps = 0
+        self.metrics = EngineMetrics()
+
+        self.max_pages = config.max_seq // config.page_size
+        n_pages = config.n_pages
+        if n_pages is None:  # capacity-equivalent to dense (+ null page)
+            n_pages = config.max_slots * self.max_pages + 1
+        self.pager = PageAllocator(n_pages=n_pages, page_size=config.page_size)
+        self._ptab = np.zeros((config.max_slots, self.max_pages), np.int32)
+        self.cache = model.init_cache(config.max_slots, config.max_seq,
+                                      page_size=config.page_size,
+                                      n_pages=n_pages)
+        # prefill bookkeeping: prefill row -> in-flight request / position
+        self._prefills: dict[int, Request] = {}
+        self._prefill_pos: dict[int, int] = {}
+        self._free_rows = list(range(config.prefill_rows))
+
+        # fixed packed layout: decode slot s's token at offset s, prefill
+        # row r's chunk at max_slots + r * chunk_size
+        self.n_segs = config.max_slots + config.prefill_rows
+        self.t_pack = config.max_slots + config.prefill_rows \
+            * config.chunk_size
+        seg_start = np.concatenate([
+            np.arange(config.max_slots, dtype=np.int32),
+            config.max_slots + np.arange(config.prefill_rows, dtype=np.int32)
+            * config.chunk_size])
+        # the layouts are static: keep their device copies resident
+        self._seg_start_dev = self._up(seg_start)
+        self._seg_start_decode_dev = self._up(seg_start[:config.max_slots])
+
+        # host mirrors: next-token feed, per-slot sampling params, lengths
+        self._tokens = np.zeros((config.max_slots, 1), np.int32)
+        self._temps = np.zeros((config.max_slots,), np.float32)
+        self._topks = np.zeros((config.max_slots,), np.int32)
+        self._topps = np.ones((config.max_slots,), np.float32)
+        self._lengths = np.zeros((config.max_slots,), np.int64)
+
+    def _up(self, x: np.ndarray) -> torch.Tensor:
+        """Host -> device copy of a packed-step input (always a copy: the
+        host mirrors keep changing after the upload)."""
+        return torch.tensor(x, device=self.device)
+
+    # -- public API -------------------------------------------------------
+    def submit(self, req: Request) -> int:
+        req.rid = next(self._ids)
+        need = self.pager.pages_for(len(req.prompt) + 1)
+        limit = min(self.max_pages, self.pager.usable_pages)
+        if need > limit:
+            cap = limit * self.cfg.page_size
+            raise ValueError(
+                f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                f"needs {need} KV pages but per-request capacity is "
+                f"{limit} pages = {cap} tokens (max_pages={self.max_pages} "
+                f"x page_size={self.cfg.page_size}, usable pool="
+                f"{self.pager.usable_pages})")
+        req.state = "queued"
+        req.submit_t = time.perf_counter()
+        self.queue.append(req)
+        return req.rid
+
+    @staticmethod
+    def _src(req: Request) -> list[int]:
+        """Prefill token source: prompt + everything generated so far for
+        a request resuming after preemption."""
+        return req.prompt + req.output if req.output else req.prompt
+
+    # -- scheduling -------------------------------------------------------
+    def _admit(self) -> None:
+        """Every free prefill row takes a queued prompt, as long as a decode
+        slot is guaranteed at completion and the pool has pages for the
+        prompt plus one token of headroom (reserved up front)."""
+        while (self.queue and self._free_rows
+               and len(self.active) + len(self._prefills)
+               < self.cfg.max_slots):
+            req = self.queue[0]
+            if not self.pager.ensure(req.rid, len(self._src(req)) + 1):
+                break  # pool dry: wait for frees (decode keeps running)
+            self.queue.popleft()
+            row = self._free_rows.pop()
+            self._prefills[row] = req
+            self._prefill_pos[row] = req.n_cached
+            req.state = "prefill"
+
+    def _ptab_row(self, rid: int) -> np.ndarray:
+        """One (max_pages,) page-table row of ``rid``'s pages, in token
+        order, null-page-0 padded."""
+        row = np.zeros((self.max_pages,), np.int32)
+        held = self.pager.owned(rid)
+        row[:len(held)] = held
+        return row
+
+    def _release_slot(self, slot: int, req: Request) -> None:
+        """Free-on-finish: the slot and every page the request holds; the
+        slot's table row falls back to the null page."""
+        self.free_slots.append(slot)
+        self.pager.release(req.rid)
+        self._ptab[slot] = 0
+
+    def _preempt(self, slot: int) -> None:
+        """Push an active request back to the queue head and free its
+        pages; on re-admission its prompt + generated tokens re-prefill."""
+        req = self.active.pop(slot)
+        self._release_slot(slot, req)
+        req.state = "queued"
+        req.slot = -1
+        self.queue.appendleft(req)
+        self.metrics.preemptions += 1
+
+    def _grow_pages(self) -> None:
+        """Allocate-on-append: every active slot needs a page for the
+        position this step writes.  When the pool runs dry, evict the
+        youngest other active request and retry; with no victim left the
+        request preempts itself, or is force-finished if its context can
+        never fit the pool."""
+        for slot in sorted(self.active, key=lambda s: self.active[s].rid):
+            req = self.active.get(slot)
+            if req is None:
+                continue
+            need = int(self._lengths[slot]) + 1
+            while not self.pager.ensure(req.rid, need):
+                victims = [s for s, r in self.active.items()
+                           if r.rid != req.rid]
+                if not victims:
+                    if self.pager.pages_for(need) > self.pager.usable_pages:
+                        req.state = "done"
+                        req.finish_t = time.perf_counter()
+                        del self.active[slot]
+                        self._release_slot(slot, req)
+                        self.finished.append(req)
+                        self.metrics.capacity_stops += 1
+                    else:
+                        self._preempt(slot)
+                    break
+                self._preempt(max(victims, key=lambda s: self.active[s].rid))
+            else:
+                held = len(self.pager.owned(req.rid))
+                if held != int(np.count_nonzero(self._ptab[slot])):
+                    self._ptab[slot] = self._ptab_row(req.rid)
+
+    def _finish_decode_slots(self, toks: np.ndarray, now: float) -> None:
+        """Append each active slot's sampled token, advance lengths, exit
+        on max_new / eos / max_seq, free on finish."""
+        for slot, req in list(self.active.items()):
+            tok = int(toks[slot])
+            req.output.append(tok)
+            req.tpot_steps += 1
+            self._lengths[slot] += 1
+            self.metrics.generated_tokens += 1
+            done = (len(req.output) >= req.max_new_tokens
+                    or (req.eos_id is not None and tok == req.eos_id)
+                    or self._lengths[slot] >= self.cfg.max_seq - 1)
+            if done:
+                req.state = "done"
+                req.finish_t = now
+                del self.active[slot]
+                self._release_slot(slot, req)
+                self.finished.append(req)
+            else:
+                self._tokens[slot, 0] = tok
+
+    def _promote_prefill(self, row: int, tok: int, now: float) -> None:
+        """Record the first token and move the request from its prefill row
+        into a decode slot: its pages already hold the prompt's KV, so the
+        move is host bookkeeping (the slot's page-table row)."""
+        req = self._prefills.pop(row)
+        del self._prefill_pos[row]
+        src_len = len(self._src(req))
+        if not req.output:  # resumed requests keep their original TTFT
+            req.ttft_steps = self.steps
+            req.first_token_t = now
+        req.output.append(tok)
+        self.metrics.generated_tokens += 1
+        slot = self.free_slots.pop()
+        req.slot = slot
+        self._ptab[slot] = self._ptab_row(req.rid)
+        self._free_rows.append(row)
+        self._lengths[slot] = src_len
+        if (len(req.output) >= req.max_new_tokens
+                or (req.eos_id is not None and tok == req.eos_id)):
+            req.state = "done"
+            req.finish_t = now
+            self._release_slot(slot, req)
+            self.finished.append(req)
+            return
+        req.state = "decode"
+        self.active[slot] = req
+        self._tokens[slot, 0] = tok
+        self._temps[slot] = req.sampling.temperature
+        self._topks[slot] = req.sampling.top_k
+        self._topps[slot] = req.sampling.top_p
+
+    # -- unified token-packed step ---------------------------------------
+    def _pack_guard(self, req: Request, src_len: int) -> None:
+        cap = self.max_pages * self.cfg.page_size
+        if src_len + 1 > cap:
+            raise ValueError(
+                f"request {req.rid}: packing a {src_len}-token context "
+                f"exceeds the per-request KV capacity of {cap} tokens "
+                f"(max_pages={self.max_pages} x page_size="
+                f"{self.cfg.page_size})")
+
+    def _unified_and_sample(self, tokens, positions, q_start, q_len, kv_len,
+                            seg_ptab, temps, topks, topps, *, max_q: int,
+                            n_decode: int) -> torch.Tensor:
+        """The step's device work: packed forward (K/V straight to pages)
+        + per-segment sampling.  Returns the (S,) sampled tokens, still on
+        the device."""
+        packed = PackedSegs(q_start=q_start, q_len=q_len, kv_len=kv_len,
+                            page_table=seg_ptab, max_q=max_q,
+                            n_decode=n_decode)
+        logits, self.cache = self.model.unified_step(self.cache, tokens,
+                                                     positions, packed)
+        return sample_slots(logits, temps, topks, topps, self.generator)
+
+    def _unified_step(self) -> None:
+        """One step: all active slots' decode tokens and all in-flight
+        prompts' current chunks in the fixed ragged layout, one forward +
+        sample, one device->host copy of the sampled tokens."""
+        self._grow_pages()
+        if not (self.active or self._prefills):
+            return
+        nslots, csize = self.cfg.max_slots, self.cfg.chunk_size
+        mixed = bool(self._prefills)
+        n_segs, t_pack = (self.n_segs, self.t_pack) if mixed \
+            else (nslots, nslots)
+        tokens = np.zeros((t_pack,), np.int32)
+        tokens[:nslots] = self._tokens[:, 0]
+        positions = np.zeros((t_pack,), np.int32)
+        q_len = np.zeros((n_segs,), np.int32)
+        kv_len = np.zeros((n_segs,), np.int32)
+        seg_ptab = np.zeros((n_segs, self.max_pages), np.int32)
+        seg_ptab[:nslots] = self._ptab
+        temps = np.zeros((n_segs,), np.float32)
+        topks = np.zeros((n_segs,), np.int32)
+        topps = np.ones((n_segs,), np.float32)
+        temps[:nslots] = self._temps
+        topks[:nslots] = self._topks
+        topps[:nslots] = self._topps
+        for slot in self.active:
+            positions[slot] = self._lengths[slot]
+            q_len[slot] = 1
+            kv_len[slot] = self._lengths[slot] + 1
+        widths: dict[int, int] = {}
+        for row, req in self._prefills.items():
+            src = self._src(req)
+            self._pack_guard(req, len(src))
+            lo = self._prefill_pos[row]
+            w = min(csize, len(src) - lo)
+            seg, qs = nslots + row, nslots + row * csize
+            tokens[qs:qs + w] = src[lo:lo + w]
+            positions[qs:qs + w] = np.arange(lo, lo + w)
+            q_len[seg] = w
+            kv_len[seg] = lo + w
+            seg_ptab[seg] = self._ptab_row(req.rid)
+            widths[row] = w
+            if lo + w >= len(src):  # completes: sample with its config
+                s = req.sampling
+                temps[seg] = s.temperature
+                topks[seg] = s.top_k
+                topps[seg] = s.top_p
+        seg_start = self._seg_start_dev if mixed \
+            else self._seg_start_decode_dev
+        sampled = self._unified_and_sample(
+            self._up(tokens), self._up(positions), seg_start,
+            self._up(q_len), self._up(kv_len), self._up(seg_ptab),
+            self._up(temps), self._up(topks), self._up(topps),
+            max_q=csize if mixed else 1, n_decode=nslots if mixed else 0)
+        # the step's only device->host copy: the (S,) sampled tokens
+        toks = sampled.cpu().numpy()
+        self.metrics.dispatches += 1
+        self.metrics.transfers_d2h += 1
+        now = time.perf_counter()
+        if self.active:
+            self.metrics.decode_steps += 1
+        self._finish_decode_slots(toks, now)
+        if widths:
+            self.metrics.prefill_calls += 1
+            self.metrics.prefill_tokens += sum(widths.values())
+        finishing = [row for row, w in widths.items()
+                     if self._prefill_pos[row] + w
+                     >= len(self._src(self._prefills[row]))]
+        for row, w in widths.items():
+            self._prefill_pos[row] += w
+        for row in finishing:
+            self._promote_prefill(row, int(toks[nslots + row]), now)
+
+    # -- main loop --------------------------------------------------------
+    def step(self) -> None:
+        if self.metrics.start_t == 0.0:
+            self.metrics.start_t = time.perf_counter()
+        self.steps += 1
+        self.metrics.steps += 1
+        self._admit()
+        self._unified_step()
+        m = self.metrics
+        m.end_t = time.perf_counter()
+        m.occupancy_sum += len(self.active) / self.cfg.max_slots
+        m.peak_active = max(m.peak_active, len(self.active))
+        m.peak_inflight = max(m.peak_inflight,
+                              len(self.active) + len(self._prefills))
+        used = int(sum(self._lengths[s] for s in self.active))
+        m.pages_in_use_peak = max(m.pages_in_use_peak,
+                                  self.pager.pages_in_use)
+        m.kv_util_sum += used / (self.pager.usable_pages * self.cfg.page_size)
+        m.kv_used_tokens_peak = max(m.kv_used_tokens_peak, used)
+        if self.cfg.record_step_log:
+            m.step_log.append((self.steps, len(self.active),
+                               len(self._prefills), len(self.queue)))
+
+    @property
+    def busy(self) -> bool:
+        return bool(self.queue or self.active or self._prefills)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.busy:
+                break
+            self.step()
+
+    def serve(self, requests: list[Request],
+              max_steps: int = 10_000) -> list[Request]:
+        for r in requests:
+            self.submit(r)
+        self.run(max_steps)
+        return requests

@@ -1,0 +1,191 @@
+"""Rules of the PyTorch/CUDA port, checked on the CPU.
+
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or anything of the JAX package ``repro`` (checked on the AST), and
+  importing the port leaves ``jax`` out of ``sys.modules``.
+* Entry points default to the card: without one, ``build_model`` and
+  ``ServeEngine`` raise unless ``device="cpu"`` is given.
+* The CUDA wrapper refuses tensors on the CPU instead of falling back, and
+  nothing builds or loads a kernel at import.
+* The engine refuses, by name, every mode the port does not serve yet.
+* ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  and in a directory holding nothing else of the repository.
+"""
+
+import ast
+import dataclasses
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced
+from repro_torch.core.modelspec import AttnSpec, MoESpec, SSMSpec
+from repro_torch.kernels import build, ops, ragged_attention
+from repro_torch.models import build_model
+from repro_torch.serving import EngineConfig, ServeEngine
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_never_imports_jax_or_the_jax_package(path):
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.models, repro_torch.serving\n"
+            "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = {"PYTHONPATH": f"{REPO / 'src'}:{REPO}", "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """Make the process see no CUDA device, whatever machine runs it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_build_model_defaults_to_the_card(no_card):
+    spec = get_reduced("minitron-8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(spec, device="cuda")
+    assert build_model(spec, device="cpu", dtype=torch.float32).device \
+        == torch.device("cpu")
+
+
+def test_engine_defaults_to_the_card(no_card):
+    model = build_model(get_reduced("minitron-8b"), device="cpu",
+                        dtype=torch.float32)
+    cfg = EngineConfig(cache_layout="paged", unified=True, max_seq=64,
+                       page_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(model, cfg)
+    assert ServeEngine(model, cfg, device="cpu").device.type == "cpu"
+
+
+def _cpu_case():
+    q = torch.zeros((3, 4, 16))
+    pool = torch.zeros((4, 2, 4, 16))
+    pt = torch.zeros((2, 3), dtype=torch.int32)
+    seg = torch.tensor([0, 1], dtype=torch.int32)
+    return q, pool, pool.clone(), pt, seg, seg, seg + 1
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """No silent fallback: the wrapper raises on CPU tensors (only
+    ``ops`` routes them to the plain version) and counts no launch."""
+    before = ragged_attention.launches
+    with pytest.raises(ValueError, match="must lie on the card"):
+        ragged_attention.ragged_paged_attention_cuda(*_cpu_case(), max_q=1)
+    assert ragged_attention.launches == before
+    out = ops.ragged_paged_attention(*_cpu_case(), max_q=1)
+    assert out.shape == (3, 4, 16)
+    assert ragged_attention.launches == before
+
+
+def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
+    """Importing the port builds and loads nothing; a build looks for nvcc
+    and says where it looked when there is none."""
+    assert build._LOADED == {} or torch.cuda.is_available()
+    assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert (build.CSRC / "ragged_paged_attention.cu").is_file()
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        assert build.find_nvcc() == "/usr/local/cuda/bin/nvcc"
+    else:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.find_nvcc()
+
+
+def _paged(**kw):
+    return EngineConfig(**{"cache_layout": "paged", "unified": True,
+                           "max_seq": 64, "page_size": 8, **kw})
+
+
+@pytest.mark.parametrize("cfg,item", [
+    (EngineConfig(), "item 9"),
+    (_paged(unified=False), "item 9"),
+    (_paged(cache_layout="dense"), "item 9"),
+    (_paged(prefix_cache=True), "item 6"),
+    (_paged(n_spec=2), "item 7"),
+    (_paged(tp=2), "item 12"),
+    (_paged(pp=2), "item 12"),
+    (_paged(debug_guards=True), "item 5"),
+], ids=["default", "two-dispatch", "dense", "prefix", "spec", "tp", "pp",
+        "guards"])
+def test_engine_refuses_unported_modes(cfg, item):
+    model = build_model(get_reduced("minitron-8b"), device="cpu",
+                        dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP: queue 1, {item}"):
+        ServeEngine(model, cfg, device="cpu")
+
+
+def test_model_and_engine_refuse_unported_architectures():
+    base = get_reduced("minitron-8b")
+    swa = base.scaled(attn=AttnSpec(kind="swa", window=8))
+    model = build_model(swa, device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        ServeEngine(model, _paged(), device="cpu")
+    for spec in (base.scaled(moe=MoESpec(num_experts=4, top_k=2,
+                                         d_ff_expert=64)),
+                 base.scaled(n_heads=0, n_kv_heads=0, ssm=SSMSpec())):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_model(spec, device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        build_model(base, device="cpu", dtype=torch.float32, kv_quant=True)
+
+
+def test_engine_config_keeps_the_reference_field_names():
+    from repro.serving import EngineConfig as JaxEngineConfig
+    ours = [(f.name, f.default) for f in dataclasses.fields(EngineConfig)]
+    theirs = [(f.name, f.default)
+              for f in dataclasses.fields(JaxEngineConfig)]
+    assert ours == theirs
+
+
+def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin",
+                               "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
