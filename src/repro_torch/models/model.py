@@ -15,7 +15,6 @@ from torch import nn
 
 from ..core.modelspec import ModelSpec
 from ..device import resolve_device
-from ..kernels.ops import IMPLS
 from . import transformer as T
 from .attention import PackedSegs, PagedAttnCache, init_paged_attn_cache
 from .common import embed_init_, rms_norm, weight
@@ -31,24 +30,23 @@ class ModelCache:
 
 
 class Model(nn.Module):
-    """Parameters and forward of one decoder.  ``attn_impl`` picks the
-    attention route: ``"kernel"`` (the Hopper kernel for tensors on the
-    card, the plain version on the CPU) or ``"plain"`` (the plain version
-    everywhere)."""
+    """Parameters and forward of one decoder.  The attribute ``attn_impl``
+    picks the attention route (``kernels.ops.IMPLS``): ``"kernel"`` (the
+    Hopper kernel for tensors on the card, the plain version on the CPU) or
+    ``"plain"`` (the plain version everywhere)."""
+
+    attn_impl = "kernel"
 
     def __init__(self, spec: ModelSpec, device: torch.device,
-                 dtype: torch.dtype, attn_impl: str = "kernel"):
+                 dtype: torch.dtype):
         super().__init__()
         if not spec.decoder or spec.frontend != "none":
             raise NotImplementedError(
                 f"{spec.name!r}: encoder-only and frontend-embedding "
                 "models are not ported yet (ROADMAP: queue 1, item 13)")
-        if attn_impl not in IMPLS:
-            raise ValueError(f"unknown attn_impl {attn_impl!r}; have {IMPLS}")
         self.spec = spec
         self.device = device
         self.dtype = dtype
-        self.attn_impl = attn_impl
         d = spec.d_model
         self.embed = weight((spec.vocab, d), device, dtype)
         self.layers = nn.ModuleList(
@@ -115,19 +113,16 @@ class Model(nn.Module):
 
 
 def build_model(spec: ModelSpec, device: str | torch.device | None = None,
-                dtype: torch.dtype = torch.bfloat16, *,
-                generator: torch.Generator | None = None, seed: int = 0,
-                attn_impl: str = "kernel", kv_quant: bool = False) -> Model:
+                dtype: torch.dtype = torch.bfloat16, *, seed: int = 0,
+                kv_quant: bool = False) -> Model:
     """Build ``spec`` with random weights on ``device`` (default: the card;
-    raises without one).  Weights are drawn on the device from
-    ``generator`` (default: a generator on the device seeded ``seed``),
-    tensor by tensor, so no f32 copy of the whole model ever exists."""
+    raises without one).  Weights are drawn on the device from a generator
+    seeded ``seed``, tensor by tensor, so no f32 copy of the whole model
+    ever exists."""
     dev = resolve_device(device)
     if kv_quant:
         raise NotImplementedError("the int8 KV cache is not ported yet "
                                   "(ROADMAP: queue 1, item 3)")
-    model = Model(spec, dev, dtype, attn_impl=attn_impl)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
-    model.reset_parameters(generator)
+    model = Model(spec, dev, dtype)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model
