@@ -5,16 +5,23 @@
 
 Phases, each printing one JSON line (any failure raises and exits non-zero):
 
-  build         build (or load) every CUDA kernel of the serving path from
-                ``src/repro_torch/csrc`` with nvcc for sm_90a
+  build         build every CUDA kernel of the serving paths from
+                ``src/repro_torch/csrc`` with nvcc for sm_90a, one nvcc per
+                source, all at once
   kernel_check  each kernel against its plain PyTorch version on the card,
                 at minitron-8b's attention shapes (Hq=32, Hkv=8, D=128,
-                page_size=16): the decode profile (max_q=1, 8 slots, kv_len
-                1..2048) and the prefill profile (max_q=128, full and
-                partial chunks, idle rows, pages past kv_len); float32
-                within 1e-4, bfloat16 within one bf16 ulp plus 1e-4 on
-                valid rows; median time of each over 50 launches with L2
-                flushed in between
+                page_size=16), float32 within 1e-4, bfloat16 within one
+                bf16 ulp plus 1e-4 (under a 2e-2 ceiling); median time of
+                each over 50 launches with L2 flushed in between, beside
+                the plain version's, the bound, and (flash) one
+                scaled_dot_product_attention call's:
+                  ragged       decode (8 slots, kv_len 1..2048), prefill
+                               (max_q=128), idle rows
+                  paged decode 8 slots, lengths 0..2048
+                  flash        prefill (2 rows x 128 queries), partial
+                               chunk (37 queries), dense decode (8 slots,
+                               Sq=1), sliding window (mistral-7b-swa's
+                               W=4096 at 8192 keys)
   serve_full    minitron-8b at its published width (32 layers, random bf16
                 weights drawn on the card from a seed) served through
                 ServeEngine(EngineConfig(cache_layout="paged", unified=True)):
@@ -24,15 +31,24 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   serve_profile the same model and engine under torch.profiler for a
                 short serve: device time by kernel class, the device's
                 busy share of the wall clock
-  serve_parity  minitron-8b widths at 2 layers in float32, served twice
-                (through the kernel, then with the plain attention selected
-                explicitly): greedy outputs token-identical, or diverging
-                only at a genuine tie (top-2 logit gap < 1e-4)
+  serve_two_dispatch
+                the same model and requests through the two-dispatch
+                engine, EngineConfig(cache_layout="paged", unified=False)
+                and EngineConfig(cache_layout="dense"); launch counts exact:
+                paged decode n_layers x decode steps and flash n_layers x
+                prefill calls (paged); flash n_layers x (prefill calls +
+                decode steps) (dense)
+  serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
+                served through the kernels and with the plain attention
+                selected explicitly: greedy outputs token-identical between
+                the two and across the three modes, or diverging only at a
+                genuine tie (top-2 logit gap < 1e-4)
 
 then the card's name and power limit (nvidia-smi), one JSON line listing
-every kernel (launches on the main path, error, times, bound), and last
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.  Imports nothing of JAX or of the JAX package.
+every kernel (launches summed over the main-path serves, error, times,
+bound), and last ``{"ok": true, "device": {...}}``.  Without a CUDA device
+it exits 1 and prints no result.  Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -92,13 +108,27 @@ PROFILES = {
 }
 TIMED = ("decode", "prefill")  # profiles the main path launches
 
+# paged decode: the same 8 slots, lengths counting the token just written
+DECODE_LENGTHS = [1, 17, 255, 0, 640, 1024, 1500, 2048]
 
-def make_case(torch, segs, max_q, dtype, seed):
-    """Packed inputs on the card: random pages per segment; every table
-    entry past a segment's kv_len points at a junk page filled with 1e4, so
-    a kernel that reads past kv_len disagrees loudly."""
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    need = [-(-kl // PS) for _, kl in segs]
+# flash forward: (rows, queries, keys, q_offset per row, window); kv_len =
+# q_offset + queries.  The two scratch rows of a full and of a partial
+# chunk, the dense decode of 8 slots, and mistral-7b-swa's window.
+FLASH_PROFILES = {
+    "prefill": dict(b=2, sq=128, skv=2048, q_offset=[1372, 128]),
+    "prefill_partial": dict(b=2, sq=37, skv=2048, q_offset=[256, 0]),
+    "dense_decode": dict(b=8, sq=1, skv=2048,
+                         q_offset=[0, 16, 254, 639, 1023, 1499, 2046, 2047]),
+    "window": dict(b=1, sq=128, skv=8192, q_offset=[6000], window=4096),
+}
+
+
+def _pools(torch, gen, kv_lens):
+    """Paged pools on the card with a page run of ``ceil(kv_len / 16)``
+    random pages per row; every table entry past a row's kv_len points at
+    a junk page filled with 1e4, so a kernel that reads past kv_len
+    disagrees loudly."""
+    need = [-(-kl // PS) for kl in kv_lens]
     n_junk = 16
     n_pool = 1 + sum(need) + n_junk
     kp = torch.randn((n_pool, HKV, PS, D), generator=gen, device=DEV)
@@ -108,21 +138,54 @@ def make_case(torch, segs, max_q, dtype, seed):
     vp[junk] = 1e4
     perm = (torch.randperm(n_pool - 1 - n_junk, generator=gen,
                            device=DEV) + 1).tolist()
-    pt = torch.tensor([junk[(i + j) % n_junk] for i in range(len(segs))
+    pt = torch.tensor([junk[(i + j) % n_junk] for i in range(len(kv_lens))
                        for j in range(MAX_PAGES)],
-                      dtype=torch.int32).reshape(len(segs), MAX_PAGES)
+                      dtype=torch.int32).reshape(len(kv_lens), MAX_PAGES)
     for i, n in enumerate(need):
         pt[i, :n] = torch.tensor(perm[:n], dtype=torch.int32)
         perm = perm[n:]
+    return kp, vp, pt.to(DEV)
+
+
+def make_case(torch, segs, max_q, dtype, seed):
+    """Packed ragged inputs on the card (see ``_pools``)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    kp, vp, pt = _pools(torch, gen, [kl for _, kl in segs])
     q_start = torch.arange(len(segs), dtype=torch.int32) * max_q
-    t = len(segs) * max_q
-    q = torch.randn((t, HQ, D), generator=gen, device=DEV)
+    q = torch.randn((len(segs) * max_q, HQ, D), generator=gen, device=DEV)
     return dict(q=q.to(dtype), k_pool=kp.to(dtype), v_pool=vp.to(dtype),
-                seg_page_table=pt.to(DEV), q_start=q_start.to(DEV),
+                seg_page_table=pt, q_start=q_start.to(DEV),
                 q_len=torch.tensor([s[0] for s in segs], dtype=torch.int32,
                                    device=DEV),
                 kv_len=torch.tensor([s[1] for s in segs], dtype=torch.int32,
                                     device=DEV))
+
+
+def make_decode_case(torch, lengths, dtype, seed):
+    """Paged decode inputs on the card (see ``_pools``)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    kp, vp, pt = _pools(torch, gen, lengths)
+    q = torch.randn((len(lengths), 1, HQ, D), generator=gen, device=DEV)
+    return dict(q=q.to(dtype), k_pool=kp.to(dtype), v_pool=vp.to(dtype),
+                page_table=pt,
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=DEV))
+
+
+def make_flash_case(torch, prof, dtype, seed):
+    """Dense inputs on the card; every key at or past a row's kv_len is
+    1e4, so a kernel that reads past kv_len disagrees loudly."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b, sq, skv = prof["b"], prof["sq"], prof["skv"]
+    q = torch.randn((b, sq, HQ, D), generator=gen, device=DEV)
+    k = torch.randn((b, skv, HKV, D), generator=gen, device=DEV)
+    v = torch.randn((b, skv, HKV, D), generator=gen, device=DEV)
+    qo = torch.tensor(prof["q_offset"], dtype=torch.int32, device=DEV)
+    kl = qo + sq
+    past = torch.arange(skv, device=DEV)[None, :] >= kl[:, None]
+    k[past] = 1e4
+    v[past] = 1e4
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), kv_len=kl,
+                q_offset=qo, window=prof.get("window"))
 
 
 def valid_rows(segs, max_q):
@@ -132,13 +195,20 @@ def valid_rows(segs, max_q):
     return rows
 
 
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return dict(bytes=nbytes, flops=flops,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def work(segs, max_q, itemsize):
-    """Least bytes and operations of one launch.  Bytes: the live q rows
-    (q_len of each segment) read once, the whole (T, Hq, D) output written
-    once (gap rows are zero-filled), K+V of the valid tokens read once, and
-    the table entries the walk reads (q_start/q_len/kv_len of every
-    segment, ceil(kv_len / page) page ids of each live one).  Operations:
-    4 D per visible query-key pair per head."""
+    """Least bytes and operations of one ragged launch.  Bytes: the live q
+    rows (q_len of each segment) read once, the whole (T, Hq, D) output
+    written once (gap rows are zero-filled), K+V of the valid tokens read
+    once, and the table entries the walk reads (q_start/q_len/kv_len of
+    every segment, ceil(kv_len / page) page ids of each live one).
+    Operations: 4 D per visible query-key pair per head."""
     live = [(ql, kl) for ql, kl in segs if ql > 0]
     t = len(segs) * max_q
     nbytes = (sum(ql for ql, _ in live) * HQ * D * itemsize
@@ -146,11 +216,60 @@ def work(segs, max_q, itemsize):
               + sum(2 * kl * HKV * D * itemsize for _, kl in live)
               + (3 * len(segs) + sum(-(-kl // PS) for _, kl in live)) * 4)
     pairs = sum(kl - ql + i + 1 for ql, kl in live for i in range(ql))
-    flops = 4 * D * HQ * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return dict(bytes=nbytes, flops=flops,
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, 4 * D * HQ * pairs)
+
+
+def work_decode(lengths, itemsize):
+    """Least bytes and operations of one paged decode call: q read and the
+    output written once, K+V of each slot's valid tokens read once, its
+    ceil(length / page) page ids and its length; 4 D operations per valid
+    key per query head."""
+    b = len(lengths)
+    nbytes = (2 * b * HQ * D * itemsize
+              + sum(2 * n * HKV * D * itemsize for n in lengths)
+              + (sum(-(-n // PS) for n in lengths) + b) * 4)
+    return _bound(nbytes, 4 * D * HQ * sum(lengths))
+
+
+def _visible(prof):
+    """(keys any query of the row sees, visible query-key pairs) per row."""
+    out = []
+    for qo in prof["q_offset"]:
+        kl, w = qo + prof["sq"], prof.get("window")
+        spans = [(max(0, qo + i - w + 1) if w else 0, min(kl, qo + i + 1))
+                 for i in range(prof["sq"])]
+        keys = max(hi for _, hi in spans) - min(lo for lo, _ in spans)
+        out.append((keys, sum(max(0, hi - lo) for lo, hi in spans)))
+    return out
+
+
+def work_flash(prof, itemsize):
+    """Least bytes and operations of one flash call: q read and the output
+    written once, K+V of the keys some query of the row can see (inside
+    kv_len, the causal bound and the window) read once, kv_len and
+    q_offset; 4 D operations per visible query-key pair per head."""
+    vis = _visible(prof)
+    nbytes = (2 * prof["b"] * prof["sq"] * HQ * D * itemsize
+              + sum(2 * keys * HKV * D * itemsize for keys, _ in vis)
+              + 8 * prof["b"])
+    return _bound(nbytes, 4 * D * HQ * sum(pairs for _, pairs in vis))
+
+
+def sdpa_call(torch, case):
+    """The one PyTorch call that computes the flash profile's function
+    (the yardstick; the port never calls it): scaled_dot_product_attention
+    with the boolean visibility mask and grouped-query heads."""
+    q, k, v = (case[n].transpose(1, 2).contiguous() for n in "qkv")
+    sq, skv = q.shape[2], k.shape[2]
+    qpos = case["q_offset"][:, None] + torch.arange(sq, device=DEV)
+    kpos = torch.arange(skv, device=DEV)
+    mask = (kpos < case["kv_len"][:, None, None]) \
+        & (kpos <= qpos[:, :, None])
+    if case["window"]:
+        mask &= qpos[:, :, None] - kpos < case["window"]
+    mask = mask[:, None]
+    f = torch.nn.functional.scaled_dot_product_attention
+    return lambda: f(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def median_ms(torch, fn, n):
@@ -176,48 +295,87 @@ def median_ms(torch, fn, n):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def phase_kernel_check(torch) -> dict:
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ragged_attention import \
-        ragged_paged_attention_cuda
+def _compare(what, got, want, rtol):
+    """Max abs error of ``got`` against ``want``; every element within
+    rtol |want| + F32_ATOL and none above the BF16_ATOL ceiling (written
+    so that NaN fails too)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if not (bool((diff <= rtol * w.abs() + F32_ATOL).all())
+            and err <= BF16_ATOL):
+        raise AssertionError(f"{what}: max abs err {err} over {rtol} |want| "
+                             f"+ {F32_ATOL}")
+    return err
 
-    results = {}
-    for name, prof in PROFILES.items():
-        segs, max_q = prof["segs"], prof["max_q"]
-        rows = valid_rows(segs, max_q)
-        res = {"max_q": max_q, "segments": segs}
-        for dtype, rtol, atol, tag in (
-                (torch.float32, 0.0, F32_ATOL, "f32"),
-                (torch.bfloat16, BF16_RTOL, F32_ATOL, "bf16")):
-            case = make_case(torch, segs, max_q, dtype, seed=len(segs))
-            got = ragged_paged_attention_cuda(**case, max_q=max_q)
-            want = ref.ragged_paged_reference(**case, max_q=max_q)
-            torch.cuda.synchronize()
-            g, w = got[rows].float(), want[rows].float()
-            diff = (g - w).abs()
-            err = float(diff.max())
+
+def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
+                  rows=None, library=None, timed=True, **info):
+    """One profile of one kernel: float32 and bfloat16 against the plain
+    version on the same inputs (only on ``rows`` of the output, the rest
+    exactly 0, when given); then in bfloat16 the kernel's, the plain
+    version's and (``library``) the yardstick call's median times beside
+    the bound."""
+    res = dict(info)
+    for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
+                             (torch.bfloat16, BF16_RTOL, "bf16")):
+        case = make(dtype)
+        got, want = run(case), plain(case)
+        torch.cuda.synchronize()
+        if rows is not None:
             gap = sorted(set(range(got.shape[0])) - set(rows))
             if gap and bool(got[gap].ne(0).any()):
-                raise AssertionError(f"{name}/{tag}: gap rows not zero")
-            # written so that NaN fails too
-            if not (bool((diff <= rtol * w.abs() + atol).all())
-                    and err <= BF16_ATOL):
-                raise AssertionError(f"{name}/{tag}: max abs err {err} over "
-                                     f"{rtol} |want| + {atol}")
-            res[f"max_abs_err_{tag}"] = err
-            if tag == "bf16" and name in TIMED:
-                res["ms"] = median_ms(torch, lambda: (
-                    ragged_paged_attention_cuda(**case, max_q=max_q)),
-                    TIMED_LAUNCHES)
-                res["plain_ms"] = median_ms(torch, lambda: (
-                    ref.ragged_paged_reference(**case, max_q=max_q)),
-                    PLAIN_LAUNCHES)
-                res.update(work(segs, max_q, 2))
-            del case, got, want
-        results[name] = res
-        emit("kernel_check", profile=name, atol_f32=F32_ATOL,
-             rtol_bf16=BF16_RTOL, atol_bf16=F32_ATOL, **res)
-    return results
+                raise AssertionError(f"{kernel}/{profile}/{tag}: gap rows "
+                                     "not zero")
+            got, want = got[rows], want[rows]
+        res[f"max_abs_err_{tag}"] = _compare(f"{kernel}/{profile}/{tag}",
+                                             got, want, rtol)
+        if tag == "bf16" and timed:
+            res["ms"] = median_ms(torch, lambda: run(case), TIMED_LAUNCHES)
+            res["plain_ms"] = median_ms(torch, lambda: plain(case),
+                                        PLAIN_LAUNCHES)
+            res["library_ms"] = (median_ms(torch, library(torch, case),
+                                           TIMED_LAUNCHES)
+                                 if library else None)
+            res.update(work_ms)
+        del case, got, want
+    emit("kernel_check", kernel=kernel, profile=profile, atol_f32=F32_ATOL,
+         rtol_bf16=BF16_RTOL, atol_bf16=F32_ATOL, **res)
+    return res
+
+
+def phase_kernel_check(torch) -> dict:
+    """{kernel: {profile: result}} for the three kernels."""
+    from repro_torch.kernels import (flash_attention, paged_decode_attention,
+                                     ragged_attention, ref)
+
+    out = {"ragged_paged_attention": {}, "paged_decode_attention": {},
+           "flash_attention": {}}
+    for name, prof in PROFILES.items():
+        segs, max_q = prof["segs"], prof["max_q"]
+        out["ragged_paged_attention"][name] = check_profile(
+            torch, "ragged_paged_attention", name,
+            lambda dt: make_case(torch, segs, max_q, dt, seed=len(segs)),
+            lambda c: ragged_attention.ragged_paged_attention_cuda(
+                **c, max_q=max_q),
+            lambda c: ref.ragged_paged_reference(**c, max_q=max_q),
+            work(segs, max_q, 2), rows=valid_rows(segs, max_q),
+            timed=name in TIMED, max_q=max_q, segments=segs)
+    out["paged_decode_attention"]["decode"] = check_profile(
+        torch, "paged_decode_attention", "decode",
+        lambda dt: make_decode_case(torch, DECODE_LENGTHS, dt, seed=8),
+        lambda c: paged_decode_attention.paged_decode_attention_cuda(**c),
+        lambda c: ref.paged_decode_reference(**c),
+        work_decode(DECODE_LENGTHS, 2), lengths=DECODE_LENGTHS,
+        split_keys=paged_decode_attention.SPLIT_KEYS)
+    for name, prof in FLASH_PROFILES.items():
+        out["flash_attention"][name] = check_profile(
+            torch, "flash_attention", name,
+            lambda dt: make_flash_case(torch, prof, dt, seed=prof["sq"]),
+            lambda c: flash_attention.flash_attention_cuda(**c),
+            lambda c: ref.mha_reference(**c),
+            work_flash(prof, 2), library=sdpa_call, **prof)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +383,20 @@ def phase_kernel_check(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 GEOMETRY = dict(max_slots=8, prefill_rows=2, chunk_size=128, page_size=16,
-                max_seq=2048, cache_layout="paged", unified=True)
+                max_seq=2048)
+MODES = {"unified": dict(cache_layout="paged", unified=True),
+         "paged": dict(cache_layout="paged", unified=False),
+         "dense": dict(cache_layout="dense", unified=False)}
+MAX_NEW = 32
+
+
+def kernel_modules():
+    """{kernel name: wrapper module}; each module's ``launches`` counts."""
+    from repro_torch.kernels import (flash_attention, paged_decode_attention,
+                                     ragged_attention)
+    return {"ragged_paged_attention": ragged_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "flash_attention": flash_attention}
 
 
 def make_requests(spec, n, max_new, seed):
@@ -238,69 +409,106 @@ def make_requests(spec, n, max_new, seed):
                     max_new_tokens=max_new) for _ in range(n)]
 
 
-def phase_serve_full(torch) -> int:
-    from repro_torch.configs import get_spec
-    from repro_torch.kernels import ragged_attention
-    from repro_torch.models import build_model
-    from repro_torch.serving import EngineConfig, Request, ServeEngine
-
-    spec = get_spec("minitron-8b")
-    t0 = time.perf_counter()
-    model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    cfg = EngineConfig(**GEOMETRY)
-    # warm-up on a throwaway engine (cuBLAS handles, first launches)
-    ServeEngine(model, cfg, device=DEV).serve(
-        [Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+def serve_counted(torch, model, spec, mode):
+    """Serve the 8 main-path requests through ``mode`` with every kernel
+    count set to 0 just before and read just after; every request must
+    finish with MAX_NEW tokens in the vocabulary."""
+    from repro_torch.serving import EngineConfig, ServeEngine
+    cfg = EngineConfig(**GEOMETRY, **MODES[mode])
     eng = ServeEngine(model, cfg, device=DEV)
-    reqs = make_requests(spec, 8, 32, seed=0)
+    reqs = make_requests(spec, 8, MAX_NEW, seed=0)
+    mods = kernel_modules()
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    ragged_attention.launches = 0
+    for mod in mods.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ragged_attention.launches
-    m = eng.metrics
+    counts = {name: mod.launches for name, mod in mods.items()}
     for r in reqs:
         if r.state != "done":
-            raise AssertionError(f"request {r.rid} not done ({r.state})")
-        hit_eos_or_cap = len(r.output) < 32 and (
-            len(r.prompt) + len(r.output) >= cfg.max_seq - 1)
-        if len(r.output) != 32 and not hit_eos_or_cap:
-            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens")
+            raise AssertionError(f"{mode}: request {r.rid} not done "
+                                 f"({r.state})")
+        if len(r.output) != MAX_NEW:
+            raise AssertionError(f"{mode}: request {r.rid}: "
+                                 f"{len(r.output)} tokens")
         if any(not 0 <= t < spec.vocab for t in r.output):
-            raise AssertionError(f"request {r.rid}: token out of range")
+            raise AssertionError(f"{mode}: request {r.rid}: token out of "
+                                 "range")
+    m = eng.metrics
+    s = m.summary(reqs)
+    stats = dict(mode=mode, requests=len(reqs),
+                 prompt_tokens=sum(len(r.prompt) for r in reqs),
+                 generated_tokens=m.generated_tokens, steps=m.steps,
+                 decode_steps=m.decode_steps, prefill_calls=m.prefill_calls,
+                 dispatches=m.dispatches, transfers_d2h=m.transfers_d2h,
+                 preemptions=m.preemptions, wall_s=wall,
+                 tokens_per_s=m.generated_tokens / wall,
+                 ttft_s_mean=s["ttft_s_mean"], tpot_s_mean=s["tpot_s_mean"],
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=counts)
+    return eng, stats
+
+
+def _expect(mode, counts, want):
+    if counts != want:
+        raise AssertionError(f"{mode}: kernel launches {counts}, expected "
+                             f"{want}")
+
+
+def phase_serve_full(torch, model, spec, init_s) -> dict:
+    """The unified engine; returns its kernel launch counts."""
+    from repro_torch.serving import EngineConfig, Request, ServeEngine
+
+    cfg = EngineConfig(**GEOMETRY, **MODES["unified"])
+    # warm-up on a throwaway engine (cuBLAS handles, first launches)
+    ServeEngine(model, cfg, device=DEV).serve(
+        [Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    eng, stats = serve_counted(torch, model, spec, "unified")
+    m = eng.metrics
     if m.transfers_d2h != m.dispatches:
         raise AssertionError(f"{m.transfers_d2h} transfers != "
                              f"{m.dispatches} dispatches")
     mixed = m.prefill_calls
     decode_only = m.dispatches - mixed
-    want = spec.n_layers * (2 * mixed + decode_only)
-    if launches != want:
-        raise AssertionError(f"ragged kernel launched {launches} times, "
-                             f"expected {want}")
-    s = m.summary(reqs)
+    _expect("unified", stats["launches"], {
+        "ragged_paged_attention": spec.n_layers * (2 * mixed + decode_only),
+        "paged_decode_attention": 0, "flash_attention": 0})
+    n_params = sum(p.numel() for p in model.parameters())
     emit("serve_full", model=spec.name, params=n_params,
-         weight_gb=n_params * 2 / 1e9, init_s=init_s,
-         requests=len(reqs),
-         prompt_tokens=sum(len(r.prompt) for r in reqs),
-         generated_tokens=m.generated_tokens, steps=m.steps,
-         mixed_steps=mixed, decode_only_steps=decode_only,
-         preemptions=m.preemptions, wall_s=wall,
-         tokens_per_s=m.generated_tokens / wall,
-         ttft_s_mean=s["ttft_s_mean"], tpot_s_mean=s["tpot_s_mean"],
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         ragged_launches=launches, ragged_launches_expected=want)
+         weight_gb=n_params * 2 / 1e9, init_s=init_s, mixed_steps=mixed,
+         decode_only_steps=decode_only, **stats)
+    del eng
     phase_serve_profile(torch, model, spec, cfg)
-    del model, eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    return stats["launches"]
+
+
+def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
+    """The two-dispatch engine in both layouts; returns each serve's
+    kernel launch counts."""
+    out = []
+    for mode in ("paged", "dense"):
+        eng, stats = serve_counted(torch, model, spec, mode)
+        m = eng.metrics
+        n = spec.n_layers
+        want = {"ragged_paged_attention": 0,
+                "paged_decode_attention": n * m.decode_steps,
+                "flash_attention": n * m.prefill_calls}
+        if mode == "dense":
+            want.update(paged_decode_attention=0,
+                        flash_attention=n * (m.prefill_calls
+                                             + m.decode_steps))
+        _expect(mode, stats["launches"], want)
+        emit("serve_two_dispatch", model=spec.name, **stats,
+             kv=eng.kv_stats())
+        out.append(stats["launches"])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _kernel_class(name: str) -> str:
@@ -381,6 +589,25 @@ def _last_logits(torch, model, tokens):
     return logits[0].float()
 
 
+def _ties(torch, model, prompts, a, b, what):
+    """Where outputs ``a`` and ``b`` part, the top-2 logit gap at the first
+    differing token; raises unless every divergence is a genuine tie."""
+    ties = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x == y:
+            continue
+        j = next(k for k in range(min(len(x), len(y))) if x[k] != y[k])
+        top2 = _last_logits(torch, model, prompts[i] + x[:j]).topk(2).values
+        gap = float(top2[0] - top2[1])
+        ties.append({"request": i, "position": j, "tokens": [x[j], y[j]],
+                     "top2_gap": gap})
+        if not gap < TIE_GAP:
+            raise AssertionError(f"serve_parity {what}: request {i} "
+                                 f"diverges at token {j} with top-2 gap "
+                                 f"{gap}")
+    return ties
+
+
 def phase_serve_parity(torch) -> None:
     from repro_torch.configs import get_spec
     from repro_torch.models import build_model
@@ -390,33 +617,50 @@ def phase_serve_parity(torch) -> None:
                                           n_layers=2)
     model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
     outs = {}
-    for impl in ("kernel", "plain"):
-        model.attn_impl = impl
-        reqs = make_requests(spec, 8, 16, seed=1)
-        ServeEngine(model, EngineConfig(**GEOMETRY), device=DEV).serve(reqs)
-        outs[impl] = [r.output for r in reqs]
-        prompts = [r.prompt for r in reqs]
+    for mode, kw in MODES.items():
+        for impl in ("kernel", "plain"):
+            model.attn_impl = impl
+            reqs = make_requests(spec, 8, 16, seed=1)
+            ServeEngine(model, EngineConfig(**GEOMETRY, **kw),
+                        device=DEV).serve(reqs)
+            outs[mode, impl] = [r.output for r in reqs]
+            prompts = [r.prompt for r in reqs]
     model.attn_impl = "plain"
-    ties = []
-    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
-        if a == b:
-            continue
-        j = next(k for k in range(min(len(a), len(b))) if a[k] != b[k])
-        top2 = _last_logits(torch, model, prompts[i] + a[:j]).topk(2).values
-        gap = float(top2[0] - top2[1])
-        ties.append({"request": i, "position": j, "kernel": a[j],
-                     "plain": b[j], "top2_gap": gap})
-        if not gap < TIE_GAP:
-            raise AssertionError(f"serve_parity: request {i} diverges at "
-                                 f"token {j} with top-2 gap {gap}")
+    pairs = [((mode, "kernel"), (mode, "plain")) for mode in MODES] + [
+        (("unified", "kernel"), (mode, "kernel")) for mode in ("paged",
+                                                                "dense")]
+    comparisons = {}
+    for a, b in pairs:
+        what = f"{'/'.join(a)} vs {'/'.join(b)}"
+        comparisons[what] = {
+            "identical": sum(x == y for x, y in zip(outs[a], outs[b])),
+            "ties": _ties(torch, model, prompts, outs[a], outs[b], what)}
     emit("serve_parity", model=spec.name, dtype="float32",
          requests=len(prompts),
-         identical=sum(a == b for a, b in zip(outs["kernel"],
-                                              outs["plain"])),
-         tokens=sum(len(o) for o in outs["kernel"]), ties=ties)
+         tokens=sum(len(o) for o in outs["unified", "kernel"]),
+         comparisons=comparisons)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def kernel_entry(name, mod, launches, profiles, top):
+    """The kernels line's entry of one kernel: ``top`` names the profile
+    whose numbers stand at the top level (all timed profiles follow)."""
+    timed = {p: r for p, r in profiles.items() if "ms" in r}
+    t = timed[top]
+    return {"name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches,
+            "max_abs_err": max(r["max_abs_err_bf16"]
+                               for r in profiles.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "top_profile": top,
+            "profiles": {p: {k: r[k] for k in
+                             ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "max_abs_err_f32",
+                              "max_abs_err_bf16")}
+                         for p, r in timed.items()}}
 
 
 def main() -> int:
@@ -425,43 +669,47 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, ragged_attention
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
 
+    mods = kernel_modules()
+    names = [Path(mod.SOURCE).stem for mod in mods.values()]
     t0 = time.perf_counter()
-    built = build.build("ragged_paged_attention")
-    build.load("ragged_paged_attention")
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    built = build.build_all(names)
+    for name in names:
+        build.load(name)
     emit("build", seconds=time.perf_counter() - t0,
-         compile_seconds=built.seconds,
-         library=str(built.path.relative_to(ROOT)), ptxas=ptxas,
-         nvidia_smi=smi)
+         compile_seconds={n: b.seconds for n, b in built.items()},
+         libraries=[str(b.path.relative_to(ROOT)) for b in built.values()],
+         ptxas={n: [ln.strip() for ln in b.log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for n, b in built.items()},
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     checks = phase_kernel_check(torch)
-    launches = phase_serve_full(torch)
+
+    spec = get_spec("minitron-8b")
+    t0 = time.perf_counter()
+    model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serves = [phase_serve_full(torch, model, spec, init_s)]
+    serves += phase_serve_two_dispatch(torch, model, spec)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_serve_parity(torch)
 
-    dec = checks["decode"]
-    kernels = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": ragged_attention.SOURCE,
-        "replaces": ragged_attention.REPLACES,
-        "launches": launches,
-        # the decode profile: the launch every serving step makes per layer
-        "max_abs_err": max(c["max_abs_err_bf16"] for c in checks.values()),
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": None,
-        "profiles": {name: {k: checks[name][k] for k in
-                            ("ms", "plain_ms", "bound_ms", "bound_by",
-                             "max_abs_err_f32", "max_abs_err_bf16")}
-                     for name in TIMED},
-    }]
+    launches = {name: sum(c[name] for c in serves) for name in mods}
+    tops = {"ragged_paged_attention": "decode",
+            "paged_decode_attention": "decode", "flash_attention": "prefill"}
+    kernels = [kernel_entry(name, mod, launches[name], checks[name],
+                            tops[name]) for name, mod in mods.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

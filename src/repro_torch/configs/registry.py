@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelSpec (+ reduced config).
 
 Only the architectures the port serves so far; the rest of the JAX
-registry waits for the modules they need (MoE, SSM, sliding window).
+registry waits for the modules they need (MoE, SSM).  mistral-7b-swa's
+sliding window is served by the dense two-dispatch engine only.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from ..core.modelspec import ModelSpec
 
 _ARCH_MODULES: dict[str, str] = {
     "minitron-8b": ".minitron_8b",
+    "mistral-7b-swa": ".mistral_7b_swa",
     "qwen1.5-0.5b": ".qwen15_05b",
 }
 

@@ -1,0 +1,305 @@
+// Paged decode attention for Hopper (sm_90a): the two-dispatch engine's
+// decode attention, one query token per slot against that slot's pages.
+//
+// Replaces the Pallas TPU kernel `_paged_decode_kernel` behind
+// `pallas_paged_decode_attention` (src/repro/kernels/decode_attention.py).
+// It computes the same function:
+//
+//   * q (B, 1, Hq, D); K/V in the resident pools (P, Hkv, page_size, D);
+//     key position p of slot b is row p % page_size of page
+//     page_table[b, p / page_size].
+//   * Slot b sees keys p < lengths[b] (clamped to max_pages * page_size,
+//     the width of its table row); pages at or past ceil(lengths / ps) are
+//     never read.  lengths == 0 writes zeros.
+//   * f32 online softmax with the finite NEG_INF.
+//
+// What bounds it on the H100: bytes.  A decode step reads every live
+// page's K and V once; its arithmetic (4 D operations per key per query
+// head) is two orders of magnitude below the tensor-core line.  The TPU
+// kernel walks (slot x KV head, page) in order on one core.  Walked that
+// way on Hopper (one block per slot and KV head, as the ragged kernel
+// does at decode shapes) 8 slots x 8 KV heads is 64 blocks for 132 SMs,
+// each walking up to 128 pages in a row.  So the walk is split
+// (flash-decode):
+//
+//   1. `paged_decode_split_kernel`, grid (B * Hkv, n_split): block
+//      (slot, KV head, split) walks the split_keys key positions of its
+//      split in 32-key tiles (register-staged, next tile in flight while
+//      the current one computes) and writes the unnormalised partial
+//      (m, l, acc) of each of the G query heads into f32 scratch.  Blocks
+//      whose split lies past the slot's length return at once.  Each warp
+//      owns ceil(G / 4) query heads, so at G = 4 all four warps compute.
+//   2. `paged_decode_combine_kernel`, grid (B * Hkv): rescales the used
+//      splits of each head to their common max and writes the output.
+//
+// The wrapper allocates the scratch (torch.empty) and counts the two
+// launches as one call.
+
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace attn;
+
+__device__ __forceinline__ int slot_keys(const int* lengths, int b,
+                                         int max_keys) {
+  return min(max(lengths[b], 0), max_keys);
+}
+
+// kC = ceil(D / 32); kR = query heads per warp (G <= 4 kR)
+template <typename T, int kC, int kR>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_split_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pool,
+                          const T* __restrict__ v_pool,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ m_part,
+                          float* __restrict__ l_part,
+                          float* __restrict__ acc_part, int hq, int hkv,
+                          int d, int n_pool, int ps, int max_pages,
+                          int split_keys, int n_split, float sm_scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kBlockM = kWarps * kR;
+
+  const int g = hq / hkv;
+  const int bh = blockIdx.x;
+  const int b = bh / hkv;
+  const int h = bh % hkv;
+  const int split = blockIdx.y;
+  const int n_keys = slot_keys(lengths, b, max_pages * ps);
+  const int k0 = split * split_keys;
+  if (k0 >= n_keys) return;  // the combine reads only used splits
+  const int k1 = min(n_keys, k0 + split_keys);
+
+  float* q_s = smem;                     // (kBlockM, d)
+  float* k_s = q_s + kBlockM * d;        // (kTileN, d + 4)
+  float* v_s = k_s + kTileN * (d + 4);   // (kTileN, d)
+  int* pt_s = reinterpret_cast<int*>(v_s + kTileN * d);  // page of each key
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int vec_per_row = d / kVec;
+
+  // the G query heads of KV head h, as f32; rows past G are zero
+  for (int idx = tid; idx < kBlockM * vec_per_row; idx += kThreads) {
+    const int r = idx / vec_per_row;
+    const int c = (idx % vec_per_row) * kVec;
+    float* dst = q_s + r * d + c;
+    if (r < g) {
+      load16(q + ((size_t)b * hq + h * g + r) * d + c, dst);
+    } else {
+      zero16<T>(dst);
+    }
+  }
+  // the page of every key of the split, once (a bad id reads as zeros)
+  for (int t = tid; t < k1 - k0; t += kThreads) {
+    const int p = page_table[(size_t)b * max_pages + (k0 + t) / ps];
+    pt_s[t] = (p < 0 || p >= n_pool) ? -1 : p;
+  }
+  __syncthreads();
+
+  Rows<kR, kC> st;
+  st.init();
+  const int wrow0 = warp * kR;
+  const bool warp_live = wrow0 < g;
+
+  TileStage<T, kC> stage;
+  auto fetch = [&](int base) {
+    stage.fetch(k_pool, v_pool, d, tid, [=](int t) -> long long {
+      const int pos = base + t;
+      const int page = pos < k1 ? pt_s[pos - k0] : -1;
+      return page < 0 ? -1
+                      : (((long long)page * hkv + h) * ps + pos % ps) * d;
+    });
+  };
+
+  fetch(k0);
+  for (int base = k0; base < k1; base += kTileN) {
+    __syncthreads();  // every warp is done with the previous tile
+    stage.stash(k_s, v_s, d, tid);
+    __syncthreads();  // the tile at `base` is in shared memory
+    if (base + kTileN < k1) fetch(base + kTileN);
+    if (!warp_live) continue;
+    const int pos = base + lane;
+    st.update(q_s + wrow0 * d, k_s, v_s, d, lane, min(kTileN, k1 - base),
+              sm_scale,
+              [=](int r, int) { return wrow0 + r < g && pos < k1; });
+  }
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int row = wrow0 + r;
+    if (row >= g) break;
+    const size_t idx = ((size_t)bh * n_split + split) * g + row;
+    if (lane == 0) {
+      m_part[idx] = st.m[r];
+      l_part[idx] = st.l[r];
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int dd = lane + 32 * c;
+      if (dd < d) acc_part[idx * d + dd] = st.acc[r][c];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_combine_kernel(const float* __restrict__ m_part,
+                            const float* __restrict__ l_part,
+                            const float* __restrict__ acc_part,
+                            const int* __restrict__ lengths,
+                            T* __restrict__ out, int hq, int hkv, int d,
+                            int max_keys, int split_keys, int n_split) {
+  extern __shared__ float w_s[];  // (n_split, G) weight of each partial
+  const int g = hq / hkv;
+  const int bh = blockIdx.x;
+  const int b = bh / hkv;
+  const int h = bh % hkv;
+  const int n_used =
+      (slot_keys(lengths, b, max_keys) + split_keys - 1) / split_keys;
+  const size_t base = (size_t)bh * n_split * g;
+
+  // per head: the common max, the total sum, then each split's weight
+  // exp(m_s - m) / l (every used split saw at least one key, so l > 0)
+  for (int row = threadIdx.x; row < g; row += blockDim.x) {
+    float m = kNegInf;
+    for (int s = 0; s < n_used; ++s) m = fmaxf(m, m_part[base + s * g + row]);
+    float l = 0.f;
+    for (int s = 0; s < n_used; ++s) {
+      const float w = expf(m_part[base + s * g + row] - m);
+      w_s[s * g + row] = w;
+      l += w * l_part[base + s * g + row];
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    for (int s = 0; s < n_used; ++s) w_s[s * g + row] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g * d; idx += blockDim.x) {
+    const int row = idx / d;
+    const int dd = idx % d;
+    float o = 0.f;
+    for (int s = 0; s < n_used; ++s) {
+      o += w_s[s * g + row] * acc_part[(base + s * g + row) * d + dd];
+    }
+    store(out + ((size_t)b * hq + h * g + row) * d + dd, o);
+  }
+}
+
+template <typename T, int kC, int kR>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   void* out, const void* page_table, const void* lengths,
+                   float* m_part, float* l_part, float* acc_part, int b,
+                   int hq, int hkv, int d, int n_pool, int ps, int max_pages,
+                   int split_keys, int n_split, float sm_scale,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(kWarps * kR, d)
+                      + sizeof(int) * (size_t)split_keys;
+  auto split = paged_decode_split_kernel<T, kC, kR>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem_w = sizeof(float) * (size_t)n_split * (hq / hkv);
+  auto combine = paged_decode_combine_kernel<T>;
+  if (smem_w > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        combine, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_w);
+    if (err != cudaSuccess) return err;
+  }
+  split<<<dim3(b * hkv, n_split), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int*>(page_table),
+      static_cast<const int*>(lengths), m_part, l_part, acc_part, hq, hkv, d,
+      n_pool, ps, max_pages, split_keys, n_split, sm_scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  combine<<<b * hkv, kThreads, smem_w, stream>>>(
+      m_part, l_part, acc_part, static_cast<const int*>(lengths),
+      static_cast<T*>(out), hq, hkv, d, max_pages * ps, split_keys, n_split);
+  return cudaGetLastError();
+}
+
+template <typename T, int kC>
+cudaError_t launch_g(int g, const void* q, const void* k_pool,
+                     const void* v_pool, void* out, const void* page_table,
+                     const void* lengths, float* m_part, float* l_part,
+                     float* acc_part, int b, int hq, int hkv, int d,
+                     int n_pool, int ps, int max_pages, int split_keys,
+                     int n_split, float sm_scale, cudaStream_t stream) {
+#define PDA_LAUNCH(R)                                                      \
+  return launch<T, kC, R>(q, k_pool, v_pool, out, page_table, lengths,    \
+                          m_part, l_part, acc_part, b, hq, hkv, d, n_pool, \
+                          ps, max_pages, split_keys, n_split, sm_scale,    \
+                          stream)
+  if (g <= 4) PDA_LAUNCH(1);
+  if (g <= 8) PDA_LAUNCH(2);
+  PDA_LAUNCH(4);
+#undef PDA_LAUNCH
+}
+
+template <typename T>
+cudaError_t launch_d(int d, int g, const void* q, const void* k_pool,
+                     const void* v_pool, void* out, const void* page_table,
+                     const void* lengths, float* m_part, float* l_part,
+                     float* acc_part, int b, int hq, int hkv, int n_pool,
+                     int ps, int max_pages, int split_keys, int n_split,
+                     float sm_scale, cudaStream_t stream) {
+#define PDA_LAUNCH_D(C)                                                    \
+  return launch_g<T, C>(g, q, k_pool, v_pool, out, page_table, lengths,   \
+                        m_part, l_part, acc_part, b, hq, hkv, d, n_pool,   \
+                        ps, max_pages, split_keys, n_split, sm_scale,      \
+                        stream)
+  if (d <= 32) PDA_LAUNCH_D(1);
+  if (d <= 64) PDA_LAUNCH_D(2);
+  if (d <= 128) PDA_LAUNCH_D(4);
+  PDA_LAUNCH_D(8);
+#undef PDA_LAUNCH_D
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  dtype: 0 = float32,
+// 1 = bfloat16.  Every pointer is a device pointer of a contiguous tensor;
+// m_part/l_part hold B * Hkv * n_split * G floats and acc_part that times D
+// (n_split = ceil(max_pages * ps / split_keys)).  Both launches go on
+// `stream` and nothing is synchronised.  Returns the cudaError_t of the
+// launches (0 = cudaSuccess).
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, void* out,
+    const void* page_table, const void* lengths, void* m_part, void* l_part,
+    void* acc_part, int b, int hq, int hkv, int d, int n_pool, int ps,
+    int max_pages, int split_keys, int dtype, float sm_scale, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > 16 || d <= 0 || d > 256
+      || d % 8 != 0 || ps <= 0 || max_pages <= 0 || split_keys <= 0
+      || split_keys % kTileN != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (b == 0) return (int)cudaSuccess;
+  const int n_split = (max_pages * ps + split_keys - 1) / split_keys;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  float* ap = static_cast<float*>(acc_part);
+  const int g = hq / hkv;
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_d<float>(d, g, q, k_pool, v_pool, out, page_table, lengths,
+                          mp, lp, ap, b, hq, hkv, n_pool, ps, max_pages,
+                          split_keys, n_split, sm_scale, st);
+  } else if (dtype == 1) {
+    err = launch_d<__nv_bfloat16>(d, g, q, k_pool, v_pool, out, page_table,
+                                  lengths, mp, lp, ap, b, hq, hkv, n_pool, ps,
+                                  max_pages, split_keys, n_split, sm_scale,
+                                  st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}

@@ -2,20 +2,23 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/repro_torch/<name>-<hash>.so`` at the repository root (a
-directory ``.gitignore`` lists).  The hash covers the source and the flags,
-so an edited source builds anew and an unchanged one loads from disk.  The
-build runs at first use, never at import: importing this module needs no
-compiler and no card.
+directory ``.gitignore`` lists).  The hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source builds anew and
+an unchanged one loads from disk.  Separate sources build in parallel
+(``build_all``).  The build runs at first use, never at import: importing
+this module needs no compiler and no card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -52,8 +55,10 @@ def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source and
     flag set exists; raises with nvcc's output when the compile fails."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return Built(out, 0.0, "")
@@ -71,6 +76,12 @@ def build(name: str) -> Built:
     return Built(out, time.perf_counter() - t0, proc.stderr)
 
 
+def build_all(names: list[str]) -> dict[str, Built]:
+    """Build several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 _LOADED: dict[str, tuple[ctypes.CDLL, Built]] = {}
 
 
@@ -80,3 +91,16 @@ def load(name: str) -> tuple[ctypes.CDLL, Built]:
         built = build(name)
         _LOADED[name] = (ctypes.CDLL(str(built.path)), built)
     return _LOADED[name]
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, symbol: str, argtypes: tuple) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` (built and loaded
+    at first use), returning a cudaError_t as int.  Pass every pointer and
+    the stream as ``ctypes.c_void_p``: a bare Python int would be cut to
+    32 bits."""
+    lib, _ = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,6 +1,8 @@
 """Public kernel API: route each call to the Hopper kernel or its plain
 version (the port of ``repro.kernels.ops``).
 
+  multi_head_attention   : attention over dense K/V (flash forward)
+  paged_decode_attention : one-token decode against the paged pools
   ragged_paged_attention : token-packed mixed decode + prefill attention
                            against the paged pools
 
@@ -8,7 +10,7 @@ version (the port of ``repro.kernels.ops``).
 card and takes the plain version only for tensors on the CPU; it never
 falls back from a failed launch.  ``impl="plain"`` selects the plain
 version on any device, explicitly (``chip_smoke.py`` uses it to hold the
-kernel's serving outputs against the plain path on the card).
+kernels' serving outputs against the plain path on the card).
 """
 
 from __future__ import annotations
@@ -16,9 +18,52 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import flash_attention_cuda
+from .paged_decode_attention import paged_decode_attention_cuda
 from .ragged_attention import ragged_paged_attention_cuda
 
 IMPLS = ("kernel", "plain")
+
+
+def _plain(impl: str, x: torch.Tensor, what: str) -> bool:
+    """True when this call takes the plain version."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown {what} impl {impl!r}; have {IMPLS}")
+    return impl == "plain" or x.device.type == "cpu"
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         sm_scale: float | None = None,
+                         window: int | None = None,
+                         kv_len: torch.Tensor | int | None = None,
+                         q_offset: torch.Tensor | int = 0,
+                         impl: str = "kernel") -> torch.Tensor:
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+    ``kv_len`` (scalar or (B,), default Skv) and ``q_offset`` (scalar or
+    (B,)) place the queries against the keys; ``window`` is the sliding
+    window (None: none)."""
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+              kv_len=kv_len, q_offset=q_offset)
+    if _plain(impl, q, "attention"):
+        return ref.mha_reference(q, k, v, **kw)
+    return flash_attention_cuda(q, k, v, **kw)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           sm_scale: float | None = None,
+                           impl: str = "kernel") -> torch.Tensor:
+    """q: (B, 1, Hq, D); k_pool, v_pool: (P, Hkv, page_size, D) resident
+    pools; page_table: (B, max_pages) int32 (page 0 = the null page);
+    lengths: (B,) int32 valid KV tokens, the token just inserted included.
+    Returns (B, 1, Hq, D)."""
+    if _plain(impl, q, "paged decode"):
+        return ref.paged_decode_reference(q, k_pool, v_pool, page_table,
+                                          lengths, sm_scale=sm_scale)
+    return paged_decode_attention_cuda(q, k_pool, v_pool, page_table,
+                                       lengths, sm_scale=sm_scale)
 
 
 def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -31,9 +76,7 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     resident pools; seg_page_table: (S, max_pages) int32 per-segment page
     ids; q_start/q_len/kv_len: (S,) int32 segment table; max_q: the q_len
     bound (the engine's chunk size).  Returns (T, Hq, D)."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown ragged paged impl {impl!r}; have {IMPLS}")
-    if impl == "plain" or q.device.type == "cpu":
+    if _plain(impl, q, "ragged paged"):
         return ref.ragged_paged_reference(q, k_pool, v_pool, seg_page_table,
                                           q_start, q_len, kv_len,
                                           max_q=max_q, sm_scale=sm_scale)

@@ -39,19 +39,8 @@ REPLACES = "src/repro/kernels/ragged_attention.py:52"  # _ragged_kernel
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib, _ = build.load("ragged_paged_attention")
-        fn = lib.ragged_paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 10
+             + (ctypes.c_float, ctypes.c_void_p))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -107,12 +96,13 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                        out.data_ptr(), seg_page_table.data_ptr(),
-                        q_start.data_ptr(), q_len.data_ptr(),
-                        kv_len.data_ptr(), t, s_count, hq, hkv, d, n_pool,
-                        ps, max_pages, max_q, _DTYPES[q.dtype], scale,
-                        stream)
+        fn = build.entry("ragged_paged_attention",
+                         "ragged_paged_attention_launch", _ARGTYPES)
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 out.data_ptr(), seg_page_table.data_ptr(),
+                 q_start.data_ptr(), q_len.data_ptr(), kv_len.data_ptr(), t,
+                 s_count, hq, hkv, d, n_pool, ps, max_pages, max_q,
+                 _DTYPES[q.dtype], scale, stream)
         launches += 1
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "

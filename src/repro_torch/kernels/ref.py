@@ -19,14 +19,17 @@ NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, sm_scale: float | None = None,
-                  kv_len: torch.Tensor | None = None,
+                  window: int | None = None,
+                  kv_len: torch.Tensor | int | None = None,
                   q_offset: torch.Tensor | int = 0) -> torch.Tensor:
     """Naive full-softmax multi-head attention with GQA.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq a multiple of Hkv.
-    ``kv_len``: (B,) valid (left-aligned) KV entries.  ``q_offset``: global
-    position of q[0] relative to kv[0], a scalar or (B,).  Returns
-    (B, Sq, Hq, D) in q's dtype.
+    ``window``: a key is visible only within ``window`` positions of its
+    query (sliding-window attention).  ``kv_len``: scalar or (B,) valid
+    (left-aligned) KV entries.  ``q_offset``: global position of q[0]
+    relative to kv[0], a scalar or (B,).  Returns (B, Sq, Hq, D) in q's
+    dtype; a row with no visible key is 0.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -44,6 +47,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     valid = torch.ones((b, sq, skv), dtype=torch.bool, device=dev)
     if causal:
         valid &= kpos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        valid &= (qpos[:, :, None] - kpos[None, None, :]) < window
     if kv_len is not None:
         kl = torch.as_tensor(kv_len, device=dev).reshape(-1).expand(b)
         valid &= kpos[None, None, :] < kl[:, None, None]
@@ -69,6 +74,21 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
     g = g.transpose(2, 3)  # (B, mp, ps, Hkv, ...)
     return g.reshape((b, mp * pool.shape[2], pool.shape[1])
                      + tuple(pool.shape[3:]))
+
+
+def paged_decode_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           sm_scale: float | None = None) -> torch.Tensor:
+    """Paged decode, the plain way: gather each slot's pages into a linear
+    (B, max_pages * page_size, Hkv, D) view, then masked decode attention.
+    q: (B, 1, Hq, D); k_pool, v_pool: (P, Hkv, page_size, D); page_table:
+    (B, max_pages) int32; lengths: (B,) valid KV tokens.  Returns
+    (B, 1, Hq, D)."""
+    return mha_reference(q, paged_gather(k_pool, page_table),
+                         paged_gather(v_pool, page_table), causal=True,
+                         sm_scale=sm_scale, kv_len=lengths,
+                         q_offset=lengths.long() - 1)
 
 
 def ragged_pack_indices(q_start: torch.Tensor, q_len: torch.Tensor,

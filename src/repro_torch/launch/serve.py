@@ -1,13 +1,18 @@
-"""Serving launcher: the port's unified paged engine as a CLI.
+"""Serving launcher: the port's serving engine as a CLI.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --arch minitron-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --layout dense --two-dispatch
 
-Serves random-weight models (weights drawn from seed 0) through
-``ServeEngine(EngineConfig(cache_layout="paged", unified=True))``.  The
-reduced config by default; ``--full`` serves the published width.  Runs on
-the card unless ``--device cpu`` is given (the CPU serves in float32).
-Prints per-request outputs and the engine's metrics.
+Serves random-weight models (weights drawn from seed 0).  By default
+through the unified paged engine, ``EngineConfig(cache_layout="paged",
+unified=True)``; ``--two-dispatch`` selects the two-dispatch engine in the
+``--layout`` given (``dense`` is the only layout that serves
+sliding-window models).  The reduced config by default; ``--full`` serves
+the published width.  Runs on the card unless ``--device cpu`` is given
+(the CPU serves in float32).  Prints per-request outputs and the engine's
+metrics.
 """
 
 from __future__ import annotations
@@ -37,6 +42,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument("--chunk", type=int, default=128)
+    ap.add_argument("--layout", default="paged", choices=("paged", "dense"),
+                    help="KV cache layout (dense needs --two-dispatch)")
+    ap.add_argument("--two-dispatch", action="store_true",
+                    help="separate prefill and decode dispatches (default: "
+                         "the unified token-packed step)")
     ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
 
@@ -47,7 +57,8 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model(spec, device=dev, dtype=dtype, seed=0)
     eng = ServeEngine(model, EngineConfig(
         max_slots=args.slots, chunk_size=args.chunk, max_seq=args.max_seq,
-        cache_layout="paged", unified=True), device=dev, seed=0)
+        cache_layout=args.layout, unified=not args.two_dispatch),
+        device=dev, seed=0)
 
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, spec.vocab,

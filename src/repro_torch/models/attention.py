@@ -1,16 +1,28 @@
-"""Grouped-query attention on the paged KV pools, token-packed mode (the
-port of ``repro.models.attention``'s unified-step path).
+"""Grouped-query attention with a KV cache (the port of
+``repro.models.attention``'s serving modes).
 
-The serving engine packs every active slot's decode token and every
-in-flight prompt's current prefill chunk into one ragged (T,) batch
-(:class:`PackedSegs`).  The packed path writes each token's K/V straight
-into its request's pages, then attends each segment against exactly the
-pages it owns through :func:`repro_torch.kernels.ops.ragged_paged_attention`.
+KV cache layouts:
 
-The pools use the resident (P, Hkv, page_size, D) layout: the head axis
-ahead of the page-token axis, so one (page, head) tile is contiguous.
+  dense : (B, T_max, Hkv, Dh) per layer (:class:`AttnCache`), left-aligned
+          with a per-row ``lengths`` vector.  Chunked prefill and decode
+          insert at ``lengths`` and attend with ``kv_len``/``q_offset``
+          masks through :func:`repro_torch.kernels.ops.multi_head_attention`.
+  paged : a flat (n_pages, Hkv, page_size, Dh) pool per layer
+          (:class:`PagedAttnCache`): the resident layout, head axis ahead of
+          the page-token axis, so one (page, head) tile is contiguous.
+          Decode scatters the new token into its slot's current page and
+          attends through the (B, max_pages) page table
+          (:func:`~repro_torch.kernels.ops.paged_decode_attention`); the
+          token-packed unified step (:class:`PackedSegs`) writes every
+          packed token's K/V straight into its request's pages and attends
+          each segment against exactly the pages it owns
+          (:func:`~repro_torch.kernels.ops.ragged_paged_attention`).
+
 Unlike the reference, whose arrays are immutable, the port writes new K/V
-into the pools in place (no copy of the pool per layer per step).
+into the caches in place (no copy of a cache per layer per step).  Writes
+clamp where the reference's ``dynamic_update_slice`` does, so an idle slot
+whose length has run past the cache writes at its last position, never
+outside its own row.
 """
 
 from __future__ import annotations
@@ -47,6 +59,20 @@ class PackedSegs:
 
 
 @dataclass
+class AttnCache:
+    """Per-layer dense KV cache: ``k``/``v`` are (B, T, Hkv, Dh)."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_attn_cache(spec: ModelSpec, batch: int, max_len: int, device,
+                    dtype) -> AttnCache:
+    shape = (batch, max_len, spec.n_kv_heads, spec.d_head)
+    return AttnCache(k=torch.zeros(shape, device=device, dtype=dtype),
+                     v=torch.zeros(shape, device=device, dtype=dtype))
+
+
+@dataclass
 class PagedAttnCache:
     """Per-layer paged KV pool: ``k``/``v`` are (n_pages, Hkv, page_size,
     Dh).  Page 0 is the reserved null page (see
@@ -64,6 +90,22 @@ def init_paged_attn_cache(spec: ModelSpec, n_pages: int, page_size: int,
     shape = (n_pages, spec.n_kv_heads, page_size, spec.d_head)
     return PagedAttnCache(k=torch.zeros(shape, device=device, dtype=dtype),
                           v=torch.zeros(shape, device=device, dtype=dtype))
+
+
+def paged_insert_rows(paged: PagedAttnCache, dense: AttnCache, row: int,
+                      pages: torch.Tensor) -> None:
+    """Scatter dense scratch row ``row`` into the pool pages named by
+    ``pages`` (in place).  ``pages`` is the (max_pages,) page ids covering
+    the request, 0-padded: the row's tail lands on the null page, many
+    times over, which leaves page 0 holding one of those writes and no
+    other request's page touched.  T must equal max_pages * page_size."""
+    ps = paged.page_size
+    idx = pages.long()
+    for pool, scr in ((paged.k, dense.k), (paged.v, dense.v)):
+        col = scr[row]  # (T, Hkv, Dh)
+        chunks = col.reshape((idx.shape[0], ps) + tuple(col.shape[1:]))
+        # (mp, ps, Hkv, Dh) -> the pool's resident (mp, Hkv, ps, Dh)
+        pool[idx] = chunks.transpose(1, 2).to(pool.dtype)
 
 
 class Attention(nn.Module):
@@ -90,8 +132,8 @@ class Attention(nn.Module):
 
 def _project_qkv(spec: ModelSpec, params: Attention, x: torch.Tensor,
                  positions: torch.Tensor):
-    """x: (T, D) packed tokens -> q (T, Hq, Dh), k, v (T, Hkv, Dh)."""
-    t = x.shape[0]
+    """x: (..., S, D) -> q (..., S, Hq, Dh), k, v (..., S, Hkv, Dh)."""
+    lead = tuple(x.shape[:-1])
     hq, hkv, dh = spec.n_heads, spec.n_kv_heads, spec.d_head
     h = rms_norm(x, params.norm)
     q = h @ params.wq
@@ -101,9 +143,9 @@ def _project_qkv(spec: ModelSpec, params: Attention, x: torch.Tensor,
         q = q + params.bq
         k = k + params.bk
         v = v + params.bv
-    q = q.reshape(t, hq, dh)
-    k = k.reshape(t, hkv, dh)
-    v = v.reshape(t, hkv, dh)
+    q = q.reshape(lead + (hq, dh))
+    k = k.reshape(lead + (hkv, dh))
+    v = v.reshape(lead + (hkv, dh))
     if spec.pos == "rope":
         q = apply_rope(q, positions, spec.rope_theta)
         k = apply_rope(k, positions, spec.rope_theta)
@@ -153,18 +195,107 @@ def _packed_paged_attention(cache: PagedAttnCache, q: torch.Tensor,
         packed.q_len, packed.kv_len, max_q=packed.max_q, impl=impl)
 
 
-def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
-                    positions: torch.Tensor, cache: PagedAttnCache,
-                    packed: PackedSegs, impl: str = "kernel"
-                    ) -> torch.Tensor:
-    """Packed unified step: x is the (T, D) token-packed mixed
-    decode+prefill batch; K/V go to pages (in place) and the ragged
-    attention serves every segment.  Returns the (T, D) attention output
-    (before the residual add)."""
+def _attend(spec: ModelSpec, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, *, kv_len=None, q_offset=0, impl: str
+            ) -> torch.Tensor:
+    """Attention over dense K/V, with the spec's sliding window."""
+    window = spec.attn.window if spec.attn.kind == "swa" else None
+    return kops.multi_head_attention(q, k, v, causal=spec.attn.causal,
+                                     window=window, kv_len=kv_len,
+                                     q_offset=q_offset, impl=impl)
+
+
+def _paged_attention(spec: ModelSpec, cache: PagedAttnCache,
+                     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, page_table: torch.Tensor,
+                     impl: str) -> torch.Tensor:
+    """Paged decode step: scatter the new token's K/V into its page (in
+    place), then attend against the pages the table names.  q: (B, 1, Hq,
+    Dh); k, v: (B, 1, Hkv, Dh)."""
+    if q.shape[1] != 1:
+        raise ValueError("the paged layout serves single-token decode; "
+                         "prefill runs on a dense scratch cache and is "
+                         "paged at insert")
     if spec.attn.kind == "swa":
+        # the reference's kernel route here takes no window while its
+        # gather route applies one; the two part once a context passes the
+        # window (ROADMAP section 3)
         raise NotImplementedError(
-            "the packed unified step has no sliding-window masking "
-            "(ROADMAP: queue 1, item 13)")
+            "sliding-window attention in the paged two-dispatch decode "
+            "(ROADMAP: section 3); serve it with cache_layout='dense'")
+    ps = cache.page_size
+    max_pages = page_table.shape[1]
+    b = q.shape[0]
+    pos = lengths.long()
+    # page of the token being written, clamped so a garbage slot past
+    # max_seq stays in bounds (its table row points at the null page)
+    page_idx = (pos // ps).clamp(max=max_pages - 1)
+    page_ids = page_table.long()[torch.arange(b, device=q.device), page_idx]
+    offs = pos % ps
+    cache.k[page_ids, :, offs] = k[:, 0].to(cache.k.dtype)
+    cache.v[page_ids, :, offs] = v[:, 0].to(cache.v.dtype)
+    return kops.paged_decode_attention(q, cache.k, cache.v, page_table,
+                                       lengths + 1, impl=impl)
+
+
+def _dense_cached_attention(spec: ModelSpec, cache: AttnCache,
+                            q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lengths: torch.Tensor,
+                            rows: torch.Tensor | None,
+                            impl: str) -> torch.Tensor:
+    """Prefill (lengths == 0), chunked-prefill continuation and decode
+    (S == 1) on the dense cache: insert the S new K/V rows at each row's
+    ``lengths`` (in place), then attend causally against the valid prefix.
+    ``rows`` (R,) names the batch rows whose K/V are written (None: all);
+    the others keep their cache bit for bit and their outputs are
+    unspecified."""
+    b, s = q.shape[:2]
+    t = cache.k.shape[1]
+    dev = q.device
+    sel = torch.arange(b, device=dev) if rows is None else rows.long()
+    if s == t:  # fresh full-width prefill: static insert, attend directly
+        cache.k[sel] = k[sel].to(cache.k.dtype)
+        cache.v[sel] = v[sel].to(cache.v.dtype)
+        return _attend(spec, q, k, v, impl=impl)
+    # start clamped to T - S, as dynamic_update_slice clamps it
+    start = lengths.long()[sel].clamp(0, t - s)
+    pos = start[:, None] + torch.arange(s, device=dev)
+    cache.k[sel[:, None], pos] = k[sel].to(cache.k.dtype)
+    cache.v[sel[:, None], pos] = v[sel].to(cache.v.dtype)
+    return _attend(spec, q, cache.k, cache.v, kv_len=lengths + s,
+                   q_offset=lengths, impl=impl)
+
+
+def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
+                    positions: torch.Tensor,
+                    cache: AttnCache | PagedAttnCache, *,
+                    lengths: torch.Tensor | None = None,
+                    page_table: torch.Tensor | None = None,
+                    packed: PackedSegs | None = None,
+                    rows: torch.Tensor | None = None,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Three cached modes, as the reference's:
+
+      * packed unified step (PagedAttnCache + ``packed``): x is the (T, D)
+        token-packed mixed decode+prefill batch; K/V go to pages and the
+        ragged attention serves every segment;
+      * paged decode (PagedAttnCache, x (B, 1, D)): scatter into the slot's
+        current page, attend through ``page_table``;
+      * dense (AttnCache, x (B, S, D)): prefill, chunked continuation or
+        decode at ``lengths``, writing only ``rows``.
+
+    Returns the attention output (before the residual add)."""
+    if packed is not None and spec.attn.kind == "swa":
+        raise NotImplementedError(
+            "the packed unified step has no sliding-window masking, as in "
+            "the reference")
     q, k, v = _project_qkv(spec, params, x, positions)
-    o = _packed_paged_attention(cache, q, k, v, packed, impl)
-    return o.reshape(x.shape[0], spec.n_heads * spec.d_head) @ params.wo
+    if packed is not None:
+        o = _packed_paged_attention(cache, q, k, v, packed, impl)
+    elif isinstance(cache, PagedAttnCache):
+        o = _paged_attention(spec, cache, q, k, v, lengths, page_table, impl)
+    else:
+        o = _dense_cached_attention(spec, cache, q, k, v, lengths, rows,
+                                    impl)
+    return o.reshape(tuple(x.shape[:-1]) + (spec.n_heads * spec.d_head,)) \
+        @ params.wo

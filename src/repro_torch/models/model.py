@@ -1,9 +1,15 @@
-"""Top-level model: embedding -> decoder stack -> head, with the unified
-serving step (the port of ``repro.models.model``'s paged packed path).
+"""Top-level model: embedding -> decoder stack -> head, with the serving
+steps (the port of ``repro.models.model``'s serving half).
 
     model = build_model(spec)                          # on the card, bf16
-    cache = model.init_cache(batch, max_len, page_size=16)
+    cache = model.init_cache(batch, max_len, layout="paged", page_size=16)
     logits, cache = model.unified_step(cache, tokens, positions, packed)
+    scratch = model.init_cache(rows, max_len, layout="dense")
+    logits, scratch = model.prefill_chunk(scratch, tokens)
+    logits, cache = model.decode_step(cache, tokens)
+
+Every step writes K/V into the cache's tensors in place and returns a
+``ModelCache`` holding the same layers and new lengths.
 """
 
 from __future__ import annotations
@@ -16,17 +22,19 @@ from torch import nn
 from ..core.modelspec import ModelSpec
 from ..device import resolve_device
 from . import transformer as T
-from .attention import PackedSegs, PagedAttnCache, init_paged_attn_cache
+from .attention import (AttnCache, PackedSegs, PagedAttnCache,
+                        init_attn_cache, init_paged_attn_cache)
 from .common import embed_init_, rms_norm, weight
 
 
 @dataclass
 class ModelCache:
-    """Serving cache.  The packed step reads each segment's pages from its
-    ``PackedSegs.page_table``, so unlike the reference's no slot page
-    table is kept here."""
-    layers: list[PagedAttnCache]  # one paged pool per attention layer
+    """Serving cache.  ``page_table`` is the (B, max_pages) int32 slot
+    table the paged decode reads (None for the dense layout; the packed
+    step reads each segment's pages from its ``PackedSegs.page_table``)."""
+    layers: list[AttnCache] | list[PagedAttnCache]  # one per layer
     lengths: torch.Tensor  # (B,) int32 valid tokens per slot
+    page_table: torch.Tensor | None = None
 
 
 class Model(nn.Module):
@@ -73,22 +81,86 @@ class Model(nn.Module):
         return rms_norm(h, self.final_norm) @ self._head_w()
 
     # -- serving ----------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, *, page_size: int = 16,
-                   n_pages: int | None = None) -> ModelCache:
-        """Paged serving cache: one (n_pages, Hkv, page_size, Dh) pool per
-        layer, sized by default to the dense reservation plus the null
-        page."""
+    def init_cache(self, batch: int, max_len: int, *, layout: str = "paged",
+                   page_size: int = 16, n_pages: int | None = None
+                   ) -> ModelCache:
+        """Serving cache.  ``layout="dense"``: one (batch, max_len, Hkv, Dh)
+        cache per layer.  ``layout="paged"``: one (n_pages, Hkv, page_size,
+        Dh) pool per layer, sized by default to the dense reservation plus
+        the null page, and a zero (batch, max_pages) page table."""
+        dev = self.device
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        if layout == "dense":
+            return ModelCache(
+                layers=[init_attn_cache(self.spec, batch, max_len, dev,
+                                        self.dtype)
+                        for _ in range(self.spec.n_layers)],
+                lengths=lengths)
+        if layout != "paged":
+            raise ValueError(f"unknown cache layout {layout!r}")
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {page_size}")
+        max_pages = max_len // page_size
         if n_pages is None:  # +1: reserved null page
-            n_pages = batch * (max_len // page_size) + 1
-        layers = [init_paged_attn_cache(self.spec, n_pages, page_size,
-                                        self.device, self.dtype)
+            n_pages = batch * max_pages + 1
+        layers = [init_paged_attn_cache(self.spec, n_pages, page_size, dev,
+                                        self.dtype)
                   for _ in range(self.spec.n_layers)]
-        return ModelCache(layers=layers,
-                          lengths=torch.zeros((batch,), dtype=torch.int32,
-                                              device=self.device))
+        return ModelCache(layers=layers, lengths=lengths,
+                          page_table=torch.zeros((batch, max_pages),
+                                                 dtype=torch.int32,
+                                                 device=dev))
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, cache: ModelCache,
+                lengths: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, ModelCache]:
+        """Process (B, S) prompts into a fresh dense cache and return the
+        logits at each row's last valid position.  ``lengths``: (B,) true
+        prompt lengths (right padding allowed; default the full width)."""
+        b, s = tokens.shape
+        dev = tokens.device
+        if lengths is None:
+            lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        positions = torch.arange(s, device=dev).expand(b, s)
+        x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
+                          positions, cache.layers,
+                          lengths=torch.zeros((b,), dtype=torch.int32,
+                                              device=dev),
+                          impl=self.attn_impl)
+        x = x[torch.arange(b, device=dev), lengths.long() - 1]
+        return self._logits(x), ModelCache(layers=cache.layers,
+                                           lengths=lengths,
+                                           page_table=cache.page_table)
+
+    @torch.no_grad()
+    def prefill_chunk(self, cache: ModelCache, tokens: torch.Tensor, *,
+                      rows: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, ModelCache]:
+        """Chunked-prefill continuation on a dense cache: the next (B, S)
+        tokens of each row from its ``cache.lengths``.  ``rows`` (R,) names
+        the rows whose state advances (their K/V written, their lengths
+        moved on by S); the others keep theirs bit for bit, as the
+        reference's masked ``jnp.where`` keeps them (None: every row).
+        Returns the (B, V) logits at each row's last chunk position (rows
+        outside ``rows`` are unspecified) and the cache."""
+        b, s = tokens.shape
+        dev = tokens.device
+        positions = cache.lengths[:, None].long() + torch.arange(s,
+                                                                 device=dev)
+        x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
+                          positions, cache.layers, lengths=cache.lengths,
+                          page_table=cache.page_table, rows=rows,
+                          impl=self.attn_impl)
+        if rows is None:
+            lengths = cache.lengths + s
+        else:
+            lengths = cache.lengths.clone()
+            lengths[rows] += s
+        return self._logits(x[:, -1]), ModelCache(
+            layers=cache.layers, lengths=lengths,
+            page_table=cache.page_table)
 
     @torch.no_grad()
     def unified_step(self, cache: ModelCache, tokens: torch.Tensor,
@@ -101,7 +173,7 @@ class Model(nn.Module):
         slot lengths advanced for the decode segments that ran)."""
         x = self.embed[tokens.long()]
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          packed, self.attn_impl)
+                          packed=packed, impl=self.attn_impl)
         # each segment's logits come from its last valid packed position
         # (inactive segments produce garbage rows the engine ignores)
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
@@ -109,7 +181,23 @@ class Model(nn.Module):
         b = cache.lengths.shape[0]
         lengths = torch.where(packed.q_len[:b] > 0, packed.kv_len[:b],
                               cache.lengths)
-        return logits, ModelCache(layers=cache.layers, lengths=lengths)
+        return logits, ModelCache(layers=cache.layers, lengths=lengths,
+                                  page_table=cache.page_table)
+
+    @torch.no_grad()
+    def decode_step(self, cache: ModelCache, tokens: torch.Tensor
+                    ) -> tuple[torch.Tensor, ModelCache]:
+        """One autoregressive step for every slot: (B, 1) tokens at each
+        slot's ``cache.lengths`` -> (B, V) logits.  Every slot's length
+        advances, idle ones too, as in the reference (their writes clamp
+        inside their own row, or land on the null page)."""
+        x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
+                          cache.lengths[:, None], cache.layers,
+                          lengths=cache.lengths, page_table=cache.page_table,
+                          impl=self.attn_impl)
+        return self._logits(x)[:, 0], ModelCache(
+            layers=cache.layers, lengths=cache.lengths + 1,
+            page_table=cache.page_table)
 
 
 def build_model(spec: ModelSpec, device: str | torch.device | None = None,

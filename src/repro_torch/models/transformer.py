@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from ..core.modelspec import ModelSpec
-from .attention import Attention, PackedSegs, PagedAttnCache, attention_block
+from .attention import (Attention, AttnCache, PackedSegs, PagedAttnCache,
+                        attention_block)
 from .mlp import MLP, mlp_block
 
 
@@ -79,24 +80,34 @@ class Layer(nn.Module):
 
 
 def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
-               positions: torch.Tensor, cache: PagedAttnCache,
-               packed: PackedSegs, impl: str) -> torch.Tensor:
+               positions: torch.Tensor, cache: AttnCache | PagedAttnCache,
+               **attn_kw) -> torch.Tensor:
     if layer.cls.kind != "attn":
         raise NotImplementedError(
-            "the token-packed unified step supports attention-only "
-            f"stacks; layer kind {layer.cls.kind!r} carries sequential state")
-    x = x + attention_block(spec, layer.mixer, x, positions, cache, packed,
-                            impl)
+            "the port's stacks are attention-only; layer kind "
+            f"{layer.cls.kind!r} carries sequential state")
+    x = x + attention_block(spec, layer.mixer, x, positions, cache,
+                            **attn_kw)
     if layer.ffn is not None:
         x = x + mlp_block(spec, layer.ffn, x)
     return x
 
 
 def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
-                positions: torch.Tensor, caches: list[PagedAttnCache],
-                packed: PackedSegs, impl: str = "kernel") -> torch.Tensor:
-    """Run every layer over the (T, D) packed batch; each layer writes its
-    K/V into its own pool (in place)."""
+                positions: torch.Tensor,
+                caches: list[AttnCache] | list[PagedAttnCache], *,
+                lengths: torch.Tensor | None = None,
+                page_table: torch.Tensor | None = None,
+                packed: PackedSegs | None = None,
+                rows: torch.Tensor | None = None,
+                impl: str = "kernel") -> torch.Tensor:
+    """Run every layer; each writes its K/V into its own cache (in place).
+    ``lengths``/``page_table`` are the (B,) valid tokens and the shared
+    (B, max_pages) page table; ``packed`` the shared segment table when x
+    is a token-packed unified step; ``rows`` the dense rows whose K/V a
+    chunk writes (see :func:`attention_block`)."""
     for layer, cache in zip(layers, caches, strict=True):
-        x = _apply_one(spec, layer, x, positions, cache, packed, impl)
+        x = _apply_one(spec, layer, x, positions, cache, lengths=lengths,
+                       page_table=page_table, packed=packed, rows=rows,
+                       impl=impl)
     return x

@@ -1,29 +1,36 @@
-"""Continuous-batching serving engine, unified token-packed paged path (the
-port of ``repro.serving.engine`` with ``cache_layout="paged",
-unified=True``).
+"""Continuous-batching serving engine (the port of
+``repro.serving.engine``).
 
-Slot-based continuous batching: a fixed pool of decode slots shares one
-paged KV pool per layer; prompts are prefilled in ``chunk_size`` pieces by
-up to ``prefill_rows`` concurrent prefill rows.  Every engine step packs
-all active slots' decode tokens and every in-flight prompt's current chunk
-into one fixed ragged layout (slot s's token at offset s, prefill row r's
-chunk at ``max_slots + r * chunk_size``; partial chunks masked by the
-per-segment ``q_len``), runs one forward that writes prefill K/V straight
-into their pages, samples every segment on the device, and copies the
-sampled token vector to the host once.  ``EngineMetrics.dispatches`` and
-``transfers_d2h`` count one each per step, as the reference does: here a
-"dispatch" is one eager forward + sample, not one compiled program
-(capturing it as one CUDA graph is later work).
+Slot-based continuous batching: a fixed pool of ``max_slots`` decode slots;
+prompts are prefilled in ``chunk_size`` pieces by up to ``prefill_rows``
+concurrent prefill rows.  Two engines, as in the reference:
 
-Two packed profiles, as in the reference: the mixed decode+prefill layout,
-and a decode-only layout (T = max_slots, max_q = 1) when no prefill is in
-flight.  Pages are allocated on append and freed on finish; when the pool
-runs dry the youngest active request is preempted back to the queue
-(recompute-style, so greedy outputs are unchanged).
+* **Unified** (``cache_layout="paged", unified=True``): every step packs
+  all active slots' decode tokens and every in-flight prompt's current
+  chunk into one fixed ragged layout (slot s's token at offset s, prefill
+  row r's chunk at ``max_slots + r * chunk_size``), runs one forward that
+  writes prefill K/V straight into their pages, samples every segment on
+  the device and copies the sampled tokens to the host once.  Two packed
+  profiles: mixed decode+prefill, and decode-only (T = max_slots) when no
+  prefill is in flight.
+* **Two-dispatch** (``unified=False``, either layout; the default
+  ``EngineConfig()`` is the dense one): prefill runs on a dense scratch
+  cache of ``prefill_rows`` rows, one batched chunk call per chunk width
+  (rows at other widths keep their state), and a completed prompt is copied
+  into its decode slot (the dense layout) or scattered into its pages (the
+  paged layout).  Decode is one ``decode_step`` over every slot and one
+  sample, in ``decode_priority`` order with the prefill.
+
+In the paged layout pages are allocated on append and freed on finish;
+when the pool runs dry the youngest active request is preempted back to
+the queue (recompute-style, so greedy outputs are unchanged).
 
 The scheduler is pure Python over host mirrors (numpy), identical to the
-reference's, so the port's step, preemption and dispatch counts equal the
-reference engine's for the same requests.
+reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
+exactly where the reference counts them, so the port's step, preemption
+and dispatch counts equal the reference engine's for the same requests.
+Here a "dispatch" is one eager call (a forward, a sample, an insert or a
+row reset), not one compiled program.
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.attention import PackedSegs
-from ..models.model import Model
+from ..models.attention import PackedSegs, paged_insert_rows
+from ..models.model import Model, ModelCache
 from .paging import PageAllocator
 from .sampling import SamplingConfig, sample_slots
 
@@ -77,9 +84,9 @@ class Request:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The reference's fields and defaults.  The port serves only
-    ``cache_layout="paged", unified=True``; the other modes are refused by
-    name (see :class:`ServeEngine`)."""
+    """The reference's fields and defaults.  The port serves the unified
+    paged engine and the two-dispatch engine in both layouts; the other
+    modes are refused by name (see :class:`ServeEngine`)."""
     max_slots: int = 8
     max_seq: int = 512
     chunk_size: int = 128
@@ -175,14 +182,13 @@ class EngineMetrics:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: queue 1, {item}); the port "
-        "serves EngineConfig(cache_layout='paged', unified=True)")
+        f"{what} is not ported yet (ROADMAP: queue 1, {item})")
 
 
 class ServeEngine:
-    """The unified paged engine.  ``device`` defaults to the card (raises
-    without one) and must be where ``model`` lives; ``seed`` seeds the
-    engine's generator for stochastic sampling."""
+    """The serving engine.  ``device`` defaults to the card (raises without
+    one) and must be where ``model`` lives; ``seed`` seeds the engine's
+    generator for stochastic sampling."""
 
     def __init__(self, model: Model, config: EngineConfig, *,
                  device: str | torch.device | None = None, seed: int = 0):
@@ -198,10 +204,10 @@ class ServeEngine:
             raise ValueError("EngineConfig.n_spec must be >= 0")
         if config.tp < 1 or config.pp < 1:
             raise ValueError("EngineConfig tp/pp must be >= 1")
-        if config.cache_layout != "paged" or not config.unified:
-            _refuse("the dense layout and the two-dispatch engine "
-                    f"(cache_layout={config.cache_layout!r}, "
-                    f"unified={config.unified})", "item 9")
+        if config.unified and config.cache_layout != "paged":
+            raise ValueError(
+                "unified=True needs cache_layout='paged': the packed step "
+                "writes prefill K/V directly into KV pages")
         if config.prefix_cache:
             _refuse("prefix_cache=True", "item 6")
         if config.n_spec:
@@ -216,9 +222,20 @@ class ServeEngine:
             _refuse(f"MoE layers ({spec.name!r})", "item 8")
         if any(k != "attn" for k in spec.layer_kinds()):
             _refuse(f"SSM layers ({spec.name!r})", "item 13")
-        if spec.attn.kind == "swa":
-            _refuse(f"sliding-window attention ({spec.name!r})", "item 13")
-        if config.max_seq % config.page_size:
+        self.unified = config.unified
+        self.paged = config.cache_layout == "paged"
+        if spec.attn.kind == "swa" and self.unified:
+            raise NotImplementedError(
+                f"sliding-window attention ({spec.name!r}): the unified "
+                "step has no sliding-window masking, as in the reference; "
+                "serve it with cache_layout='dense'")
+        if spec.attn.kind == "swa" and self.paged:
+            raise NotImplementedError(
+                f"sliding-window attention ({spec.name!r}) in the paged "
+                "two-dispatch decode (ROADMAP: section 3, the reference's "
+                "kernel and gather routes disagree there); serve it with "
+                "cache_layout='dense'")
+        if self.paged and config.max_seq % config.page_size:
             raise ValueError("paged layout needs max_seq to be a multiple "
                              "of page_size")
         self.device = resolve_device(device)
@@ -237,14 +254,28 @@ class ServeEngine:
         self.metrics = EngineMetrics()
 
         self.max_pages = config.max_seq // config.page_size
-        n_pages = config.n_pages
-        if n_pages is None:  # capacity-equivalent to dense (+ null page)
-            n_pages = config.max_slots * self.max_pages + 1
-        self.pager = PageAllocator(n_pages=n_pages, page_size=config.page_size)
-        self._ptab = np.zeros((config.max_slots, self.max_pages), np.int32)
-        self.cache = model.init_cache(config.max_slots, config.max_seq,
-                                      page_size=config.page_size,
-                                      n_pages=n_pages)
+        self.pager: PageAllocator | None = None
+        self._ptab = None  # host mirror of the slot page table
+        self._ptab_dirty = False
+        if self.paged:
+            n_pages = config.n_pages
+            if n_pages is None:  # capacity-equivalent to dense (+ null page)
+                n_pages = config.max_slots * self.max_pages + 1
+            self.pager = PageAllocator(n_pages=n_pages,
+                                       page_size=config.page_size)
+            self._ptab = np.zeros((config.max_slots, self.max_pages),
+                                  np.int32)
+            self.cache = model.init_cache(config.max_slots, config.max_seq,
+                                          layout="paged",
+                                          page_size=config.page_size,
+                                          n_pages=n_pages)
+        else:
+            self.cache = model.init_cache(config.max_slots, config.max_seq,
+                                          layout="dense")
+        # two-dispatch prefill runs on dense scratch rows (the unified step
+        # writes prefill K/V straight into pages and has none)
+        self.scratch = None if self.unified else model.init_cache(
+            config.prefill_rows, config.max_seq, layout="dense")
         # prefill bookkeeping: prefill row -> in-flight request / position
         self._prefills: dict[int, Request] = {}
         self._prefill_pos: dict[int, int] = {}
@@ -269,6 +300,11 @@ class ServeEngine:
         self._topks = np.zeros((config.max_slots,), np.int32)
         self._topps = np.ones((config.max_slots,), np.float32)
         self._lengths = np.zeros((config.max_slots,), np.int64)
+        # two-dispatch device mirrors: the sampling parameters (change only
+        # on slot churn) and the next-token feed (the previous decode's
+        # samples, kept on the device); None = stale, upload from the host
+        self._dev_sampling = None
+        self._dev_tokens = None
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
         """Host -> device copy of a packed-step input (always a copy: the
@@ -278,16 +314,17 @@ class ServeEngine:
     # -- public API -------------------------------------------------------
     def submit(self, req: Request) -> int:
         req.rid = next(self._ids)
-        need = self.pager.pages_for(len(req.prompt) + 1)
-        limit = min(self.max_pages, self.pager.usable_pages)
-        if need > limit:
-            cap = limit * self.cfg.page_size
-            raise ValueError(
-                f"request {req.rid}: prompt of {len(req.prompt)} tokens "
-                f"needs {need} KV pages but per-request capacity is "
-                f"{limit} pages = {cap} tokens (max_pages={self.max_pages} "
-                f"x page_size={self.cfg.page_size}, usable pool="
-                f"{self.pager.usable_pages})")
+        if self.paged:
+            need = self.pager.pages_for(len(req.prompt) + 1)
+            limit = min(self.max_pages, self.pager.usable_pages)
+            if need > limit:
+                cap = limit * self.cfg.page_size
+                raise ValueError(
+                    f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                    f"needs {need} KV pages but per-request capacity is "
+                    f"{limit} pages = {cap} tokens (max_pages="
+                    f"{self.max_pages} x page_size={self.cfg.page_size}, "
+                    f"usable pool={self.pager.usable_pages})")
         req.state = "queued"
         req.submit_t = time.perf_counter()
         self.queue.append(req)
@@ -302,19 +339,24 @@ class ServeEngine:
     # -- scheduling -------------------------------------------------------
     def _admit(self) -> None:
         """Every free prefill row takes a queued prompt, as long as a decode
-        slot is guaranteed at completion and the pool has pages for the
-        prompt plus one token of headroom (reserved up front)."""
+        slot is guaranteed at completion and, in the paged layout, the pool
+        has pages for the prompt plus one token of headroom (reserved up
+        front).  A two-dispatch row is zeroed for its new prompt."""
         while (self.queue and self._free_rows
                and len(self.active) + len(self._prefills)
                < self.cfg.max_slots):
             req = self.queue[0]
-            if not self.pager.ensure(req.rid, len(self._src(req)) + 1):
+            if self.paged and not self.pager.ensure(req.rid,
+                                                    len(self._src(req)) + 1):
                 break  # pool dry: wait for frees (decode keeps running)
             self.queue.popleft()
             row = self._free_rows.pop()
             self._prefills[row] = req
             self._prefill_pos[row] = req.n_cached
             req.state = "prefill"
+            if not self.unified:
+                self._reset_row(row)
+                self.metrics.dispatches += 1
 
     def _ptab_row(self, rid: int) -> np.ndarray:
         """One (max_pages,) page-table row of ``rid``'s pages, in token
@@ -325,11 +367,14 @@ class ServeEngine:
         return row
 
     def _release_slot(self, slot: int, req: Request) -> None:
-        """Free-on-finish: the slot and every page the request holds; the
-        slot's table row falls back to the null page."""
+        """Free-on-finish: the slot and (paged) every page the request
+        holds; the slot's table row falls back to the null page, so the
+        now idle decode row writes somewhere harmless."""
         self.free_slots.append(slot)
-        self.pager.release(req.rid)
-        self._ptab[slot] = 0
+        if self.paged:
+            self.pager.release(req.rid)
+            self._ptab[slot] = 0
+            self._ptab_dirty = True
 
     def _preempt(self, slot: int) -> None:
         """Push an active request back to the queue head and free its
@@ -371,6 +416,7 @@ class ServeEngine:
                 held = len(self.pager.owned(req.rid))
                 if held != int(np.count_nonzero(self._ptab[slot])):
                     self._ptab[slot] = self._ptab_row(req.rid)
+                    self._ptab_dirty = True
 
     def _finish_decode_slots(self, toks: np.ndarray, now: float) -> None:
         """Append each active slot's sampled token, advance lengths, exit
@@ -393,10 +439,13 @@ class ServeEngine:
             else:
                 self._tokens[slot, 0] = tok
 
-    def _promote_prefill(self, row: int, tok: int, now: float) -> None:
+    def _promote_prefill(self, row: int, tok: int, now: float,
+                         install) -> None:
         """Record the first token and move the request from its prefill row
-        into a decode slot: its pages already hold the prompt's KV, so the
-        move is host bookkeeping (the slot's page-table row)."""
+        into a decode slot.  ``install(req, slot, row)`` puts the request's
+        KV where the slot will read it (a device insert on the two-dispatch
+        path; a host page-table row on the unified path, whose pages
+        already hold it)."""
         req = self._prefills.pop(row)
         del self._prefill_pos[row]
         src_len = len(self._src(req))
@@ -407,7 +456,7 @@ class ServeEngine:
         self.metrics.generated_tokens += 1
         slot = self.free_slots.pop()
         req.slot = slot
-        self._ptab[slot] = self._ptab_row(req.rid)
+        install(req, slot, row)
         self._free_rows.append(row)
         self._lengths[slot] = src_len
         if (len(req.output) >= req.max_new_tokens
@@ -423,6 +472,147 @@ class ServeEngine:
         self._temps[slot] = req.sampling.temperature
         self._topks[slot] = req.sampling.top_k
         self._topps[slot] = req.sampling.top_p
+        # slot churn: the two-dispatch device mirrors are stale
+        self._dev_sampling = None
+        self._dev_tokens = None
+
+    # -- two-dispatch device work -----------------------------------------
+    def _reset_row(self, row: int) -> None:
+        """Zero one scratch row (claimed by a newly admitted prompt)."""
+        for layer in self.scratch.layers:
+            layer.k[row].zero_()
+            layer.v[row].zero_()
+        self.scratch.lengths[row] = 0
+
+    def _prefill_masked(self, tokens: np.ndarray, rows: list[int]
+                        ) -> torch.Tensor:
+        """One batched chunk over all scratch rows; only ``rows`` advance
+        (the others, idle or mid-prefill at another width, keep their K/V
+        and lengths).  Returns the (prefill_rows, V) last-position logits."""
+        logits, self.scratch = self.model.prefill_chunk(
+            self.scratch, self._up(tokens),
+            rows=self._up(np.asarray(rows, np.int64)))
+        return logits
+
+    def _insert(self, slot: int, row: int) -> None:
+        """Copy scratch row ``row`` (K/V and length) into decode slot
+        ``slot`` of the dense cache."""
+        for big, small in zip(self.cache.layers, self.scratch.layers):
+            big.k[slot].copy_(small.k[row])
+            big.v[slot].copy_(small.v[row])
+        self.cache.lengths[slot] = self.scratch.lengths[row]
+
+    def _insert_paged(self, slot: int, row: int, pages: np.ndarray) -> None:
+        """Scatter scratch row ``row`` into the pool pages named by
+        ``pages`` and install the slot's length and page-table row on the
+        device (so the table needs no separate upload)."""
+        pages_dev = self._up(pages)
+        for big, small in zip(self.cache.layers, self.scratch.layers):
+            paged_insert_rows(big, small, row, pages_dev)
+        self.cache.lengths[slot] = self.scratch.lengths[row]
+        self.cache.page_table[slot] = pages_dev
+
+    def _sync_page_table(self) -> None:
+        if self._ptab_dirty:
+            self.cache = ModelCache(layers=self.cache.layers,
+                                    lengths=self.cache.lengths,
+                                    page_table=self._up(self._ptab))
+            self._ptab_dirty = False
+
+    # -- two-dispatch prefill ---------------------------------------------
+    def _prefill_step(self) -> None:
+        """Advance every in-flight prefill by one chunk.  Rows are grouped
+        by this step's chunk width (the final chunk runs at its exact
+        width, no padding); each group advances in one batched call."""
+        if not self._prefills:
+            return
+        groups: dict[int, list[int]] = {}
+        for row in sorted(self._prefills):
+            req = self._prefills[row]
+            w = min(self.cfg.chunk_size,
+                    len(self._src(req)) - self._prefill_pos[row])
+            groups.setdefault(w, []).append(row)
+        for w in sorted(groups):
+            self._prefill_chunk_group(w, groups[w])
+
+    def _prefill_chunk_group(self, w: int, rows: list[int]) -> None:
+        toks = np.zeros((self.cfg.prefill_rows, w), np.int32)
+        for row in rows:
+            lo = self._prefill_pos[row]
+            toks[row] = self._src(self._prefills[row])[lo:lo + w]
+        logits = self._prefill_masked(toks, rows)
+        self.metrics.prefill_calls += 1
+        self.metrics.prefill_tokens += w * len(rows)
+        self.metrics.dispatches += 1
+        finishing = []
+        for row in rows:
+            self._prefill_pos[row] += w
+            if self._prefill_pos[row] >= len(self._src(self._prefills[row])):
+                finishing.append(row)
+        if finishing:
+            self._finish_prefills(finishing, logits)
+
+    def _finish_prefills(self, rows: list[int], logits: torch.Tensor
+                         ) -> None:
+        """Sample first tokens for the completing prompts (one batched call,
+        one transfer) and move them into decode slots."""
+        nrows = self.cfg.prefill_rows
+        temps = np.zeros((nrows,), np.float32)
+        topks = np.zeros((nrows,), np.int32)
+        topps = np.ones((nrows,), np.float32)
+        for row in rows:
+            s = self._prefills[row].sampling
+            temps[row] = s.temperature
+            topks[row] = s.top_k
+            topps[row] = s.top_p
+        first = sample_slots(logits, self._up(temps), self._up(topks),
+                             self._up(topps), self.generator).cpu().numpy()
+        self.metrics.dispatches += 1
+        self.metrics.transfers_d2h += 1
+        now = time.perf_counter()
+
+        def install(req, slot, row):
+            """Device insert: copy the scratch row into the decode cache
+            (scattered into the request's pages in the paged layout)."""
+            if self.paged:
+                pages = self._ptab_row(req.rid)
+                self._ptab[slot] = pages
+                self._insert_paged(slot, row, pages)
+            else:
+                self._insert(slot, row)
+            self.metrics.dispatches += 1
+
+        for row in rows:
+            # repro-lint: disable=RPL202 — `first` is the host copy above
+            self._promote_prefill(row, int(first[row]), now, install)
+
+    # -- two-dispatch decode ----------------------------------------------
+    def _decode_step(self) -> None:
+        """All slots: one decode step + per-slot sampling, one device->host
+        copy of the sampled tokens.  The samples stay on the device as the
+        next step's feed; only slot churn re-uploads the host mirror."""
+        if not self.active:
+            return
+        if self.paged:
+            self._grow_pages()
+            self._sync_page_table()
+            if not self.active:
+                return
+        if self._dev_sampling is None:
+            self._dev_sampling = (self._up(self._temps),
+                                  self._up(self._topks),
+                                  self._up(self._topps))
+        feed = self._dev_tokens
+        if feed is None:
+            feed = self._up(self._tokens)
+        logits, self.cache = self.model.decode_step(self.cache, feed)
+        sampled = sample_slots(logits, *self._dev_sampling, self.generator)
+        self._dev_tokens = sampled[:, None]
+        toks = sampled.cpu().numpy()
+        self.metrics.decode_steps += 1
+        self.metrics.dispatches += 1
+        self.metrics.transfers_d2h += 1
+        self._finish_decode_slots(toks, time.perf_counter())
 
     # -- unified token-packed step ---------------------------------------
     def _pack_guard(self, req: Request, src_len: int) -> None:
@@ -516,8 +706,15 @@ class ServeEngine:
                      >= len(self._src(self._prefills[row]))]
         for row, w in widths.items():
             self._prefill_pos[row] += w
+
+        def install(req, slot, row):
+            """The pages already hold the prompt's KV: "inserting" into a
+            decode slot is host bookkeeping."""
+            self._ptab[slot] = self._ptab_row(req.rid)
+
         for row in finishing:
-            self._promote_prefill(row, int(toks[nslots + row]), now)
+            self._promote_prefill(row, int(toks[nslots + row]), now,
+                                  install)
 
     # -- main loop --------------------------------------------------------
     def step(self) -> None:
@@ -526,21 +723,62 @@ class ServeEngine:
         self.steps += 1
         self.metrics.steps += 1
         self._admit()
-        self._unified_step()
+        if self.unified:
+            self._unified_step()
+        elif self.cfg.decode_priority:
+            self._decode_step()
+            self._prefill_step()
+        else:
+            self._prefill_step()
+            self._decode_step()
         m = self.metrics
         m.end_t = time.perf_counter()
         m.occupancy_sum += len(self.active) / self.cfg.max_slots
         m.peak_active = max(m.peak_active, len(self.active))
         m.peak_inflight = max(m.peak_inflight,
                               len(self.active) + len(self._prefills))
+        # live KV tokens over the reserved capacity, with the same
+        # numerator in both layouts
         used = int(sum(self._lengths[s] for s in self.active))
-        m.pages_in_use_peak = max(m.pages_in_use_peak,
-                                  self.pager.pages_in_use)
-        m.kv_util_sum += used / (self.pager.usable_pages * self.cfg.page_size)
+        if self.paged:
+            cap_tokens = self.pager.usable_pages * self.cfg.page_size
+            m.pages_in_use_peak = max(m.pages_in_use_peak,
+                                      self.pager.pages_in_use)
+        else:
+            cap_tokens = self.cfg.max_slots * self.cfg.max_seq
+        m.kv_util_sum += used / cap_tokens
         m.kv_used_tokens_peak = max(m.kv_used_tokens_peak, used)
         if self.cfg.record_step_log:
             m.step_log.append((self.steps, len(self.active),
                                len(self._prefills), len(self.queue)))
+
+    def kv_stats(self) -> dict:
+        """Static + peak KV-capacity numbers: the decode cache's device
+        reservation in bytes and the peak bytes holding live tokens (the
+        dense layout's footprint is its reservation)."""
+        reserved = sum(t.numel() * t.element_size()
+                       for layer in self.cache.layers
+                       for t in (layer.k, layer.v))
+        out = {"cache_layout": self.cfg.cache_layout,
+               "kv_reserved_bytes": reserved}
+        if self.paged:
+            per_page = reserved / self.pager.n_pages
+            per_token = per_page / self.cfg.page_size
+            out.update(
+                page_size=self.cfg.page_size,
+                n_pages=self.pager.n_pages,
+                usable_pages=self.pager.usable_pages,
+                kv_peak_bytes=int(self.pager.peak_in_use * per_page),
+                kv_live_peak_bytes=int(self.metrics.kv_used_tokens_peak
+                                       * per_token),
+                pages_in_use=self.pager.pages_in_use)
+        else:
+            per_token = reserved / (self.cfg.max_slots * self.cfg.max_seq)
+            out.update(
+                kv_peak_bytes=reserved,  # dense footprint == reservation
+                kv_live_peak_bytes=int(self.metrics.kv_used_tokens_peak
+                                       * per_token))
+        return out
 
     @property
     def busy(self) -> bool:

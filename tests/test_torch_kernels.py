@@ -1,11 +1,13 @@
-"""Port parity: the plain PyTorch ragged paged attention
-(``repro_torch.kernels``) against the JAX oracle and the Pallas kernel in
-interpret mode, on the segment mixes of ``tests/test_kernels.py``.
+"""Port parity: the plain PyTorch kernels (``repro_torch.kernels``: ragged
+paged attention, paged decode attention, attention over dense K/V with a
+window) against the JAX oracles and the Pallas kernels in interpret mode,
+on the cases of ``tests/test_kernels.py``.
 
 Inputs are made from numpy seeds and handed to both frameworks; everything
 runs in float32 on the CPU.  Rows in packing gaps are unspecified on both
 sides and masked.  Tolerance: atol 1e-5 (float32 softmax over at most a
-few dozen keys, summed in different orders).
+few dozen keys, summed in different orders), 1e-4 against the flash
+kernel's blockwise sums over up to 128 keys.
 """
 
 import jax
@@ -16,6 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import pallas_flash_attention
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -24,6 +27,11 @@ ATOL = 1e-5
 # one compiled program per case instead of op-by-op dispatch
 _jax_ragged = jax.jit(jops.ragged_paged_attention,
                       static_argnames=("max_q", "impl", "interpret"))
+_jax_paged_decode = jax.jit(jops.paged_decode_attention,
+                            static_argnames=("impl", "interpret"))
+_jax_flash = jax.jit(pallas_flash_attention,
+                     static_argnames=("causal", "block_q", "block_kv",
+                                      "window", "interpret"))
 
 
 def _ragged_case(segs, hq, hkv, d, ps, mp, seed=0):
@@ -172,3 +180,141 @@ def test_decode_only_matches_jax_paged_decode_oracle():
     got = tops.ragged_paged_attention(*_torch((q, kp, vp, pt, qs, ql, kl)),
                                       max_q=4).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (the cases of tests/test_kernels.py:134-137)
+# ---------------------------------------------------------------------------
+
+def _paged_decode_case(b, hq, hkv, d, p, ps, mp, seed=0):
+    """Each slot owns a distinct page run; unused table entries name the
+    null page 0.  The last slot is idle (length 0) when pages run out."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, 1, hq, d), dtype=np.float32)
+    kp = rng.standard_normal((p, hkv, ps, d), dtype=np.float32)
+    vp = rng.standard_normal((p, hkv, ps, d), dtype=np.float32)
+    pt = np.zeros((b, mp), np.int32)
+    free = list(range(1, p))
+    lengths = []
+    for i in range(b):
+        n_tok = int(rng.integers(1, mp * ps))
+        n_pages = min(-(-n_tok // ps), len(free))
+        for j in range(n_pages):
+            pt[i, j] = free.pop()
+        lengths.append(min(n_tok, n_pages * ps))
+    return q, kp, vp, pt, np.asarray(lengths, np.int32)
+
+
+PAGED_DECODE_CASES = [(3, 8, 2, 16, 12, 8, 4), (1, 4, 4, 32, 5, 16, 2),
+                      (2, 16, 8, 8, 9, 4, 8)]
+
+
+@pytest.mark.parametrize("case", PAGED_DECODE_CASES,
+                         ids=["g4", "g1", "g2"])
+@pytest.mark.parametrize("jimpl", ["pallas", "gather"])
+def test_plain_paged_decode_matches_jax(case, jimpl):
+    """The port's plain paged decode equals the Pallas page walk (interpret
+    mode) and the JAX gather oracle, across partial last pages and
+    null-page padding."""
+    args = _paged_decode_case(*case)
+    want = np.asarray(_jax_paged_decode(*[jnp.asarray(a) for a in args],
+                                        impl=jimpl,
+                                        interpret=jimpl == "pallas"))
+    got = tops.paged_decode_attention(*_torch(args)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_plain_paged_decode_idle_slot_and_impls():
+    """A slot of length 0 gets zeros; impl="plain" is the CPU default;
+    an unknown impl is refused by name."""
+    q, kp, vp, pt, lengths = _torch(_paged_decode_case(3, 8, 2, 16, 12, 8,
+                                                       4, seed=3))
+    lengths[1] = 0
+    out = tops.paged_decode_attention(q, kp, vp, pt, lengths)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert torch.equal(out, tops.paged_decode_attention(q, kp, vp, pt,
+                                                        lengths,
+                                                        impl="plain"))
+    with pytest.raises(ValueError, match="unknown paged decode impl"):
+        tops.paged_decode_attention(q, kp, vp, pt, lengths, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# attention over dense K/V (the FLASH_CASES of tests/test_kernels.py:29-37
+# and the per-row offsets of :83-95)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, causal, window)
+    (2, 64, 64, 4, 4, 16, True, None),
+    (2, 64, 64, 4, 2, 16, True, None),
+    (1, 128, 128, 8, 2, 32, False, None),
+    (2, 64, 64, 4, 4, 16, True, 24),
+    (1, 96, 96, 2, 1, 64, True, None),
+    (3, 32, 32, 6, 3, 8, True, None),
+]
+FLASH_ATOL = 1e-4
+
+
+def _qkv(b, sq, skv, hq, hkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, hq, d), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, d), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, d), dtype=np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_plain_attention_matches_pallas_flash(case):
+    """The port's plain attention (causal or not, sliding window) equals the
+    Pallas flash kernel in interpret mode."""
+    b, sq, skv, hq, hkv, d, causal, win = case
+    q, k, v = _qkv(b, sq, skv, hq, hkv, d, seed=sq + d)
+    want = np.asarray(_jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, window=win,
+                                 block_q=32, block_kv=32, interpret=True))
+    got = tops.multi_head_attention(*_torch((q, k, v)), causal=causal,
+                                    window=win).numpy()
+    np.testing.assert_allclose(got, want, atol=FLASH_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_plain_attention_chunked_offsets_match_pallas_flash(window):
+    """Chunked prefill: per-row q_offset and kv_len (with and without a
+    window), against the Pallas flash kernel and the JAX oracle."""
+    q, k, v = _qkv(2, 48, 96, 4, 2, 16, seed=11)
+    kv_len = np.asarray([80, 60], np.int32)
+    q_off = np.asarray([32, 12], np.int32)
+    want = np.asarray(_jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, kv_len=jnp.asarray(kv_len),
+        q_offset=jnp.asarray(q_off), block_q=32, block_kv=32,
+        interpret=True))
+    oracle = np.asarray(jref.mha_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, kv_len=jnp.asarray(kv_len),
+        q_offset=jnp.asarray(q_off)))
+    got = tops.multi_head_attention(
+        *_torch((q, k, v)), causal=True, window=window,
+        kv_len=torch.from_numpy(kv_len),
+        q_offset=torch.from_numpy(q_off)).numpy()
+    np.testing.assert_allclose(got, want, atol=FLASH_ATOL, rtol=0)
+    np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=0)
+
+
+def test_plain_attention_single_query_and_masked_rows():
+    """Sq = 1 dense decode (q_offset = lengths, kv_len = lengths + 1, one
+    idle slot far past the cache) and rows with no visible key (zeros),
+    against the JAX oracle."""
+    q, k, v = _qkv(3, 1, 32, 4, 2, 16, seed=5)
+    lengths = np.asarray([0, 17, 40], np.int32)
+    got = tops.multi_head_attention(
+        *_torch((q, k, v)), kv_len=torch.from_numpy(lengths + 1),
+        q_offset=torch.from_numpy(lengths)).numpy()
+    want = np.asarray(jref.mha_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        kv_len=jnp.asarray(lengths + 1), q_offset=jnp.asarray(lengths)))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    # a query before every key (q_offset -1, causal) sees nothing: 0
+    masked = tops.multi_head_attention(*_torch((q, k, v)), q_offset=-1)
+    assert torch.equal(masked, torch.zeros_like(masked))

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.core.modelspec import AttnSpec, MoESpec, SSMSpec
-from repro_torch.kernels import build, ops, ragged_attention
+from repro_torch.kernels import (build, flash_attention, ops,
+                                 paged_decode_attention, ragged_attention)
 from repro_torch.models import build_model
 from repro_torch.serving import EngineConfig, ServeEngine
 
@@ -110,12 +111,38 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert ragged_attention.launches == before
 
 
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    """The paged decode and flash wrappers refuse CPU tensors too, and
+    count no launch; ``ops`` takes the plain version for them."""
+    q = torch.zeros((2, 1, 4, 16))
+    pool = torch.zeros((4, 2, 4, 16))
+    pt = torch.zeros((2, 3), dtype=torch.int32)
+    lengths = torch.tensor([1, 5], dtype=torch.int32)
+    kv = torch.zeros((2, 8, 2, 16))
+    calls = [
+        (paged_decode_attention, lambda: paged_decode_attention
+         .paged_decode_attention_cuda(q, pool, pool, pt, lengths)),
+        (flash_attention, lambda: flash_attention.flash_attention_cuda(
+            q, kv, kv, kv_len=lengths, q_offset=lengths - 1)),
+    ]
+    for module, call in calls:
+        before = module.launches
+        with pytest.raises(ValueError, match="must lie on the card"):
+            call()
+        assert module.launches == before
+    assert ops.paged_decode_attention(q, pool, pool, pt, lengths).shape \
+        == q.shape
+    assert ops.multi_head_attention(q, kv, kv).shape == q.shape
+
+
 def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     """Importing the port builds and loads nothing; a build looks for nvcc
     and says where it looked when there is none."""
     assert build._LOADED == {} or torch.cuda.is_available()
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
-    assert (build.CSRC / "ragged_paged_attention.cu").is_file()
+    for module in (ragged_attention, paged_decode_attention,
+                   flash_attention):
+        assert (REPO / module.SOURCE).is_file()
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
     if Path("/usr/local/cuda/bin/nvcc").is_file():
@@ -130,22 +157,33 @@ def _paged(**kw):
                            "max_seq": 64, "page_size": 8, **kw})
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (EngineConfig(), "item 9"),
-    (_paged(unified=False), "item 9"),
-    (_paged(cache_layout="dense"), "item 9"),
-    (_paged(prefix_cache=True), "item 6"),
-    (_paged(n_spec=2), "item 7"),
-    (_paged(tp=2), "item 12"),
-    (_paged(pp=2), "item 12"),
-    (_paged(debug_guards=True), "item 5"),
-], ids=["default", "two-dispatch", "dense", "prefix", "spec", "tp", "pp",
-        "guards"])
-def test_engine_refuses_unported_modes(cfg, item):
-    model = build_model(get_reduced("minitron-8b"), device="cpu",
-                        dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: queue 1, {item}"):
-        ServeEngine(model, cfg, device="cpu")
+def _refusal(case: str) -> None:
+    """Construct what ``case`` names; each must raise NotImplementedError."""
+    base = get_reduced("minitron-8b")
+    if case == "kv-quant":
+        build_model(base, device="cpu", dtype=torch.float32, kv_quant=True)
+        return
+    spec = get_reduced("mistral-7b-swa") if case == "swa-paged" else base
+    cfg = {"swa-paged": _paged(unified=False),
+           "prefix": _paged(prefix_cache=True), "spec": _paged(n_spec=2),
+           "tp": _paged(tp=2), "pp": _paged(pp=2),
+           "guards": _paged(debug_guards=True)}[case]
+    ServeEngine(build_model(spec, device="cpu", dtype=torch.float32), cfg,
+                device="cpu")
+
+
+@pytest.mark.parametrize("case,match", [
+    ("swa-paged", "ROADMAP: section 3"),
+    ("kv-quant", "ROADMAP: queue 1, item 3"),
+    ("prefix", "ROADMAP: queue 1, item 6"),
+    ("spec", "ROADMAP: queue 1, item 7"),
+    ("tp", "ROADMAP: queue 1, item 12"),
+    ("pp", "ROADMAP: queue 1, item 12"),
+    ("guards", "ROADMAP: queue 1, item 5"),
+], ids=["swa-paged", "kv-quant", "prefix", "spec", "tp", "pp", "guards"])
+def test_engine_refuses_unported_modes(case, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _refusal(case)
 
 
 def test_model_and_engine_refuse_unported_architectures():
