@@ -10,18 +10,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 source, all at once
   kernel_check  each kernel against its plain PyTorch version on the card,
                 at minitron-8b's attention shapes (Hq=32, Hkv=8, D=128,
-                page_size=16), float32 within 1e-4, bfloat16 within one
-                bf16 ulp plus 1e-4 (under a 2e-2 ceiling); median time of
-                each over 50 launches with L2 flushed in between, beside
-                the plain version's, the bound, and (flash) one
-                scaled_dot_product_attention call's:
+                page_size=16) and deepseek-moe-16b's (Hq=Hkv=16; experts
+                E=64, D=2048 <-> F=1408), float32 within 1e-4, bfloat16
+                within one bf16 ulp plus 1e-4 (under a 2e-2 ceiling), each
+                relative to the output's scale where that is not 1 (the
+                expert GEMM); median time of each over 50 launches with L2
+                flushed in between, beside the plain version's, the bound,
+                and one PyTorch call's where one computes the same
+                function (flash: scaled_dot_product_attention; expert GEMM:
+                torch.bmm):
                   ragged       decode (8 slots, kv_len 1..2048), prefill
-                               (max_q=128), idle rows
+                               (max_q=128), idle rows; decode and prefill
+                               again at deepseek's G=1
                   paged decode 8 slots, lengths 0..2048
                   flash        prefill (2 rows x 128 queries), partial
                                chunk (37 queries), dense decode (8 slots,
                                Sq=1), sliding window (mistral-7b-swa's
                                W=4096 at 8192 keys)
+                  expert GEMM  a mixed step's up/gate (C=264 packed tokens,
+                               x broadcast over the experts) and down
+                               products, the decode-only step's (C=8), the
+                               mixed shape with distinct per-expert x, and
+                               two ragged cases (C, D, F off the tiles)
   serve_full    minitron-8b at its published width (32 layers, random bf16
                 weights drawn on the card from a seed) served through
                 ServeEngine(EngineConfig(cache_layout="paged", unified=True)):
@@ -39,10 +49,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 prefill calls (paged); flash n_layers x (prefill calls +
                 decode steps) (dense)
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
-                served through the kernels and with the plain attention
+                served through the kernels and with the plain versions
                 selected explicitly: greedy outputs token-identical between
                 the two and across the three modes, or diverging only at a
                 genuine tie (top-2 logit gap < 1e-4)
+  serve_moe     deepseek-moe-16b at its published width (28 layers, 64
+                routed experts top-6 + 2 shared, random bf16 weights drawn
+                on the card from a seed) through the unified engine, after
+                minitron-8b's weights are freed: the same 8 requests; the
+                expert GEMM's launches must equal n_layers x 3 x
+                dispatches and the ragged kernel's n_layers x (2 x mixed
+                steps + decode-only steps); then serve_profile of it
+  serve_parity  again at deepseek-moe-16b widths, 2 layers, float32
 
 then the card's name and power limit (nvidia-smi), one JSON line listing
 every kernel (launches summed over the main-path serves, error, times,
@@ -106,7 +124,13 @@ PROFILES = {
     "prefill": dict(max_q=128, segs=[(128, 1500), (37, 293)]),
     "prefill_idle": dict(max_q=128, segs=[(100, 100), (0, 0)]),
 }
-TIMED = ("decode", "prefill")  # profiles the main path launches
+# the same decode and prefill segments at deepseek-moe-16b's attention
+# (16 query heads over 16 KV heads: G = 1)
+DS_HEADS = dict(hq=16, hkv=16)
+PROFILES["deepseek_decode"] = dict(PROFILES["decode"], **DS_HEADS)
+PROFILES["deepseek_prefill"] = dict(PROFILES["prefill"], **DS_HEADS)
+TIMED = ("decode", "prefill", "deepseek_decode",
+         "deepseek_prefill")  # profiles the main paths launch
 
 # paged decode: the same 8 slots, lengths counting the token just written
 DECODE_LENGTHS = [1, 17, 255, 0, 640, 1024, 1500, 2048]
@@ -123,7 +147,7 @@ FLASH_PROFILES = {
 }
 
 
-def _pools(torch, gen, kv_lens):
+def _pools(torch, gen, kv_lens, hkv=HKV):
     """Paged pools on the card with a page run of ``ceil(kv_len / 16)``
     random pages per row; every table entry past a row's kv_len points at
     a junk page filled with 1e4, so a kernel that reads past kv_len
@@ -131,8 +155,8 @@ def _pools(torch, gen, kv_lens):
     need = [-(-kl // PS) for kl in kv_lens]
     n_junk = 16
     n_pool = 1 + sum(need) + n_junk
-    kp = torch.randn((n_pool, HKV, PS, D), generator=gen, device=DEV)
-    vp = torch.randn((n_pool, HKV, PS, D), generator=gen, device=DEV)
+    kp = torch.randn((n_pool, hkv, PS, D), generator=gen, device=DEV)
+    vp = torch.randn((n_pool, hkv, PS, D), generator=gen, device=DEV)
     junk = list(range(n_pool - n_junk, n_pool))
     kp[junk] = 1e4
     vp[junk] = 1e4
@@ -147,12 +171,12 @@ def _pools(torch, gen, kv_lens):
     return kp, vp, pt.to(DEV)
 
 
-def make_case(torch, segs, max_q, dtype, seed):
+def make_case(torch, segs, max_q, dtype, seed, hq=HQ, hkv=HKV):
     """Packed ragged inputs on the card (see ``_pools``)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    kp, vp, pt = _pools(torch, gen, [kl for _, kl in segs])
+    kp, vp, pt = _pools(torch, gen, [kl for _, kl in segs], hkv)
     q_start = torch.arange(len(segs), dtype=torch.int32) * max_q
-    q = torch.randn((len(segs) * max_q, HQ, D), generator=gen, device=DEV)
+    q = torch.randn((len(segs) * max_q, hq, D), generator=gen, device=DEV)
     return dict(q=q.to(dtype), k_pool=kp.to(dtype), v_pool=vp.to(dtype),
                 seg_page_table=pt, q_start=q_start.to(DEV),
                 q_len=torch.tensor([s[0] for s in segs], dtype=torch.int32,
@@ -188,6 +212,53 @@ def make_flash_case(torch, prof, dtype, seed):
                 q_offset=qo, window=prof.get("window"))
 
 
+# expert GEMM (E, C, D) @ (E, D, F) at deepseek-moe-16b's experts (E 64,
+# D 2048 <-> F 1408): the unified engine's mixed step packs 8 decode slots
+# and 2 prefill rows of 128 (C = 264), its decode-only step 8 (C = 8).
+# ``broadcast``: x is one (C, D) matrix seen by every expert (stride 0), as
+# the dense MoE's up and gate products pass it; the down product's x is
+# each expert's own activation.
+GEMM_PROFILES = {
+    "mixed": dict(e=64, c=264, d=2048, f=1408, broadcast=True),
+    "mixed_down": dict(e=64, c=264, d=1408, f=2048, broadcast=False),
+    "decode": dict(e=64, c=8, d=2048, f=1408, broadcast=True),
+    "decode_down": dict(e=64, c=8, d=1408, f=2048, broadcast=False),
+    "mixed_distinct": dict(e=64, c=264, d=2048, f=1408, broadcast=False),
+    "ragged": dict(e=3, c=37, d=200, f=136, broadcast=False),
+    "ragged_broadcast": dict(e=5, c=70, d=72, f=200, broadcast=True),
+}
+GEMM_TIMED = ("mixed", "mixed_down", "decode", "decode_down")
+
+
+def make_gemm_case(torch, prof, dtype, seed):
+    """x ~ N(0, 1), w ~ N(0, 1/D) on the card: outputs of unit scale."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    e, c, d, f = prof["e"], prof["c"], prof["d"], prof["f"]
+    if prof["broadcast"]:
+        x = torch.randn((c, d), generator=gen, device=DEV).to(dtype)
+        x = x.expand(e, c, d)
+    else:
+        x = torch.randn((e, c, d), generator=gen, device=DEV).to(dtype)
+    w = torch.randn((e, d, f), generator=gen, device=DEV) / d ** 0.5
+    return dict(x=x, w=w.to(dtype))
+
+
+def work_gemm(prof, itemsize):
+    """Least bytes and operations of one expert GEMM: x read once (one
+    (C, D) matrix when it is broadcast), every expert's w read once, the
+    output written once; 2 E C D F operations."""
+    e, c, d, f = prof["e"], prof["c"], prof["d"], prof["f"]
+    x_elems = c * d if prof["broadcast"] else e * c * d
+    nbytes = (x_elems + e * d * f + e * c * f) * itemsize
+    return _bound(nbytes, 2 * e * c * d * f)
+
+
+def bmm_call(torch, case):
+    """The one PyTorch call that computes the expert GEMM (the yardstick;
+    the port never calls it)."""
+    return lambda: torch.bmm(case["x"], case["w"])
+
+
 def valid_rows(segs, max_q):
     rows = []
     for i, (ql, _) in enumerate(segs):
@@ -202,7 +273,7 @@ def _bound(nbytes, flops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def work(segs, max_q, itemsize):
+def work(segs, max_q, itemsize, hq=HQ, hkv=HKV):
     """Least bytes and operations of one ragged launch.  Bytes: the live q
     rows (q_len of each segment) read once, the whole (T, Hq, D) output
     written once (gap rows are zero-filled), K+V of the valid tokens read
@@ -211,12 +282,12 @@ def work(segs, max_q, itemsize):
     Operations: 4 D per visible query-key pair per head."""
     live = [(ql, kl) for ql, kl in segs if ql > 0]
     t = len(segs) * max_q
-    nbytes = (sum(ql for ql, _ in live) * HQ * D * itemsize
-              + t * HQ * D * itemsize
-              + sum(2 * kl * HKV * D * itemsize for _, kl in live)
+    nbytes = (sum(ql for ql, _ in live) * hq * D * itemsize
+              + t * hq * D * itemsize
+              + sum(2 * kl * hkv * D * itemsize for _, kl in live)
               + (3 * len(segs) + sum(-(-kl // PS) for _, kl in live)) * 4)
     pairs = sum(kl - ql + i + 1 for ql, kl in live for i in range(ql))
-    return _bound(nbytes, 4 * D * HQ * pairs)
+    return _bound(nbytes, 4 * D * hq * pairs)
 
 
 def work_decode(lengths, itemsize):
@@ -295,27 +366,28 @@ def median_ms(torch, fn, n):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def _compare(what, got, want, rtol):
+def _compare(what, got, want, rtol, scale=1.0):
     """Max abs error of ``got`` against ``want``; every element within
-    rtol |want| + F32_ATOL and none above the BF16_ATOL ceiling (written
-    so that NaN fails too)."""
+    rtol |want| + F32_ATOL scale and none above the BF16_ATOL scale
+    ceiling (written so that NaN fails too)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     err = float(diff.max())
-    if not (bool((diff <= rtol * w.abs() + F32_ATOL).all())
-            and err <= BF16_ATOL):
+    if not (bool((diff <= rtol * w.abs() + F32_ATOL * scale).all())
+            and err <= BF16_ATOL * scale):
         raise AssertionError(f"{what}: max abs err {err} over {rtol} |want| "
-                             f"+ {F32_ATOL}")
+                             f"+ {F32_ATOL} x {scale}")
     return err
 
 
 def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
-                  rows=None, library=None, timed=True, **info):
+                  rows=None, library=None, timed=True, scaled=False, **info):
     """One profile of one kernel: float32 and bfloat16 against the plain
     version on the same inputs (only on ``rows`` of the output, the rest
-    exactly 0, when given); then in bfloat16 the kernel's, the plain
-    version's and (``library``) the yardstick call's median times beside
-    the bound."""
+    exactly 0, when given; with ``scaled``, the tolerances relative to the
+    output's scale, max(1, max |want|)); then in bfloat16 the kernel's,
+    the plain version's and (``library``) the yardstick call's median
+    times beside the bound."""
     res = dict(info)
     for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
                              (torch.bfloat16, BF16_RTOL, "bf16")):
@@ -328,8 +400,10 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
                 raise AssertionError(f"{kernel}/{profile}/{tag}: gap rows "
                                      "not zero")
             got, want = got[rows], want[rows]
+        scale = max(1.0, float(want.abs().max())) if scaled else 1.0
+        res[f"output_scale_{tag}"] = scale
         res[f"max_abs_err_{tag}"] = _compare(f"{kernel}/{profile}/{tag}",
-                                             got, want, rtol)
+                                             got, want, rtol, scale)
         if tag == "bf16" and timed:
             res["ms"] = median_ms(torch, lambda: run(case), TIMED_LAUNCHES)
             res["plain_ms"] = median_ms(torch, lambda: plain(case),
@@ -345,22 +419,25 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
 
 
 def phase_kernel_check(torch) -> dict:
-    """{kernel: {profile: result}} for the three kernels."""
-    from repro_torch.kernels import (flash_attention, paged_decode_attention,
+    """{kernel: {profile: result}} for the four kernels."""
+    from repro_torch.kernels import (expert_gemm, flash_attention,
+                                     paged_decode_attention,
                                      ragged_attention, ref)
 
     out = {"ragged_paged_attention": {}, "paged_decode_attention": {},
-           "flash_attention": {}}
+           "flash_attention": {}, "expert_gemm": {}}
     for name, prof in PROFILES.items():
         segs, max_q = prof["segs"], prof["max_q"]
+        heads = {k: prof[k] for k in ("hq", "hkv") if k in prof}
         out["ragged_paged_attention"][name] = check_profile(
             torch, "ragged_paged_attention", name,
-            lambda dt: make_case(torch, segs, max_q, dt, seed=len(segs)),
+            lambda dt: make_case(torch, segs, max_q, dt, seed=len(segs),
+                                 **heads),
             lambda c: ragged_attention.ragged_paged_attention_cuda(
                 **c, max_q=max_q),
             lambda c: ref.ragged_paged_reference(**c, max_q=max_q),
-            work(segs, max_q, 2), rows=valid_rows(segs, max_q),
-            timed=name in TIMED, max_q=max_q, segments=segs)
+            work(segs, max_q, 2, **heads), rows=valid_rows(segs, max_q),
+            timed=name in TIMED, max_q=max_q, segments=segs, **heads)
     out["paged_decode_attention"]["decode"] = check_profile(
         torch, "paged_decode_attention", "decode",
         lambda dt: make_decode_case(torch, DECODE_LENGTHS, dt, seed=8),
@@ -375,6 +452,14 @@ def phase_kernel_check(torch) -> dict:
             lambda c: flash_attention.flash_attention_cuda(**c),
             lambda c: ref.mha_reference(**c),
             work_flash(prof, 2), library=sdpa_call, **prof)
+    for name, prof in GEMM_PROFILES.items():
+        out["expert_gemm"][name] = check_profile(
+            torch, "expert_gemm", name,
+            lambda dt: make_gemm_case(torch, prof, dt, seed=prof["c"]),
+            lambda c: expert_gemm.expert_gemm_cuda(**c),
+            lambda c: ref.moe_gemm_reference(**c),
+            work_gemm(prof, 2), library=bmm_call,
+            timed=name in GEMM_TIMED, scaled=True, **prof)
     return out
 
 
@@ -392,11 +477,23 @@ MAX_NEW = 32
 
 def kernel_modules():
     """{kernel name: wrapper module}; each module's ``launches`` counts."""
-    from repro_torch.kernels import (flash_attention, paged_decode_attention,
+    from repro_torch.kernels import (expert_gemm, flash_attention,
+                                     paged_decode_attention,
                                      ragged_attention)
     return {"ragged_paged_attention": ragged_attention,
             "paged_decode_attention": paged_decode_attention,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "expert_gemm": expert_gemm}
+
+
+def expert_launches_per_forward(spec) -> int:
+    """Expert GEMM launches of one forward: 3 per MoE layer (up, gate,
+    down) with swiglu, 2 without a gate; 0 for a dense model."""
+    if spec.moe is None:
+        return 0
+    per_layer = 3 if spec.act == "swiglu" else 2
+    return per_layer * sum(spec.moe.is_moe_layer(i)
+                           for i in range(spec.n_layers))
 
 
 def make_requests(spec, n, max_new, seed):
@@ -459,8 +556,9 @@ def _expect(mode, counts, want):
                              f"{want}")
 
 
-def phase_serve_full(torch, model, spec, init_s) -> dict:
-    """The unified engine; returns its kernel launch counts."""
+def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
+    """The unified engine, then its profile (``phase`` names the serve's
+    line); returns the serve's kernel launch counts."""
     from repro_torch.serving import EngineConfig, Request, ServeEngine
 
     cfg = EngineConfig(**GEOMETRY, **MODES["unified"])
@@ -476,14 +574,32 @@ def phase_serve_full(torch, model, spec, init_s) -> dict:
     decode_only = m.dispatches - mixed
     _expect("unified", stats["launches"], {
         "ragged_paged_attention": spec.n_layers * (2 * mixed + decode_only),
-        "paged_decode_attention": 0, "flash_attention": 0})
+        "paged_decode_attention": 0, "flash_attention": 0,
+        "expert_gemm": expert_launches_per_forward(spec) * m.dispatches})
     n_params = sum(p.numel() for p in model.parameters())
-    emit("serve_full", model=spec.name, params=n_params,
+    emit(phase, model=spec.name, params=n_params,
          weight_gb=n_params * 2 / 1e9, init_s=init_s, mixed_steps=mixed,
          decode_only_steps=decode_only, **stats)
     del eng
     phase_serve_profile(torch, model, spec, cfg)
     return stats["launches"]
+
+
+def build_full(torch, arch):
+    """``arch`` at its published width, random bf16 weights drawn on the
+    card from seed 0; returns (spec, model, seconds to build)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    spec = get_spec(arch)
+    t0 = time.perf_counter()
+    model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    return spec, model, time.perf_counter() - t0
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
@@ -496,7 +612,9 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
         n = spec.n_layers
         want = {"ragged_paged_attention": 0,
                 "paged_decode_attention": n * m.decode_steps,
-                "flash_attention": n * m.prefill_calls}
+                "flash_attention": n * m.prefill_calls,
+                "expert_gemm": expert_launches_per_forward(spec)
+                * (m.decode_steps + m.prefill_calls)}
         if mode == "dense":
             want.update(paged_decode_attention=0,
                         flash_attention=n * (m.prefill_calls
@@ -506,8 +624,7 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
              kv=eng.kv_stats())
         out.append(stats["launches"])
         del eng
-        gc.collect()
-        torch.cuda.empty_cache()
+        free(torch)
     return out
 
 
@@ -515,6 +632,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "ragged_paged_attention" in n:
         return "ragged_attention"
+    if "expert_gemm" in n:
+        return "expert_gemm"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                             "nvjet")):
         return "matmul"
@@ -556,7 +675,8 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
         launches += ev.count
     busy = sum(by_class.values())
     m = eng.metrics
-    emit("serve_profile", steps=m.steps, mixed_steps=m.prefill_calls,
+    emit("serve_profile", model=spec.name, steps=m.steps,
+         mixed_steps=m.prefill_calls,
          decode_only_steps=m.dispatches - m.prefill_calls,
          wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3),
@@ -608,24 +728,25 @@ def _ties(torch, model, prompts, a, b, what):
     return ties
 
 
-def phase_serve_parity(torch) -> None:
+def phase_serve_parity(torch, arch) -> None:
+    """``arch``'s widths at 2 layers in float32, every engine mode through
+    the kernels and through the plain versions."""
     from repro_torch.configs import get_spec
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, ServeEngine
 
-    spec = get_spec("minitron-8b").scaled(name="minitron-8b-2l",
-                                          n_layers=2)
+    spec = get_spec(arch).scaled(name=f"{arch}-2l", n_layers=2)
     model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
     outs = {}
     for mode, kw in MODES.items():
         for impl in ("kernel", "plain"):
-            model.attn_impl = impl
+            model.kernel_impl = impl
             reqs = make_requests(spec, 8, 16, seed=1)
             ServeEngine(model, EngineConfig(**GEOMETRY, **kw),
                         device=DEV).serve(reqs)
             outs[mode, impl] = [r.output for r in reqs]
             prompts = [r.prompt for r in reqs]
-    model.attn_impl = "plain"
+    model.kernel_impl = "plain"
     pairs = [((mode, "kernel"), (mode, "plain")) for mode in MODES] + [
         (("unified", "kernel"), (mode, "kernel")) for mode in ("paged",
                                                                 "dense")]
@@ -640,8 +761,7 @@ def phase_serve_parity(torch) -> None:
          tokens=sum(len(o) for o in outs["unified", "kernel"]),
          comparisons=comparisons)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(torch)
 
 
 def kernel_entry(name, mod, launches, profiles, top):
@@ -669,9 +789,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_spec
     from repro_torch.kernels import build
-    from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -693,21 +811,24 @@ def main() -> int:
 
     checks = phase_kernel_check(torch)
 
-    spec = get_spec("minitron-8b")
-    t0 = time.perf_counter()
-    model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    serves = [phase_serve_full(torch, model, spec, init_s)]
+    spec, model, init_s = build_full(torch, "minitron-8b")
+    serves = [phase_serve_unified(torch, model, spec, init_s, "serve_full")]
     serves += phase_serve_two_dispatch(torch, model, spec)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_serve_parity(torch)
+    free(torch)
+    phase_serve_parity(torch, "minitron-8b")
+
+    spec, model, init_s = build_full(torch, "deepseek-moe-16b")
+    serves.append(phase_serve_unified(torch, model, spec, init_s,
+                                      "serve_moe"))
+    del model
+    free(torch)
+    phase_serve_parity(torch, "deepseek-moe-16b")
 
     launches = {name: sum(c[name] for c in serves) for name in mods}
     tops = {"ragged_paged_attention": "decode",
-            "paged_decode_attention": "decode", "flash_attention": "prefill"}
+            "paged_decode_attention": "decode", "flash_attention": "prefill",
+            "expert_gemm": "mixed"}
     kernels = [kernel_entry(name, mod, launches[name], checks[name],
                             tops[name]) for name, mod in mods.items()]
     print(smi, flush=True)

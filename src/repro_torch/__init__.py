@@ -7,9 +7,12 @@ written by hand for Hopper (``csrc/``).  Module names mirror the JAX
 package so each counterpart is easy to find:
 
     repro_torch.core.modelspec      <- repro.core.modelspec
-    repro_torch.configs             <- repro.configs (minitron-8b, qwen1.5-0.5b)
+    repro_torch.configs             <- repro.configs (the served archs)
     repro_torch.kernels.ref / ops   <- repro.kernels.ref / ops
     repro_torch.kernels.ragged_attention  <- the Pallas ``_ragged_kernel``
+    repro_torch.kernels.paged_decode_attention, .flash_attention,
+    .expert_gemm                    <- the Pallas decode, flash and
+                                       expert-GEMM kernels
     repro_torch.models.*            <- repro.models.* (packed paged path)
     repro_torch.serving.*           <- repro.serving.* (unified engine)
     repro_torch.launch.serve        <- repro.launch.serve

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelSpec (+ reduced config).
 
 Only the architectures the port serves so far; the rest of the JAX
-registry waits for the modules they need (MoE, SSM).  mistral-7b-swa's
-sliding window is served by the dense two-dispatch engine only.
+registry waits for the modules they need (SSM, encoders, frontends).
+mistral-7b-swa's sliding window is served by the dense two-dispatch engine
+only.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ _ARCH_MODULES: dict[str, str] = {
     "minitron-8b": ".minitron_8b",
     "mistral-7b-swa": ".mistral_7b_swa",
     "qwen1.5-0.5b": ".qwen15_05b",
+    "deepseek-moe-16b": ".deepseek_moe_16b",
+    "granite-moe-3b-a800m": ".granite_moe_3b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)

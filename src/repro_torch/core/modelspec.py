@@ -4,8 +4,7 @@ Same fields, same defaults and the same derived ``d_head``/``n_kv_heads``,
 so a spec written for the JAX package describes the same architecture
 here.  Only what the port's model and engine read is kept: the analytical
 accounting (parameter counts, KV formulas) stays with the reference.  The
-``moe``/``ssm`` fields are kept so the port can refuse those architectures
-by name.
+``ssm`` field is kept so the port can refuse those architectures by name.
 """
 
 from __future__ import annotations

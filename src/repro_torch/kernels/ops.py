@@ -5,6 +5,7 @@ version (the port of ``repro.kernels.ops``).
   paged_decode_attention : one-token decode against the paged pools
   ragged_paged_attention : token-packed mixed decode + prefill attention
                            against the paged pools
+  expert_gemm            : the MoE FFN's batched per-expert GEMM
 
 ``impl="kernel"`` (the default) launches the CUDA kernel for tensors on the
 card and takes the plain version only for tensors on the CPU; it never
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .expert_gemm import expert_gemm_cuda
 from .flash_attention import flash_attention_cuda
 from .paged_decode_attention import paged_decode_attention_cuda
 from .ragged_attention import ragged_paged_attention_cuda
@@ -83,3 +85,13 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return ragged_paged_attention_cuda(q, k_pool, v_pool, seg_page_table,
                                        q_start, q_len, kv_len, max_q=max_q,
                                        sm_scale=sm_scale)
+
+
+def expert_gemm(x: torch.Tensor, w: torch.Tensor, *,
+                impl: str = "kernel") -> torch.Tensor:
+    """Batched per-expert GEMM: x (E, C, D) @ w (E, D, F) -> (E, C, F) in
+    x's dtype, accumulated in f32.  x may be one (C, D) matrix
+    ``expand``-ed over the experts."""
+    if _plain(impl, x, "expert gemm"):
+        return ref.moe_gemm_reference(x, w)
+    return expert_gemm_cuda(x, w)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the kernels: the port of ``repro.kernels.ref``.
 
-Full-precision softmax, no blocking, no page walk.  They are what the CPU
-runs, what the tests hold against the JAX oracles, and what
+Full-precision softmax and products, no blocking, no page walk.  They are
+what the CPU runs, what the tests hold against the JAX oracles, and what
 ``chip_smoke.py`` holds the Hopper kernels against on the card.
 """
 
@@ -135,3 +135,9 @@ def ragged_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
     flat = o.reshape((s_count * max_q,) + tuple(o.shape[2:]))
     idx = ragged_pack_indices(q_start, q_len, t, max_q)
     return flat[idx].to(q.dtype)
+
+
+def moe_gemm_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert batched GEMM: (E, C, D) @ (E, D, F) -> (E, C, F), an f32
+    einsum cast back to x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

@@ -1,6 +1,8 @@
 """Serving launcher: the port's serving engine as a CLI.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --arch minitron-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --layout dense --two-dispatch

@@ -1,5 +1,5 @@
-"""The port's model: dense and GQA decoders served through the token-packed
-paged step.
+"""The port's model: dense, GQA and MoE decoders served through the
+token-packed paged step.
 
     model = build_model(spec)                   # on the card, bf16 weights
     model = build_model(spec, device="cpu", dtype=torch.float32)

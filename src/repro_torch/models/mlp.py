@@ -27,10 +27,12 @@ class MLP(nn.Module):
             dense_init_(self.w_gate, generator)
 
 
-def mlp_block(spec: ModelSpec, params: MLP, x: torch.Tensor
-              ) -> torch.Tensor:
+def mlp_block(spec: ModelSpec, params: MLP, x: torch.Tensor, *,
+              norm: bool = True) -> torch.Tensor:
+    """``norm=False`` takes x as already normalised (the MoE block's shared
+    experts see the block's normed input)."""
     act = activation(spec.act)
-    h = rms_norm(x, params.norm)
+    h = rms_norm(x, params.norm) if norm else x
     up = h @ params.w_up
     if spec.act == "swiglu":
         up = act(h @ params.w_gate) * up

@@ -38,12 +38,13 @@ class ModelCache:
 
 
 class Model(nn.Module):
-    """Parameters and forward of one decoder.  The attribute ``attn_impl``
-    picks the attention route (``kernels.ops.IMPLS``): ``"kernel"`` (the
-    Hopper kernel for tensors on the card, the plain version on the CPU) or
-    ``"plain"`` (the plain version everywhere)."""
+    """Parameters and forward of one decoder.  The attribute
+    ``kernel_impl`` picks the route of every kernel call, attention and
+    expert GEMMs (``kernels.ops.IMPLS``): ``"kernel"`` (the Hopper kernels
+    for tensors on the card, the plain versions on the CPU) or ``"plain"``
+    (the plain versions everywhere)."""
 
-    attn_impl = "kernel"
+    kernel_impl = "kernel"
 
     def __init__(self, spec: ModelSpec, device: torch.device,
                  dtype: torch.dtype):
@@ -128,7 +129,7 @@ class Model(nn.Module):
                           positions, cache.layers,
                           lengths=torch.zeros((b,), dtype=torch.int32,
                                               device=dev),
-                          impl=self.attn_impl)
+                          impl=self.kernel_impl)
         x = x[torch.arange(b, device=dev), lengths.long() - 1]
         return self._logits(x), ModelCache(layers=cache.layers,
                                            lengths=lengths,
@@ -152,7 +153,7 @@ class Model(nn.Module):
         x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
                           positions, cache.layers, lengths=cache.lengths,
                           page_table=cache.page_table, rows=rows,
-                          impl=self.attn_impl)
+                          impl=self.kernel_impl)
         if rows is None:
             lengths = cache.lengths + s
         else:
@@ -173,7 +174,7 @@ class Model(nn.Module):
         slot lengths advanced for the decode segments that ran)."""
         x = self.embed[tokens.long()]
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          packed=packed, impl=self.attn_impl)
+                          packed=packed, impl=self.kernel_impl)
         # each segment's logits come from its last valid packed position
         # (inactive segments produce garbage rows the engine ignores)
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
@@ -194,7 +195,7 @@ class Model(nn.Module):
         x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
                           cache.lengths[:, None], cache.layers,
                           lengths=cache.lengths, page_table=cache.page_table,
-                          impl=self.attn_impl)
+                          impl=self.kernel_impl)
         return self._logits(x)[:, 0], ModelCache(
             layers=cache.layers, lengths=cache.lengths + 1,
             page_table=cache.page_table)

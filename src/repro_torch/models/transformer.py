@@ -18,6 +18,7 @@ from ..core.modelspec import ModelSpec
 from .attention import (Attention, AttnCache, PackedSegs, PagedAttnCache,
                         attention_block)
 from .mlp import MLP, mlp_block
+from .moe import MoE, moe_block
 
 
 @dataclass(frozen=True)
@@ -57,7 +58,8 @@ def stack_period(spec: ModelSpec) -> tuple[int, int]:
 
 
 class Layer(nn.Module):
-    """One attention layer: ``mixer`` (attention) + ``ffn`` (dense MLP)."""
+    """One attention layer: ``mixer`` (attention) + ``ffn`` (the MoE block
+    where the layer class is MoE, else the dense MLP)."""
 
     def __init__(self, spec: ModelSpec, cls: LayerClass, device, dtype):
         super().__init__()
@@ -65,13 +67,12 @@ class Layer(nn.Module):
             raise NotImplementedError(
                 f"{spec.name!r}: {cls.kind} layers are not ported yet "
                 "(ROADMAP: queue 1, item 13)")
-        if cls.is_moe:
-            raise NotImplementedError(
-                f"{spec.name!r}: MoE layers are not ported yet "
-                "(ROADMAP: queue 1, item 8)")
         self.cls = cls
         self.mixer = Attention(spec, device, dtype)
-        self.ffn = MLP(spec, device, dtype) if spec.d_ff > 0 else None
+        if cls.is_moe:
+            self.ffn = MoE(spec, device, dtype)
+        else:
+            self.ffn = MLP(spec, device, dtype) if spec.d_ff > 0 else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.mixer.reset_parameters(generator)
@@ -81,14 +82,16 @@ class Layer(nn.Module):
 
 def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
                positions: torch.Tensor, cache: AttnCache | PagedAttnCache,
-               **attn_kw) -> torch.Tensor:
+               *, impl: str, **attn_kw) -> torch.Tensor:
     if layer.cls.kind != "attn":
         raise NotImplementedError(
             "the port's stacks are attention-only; layer kind "
             f"{layer.cls.kind!r} carries sequential state")
     x = x + attention_block(spec, layer.mixer, x, positions, cache,
-                            **attn_kw)
-    if layer.ffn is not None:
+                            impl=impl, **attn_kw)
+    if layer.cls.is_moe:
+        x = x + moe_block(spec, layer.ffn, x, impl=impl)
+    elif layer.ffn is not None:
         x = x + mlp_block(spec, layer.ffn, x)
     return x
 
@@ -102,6 +105,8 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 rows: torch.Tensor | None = None,
                 impl: str = "kernel") -> torch.Tensor:
     """Run every layer; each writes its K/V into its own cache (in place).
+    ``impl`` routes every kernel of the stack, attention and expert GEMMs
+    (``kernels.ops.IMPLS``).
     ``lengths``/``page_table`` are the (B,) valid tokens and the shared
     (B, max_pages) page table; ``packed`` the shared segment table when x
     is a token-packed unified step; ``rows`` the dense rows whose K/V a

@@ -218,8 +218,6 @@ class ServeEngine:
         if config.debug_guards:
             _refuse("debug_guards=True", "item 5")
         spec = model.spec
-        if spec.moe is not None:
-            _refuse(f"MoE layers ({spec.name!r})", "item 8")
         if any(k != "attn" for k in spec.layer_kinds()):
             _refuse(f"SSM layers ({spec.name!r})", "item 13")
         self.unified = config.unified

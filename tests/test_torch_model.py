@@ -2,9 +2,11 @@
 ``repro_torch`` against the JAX ``Model.unified_step``, and the model's
 building blocks against their JAX counterparts.
 
-Three specs: a tiny GQA model (the shape of ``tests/conftest.py``'s),
-qwen1.5-0.5b REDUCED (QKV bias, tied head, SwiGLU) and minitron-8b REDUCED
-(squared ReLU, G=4, untied head).  JAX initialises the weights; the port
+Five specs: a tiny GQA model (the shape of ``tests/conftest.py``'s),
+qwen1.5-0.5b REDUCED (QKV bias, tied head, SwiGLU), minitron-8b REDUCED
+(squared ReLU, G=4, untied head), and the MoE stacks deepseek-moe-16b
+REDUCED (shared experts) and granite-moe-3b-a800m REDUCED (tied head, no
+shared experts).  JAX initialises the weights; the port
 loads them through the converter.  Three packed steps drive both packed
 profiles (mixed decode+prefill, then decode-only).  Everything is float32
 on the CPU.  Tolerances: logits of live segments within atol 1e-4 and the
@@ -67,6 +69,9 @@ def test_port_spec_copies_reference_fields():
             assert getattr(j, f) == getattr(t, f), (arch, f)
         assert j.layer_kinds() == t.layer_kinds()
         assert dataclasses.asdict(j.attn) == dataclasses.asdict(t.attn)
+        assert (j.moe is None) == (t.moe is None), arch
+        if j.moe is not None:
+            assert dataclasses.asdict(j.moe) == dataclasses.asdict(t.moe)
 
 
 # three packed steps over 3 decode slots + 2 prefill rows (chunk 8, pages
@@ -111,7 +116,9 @@ def _pack(profile, segs, seqs):
                 n_decode=MAX_SLOTS if mixed else 0)
 
 
-@pytest.mark.parametrize("arch", ["tiny", "qwen1.5-0.5b", "minitron-8b"])
+@pytest.mark.parametrize("arch", ["tiny", "qwen1.5-0.5b", "minitron-8b",
+                                  "deepseek-moe-16b",
+                                  "granite-moe-3b-a800m"])
 def test_unified_step_matches_jax(arch):
     jspec, tspec = spec_pair(arch)
     jmodel, params, tmodel = port_from_jax(jspec, tspec)

@@ -23,8 +23,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_reduced
-from repro_torch.core.modelspec import AttnSpec, MoESpec, SSMSpec
-from repro_torch.kernels import (build, flash_attention, ops,
+from repro_torch.core.modelspec import AttnSpec, SSMSpec
+from repro_torch.kernels import (build, expert_gemm, flash_attention, ops,
                                  paged_decode_attention, ragged_attention)
 from repro_torch.models import build_model
 from repro_torch.serving import EngineConfig, ServeEngine
@@ -112,18 +112,20 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_new_cuda_wrappers_refuse_cpu_tensors():
-    """The paged decode and flash wrappers refuse CPU tensors too, and
-    count no launch; ``ops`` takes the plain version for them."""
+    """The paged decode, flash and expert GEMM wrappers refuse CPU tensors
+    too, and count no launch; ``ops`` takes the plain version for them."""
     q = torch.zeros((2, 1, 4, 16))
     pool = torch.zeros((4, 2, 4, 16))
     pt = torch.zeros((2, 3), dtype=torch.int32)
     lengths = torch.tensor([1, 5], dtype=torch.int32)
     kv = torch.zeros((2, 8, 2, 16))
+    x, w = torch.zeros((3, 5, 16)), torch.zeros((3, 16, 8))
     calls = [
         (paged_decode_attention, lambda: paged_decode_attention
          .paged_decode_attention_cuda(q, pool, pool, pt, lengths)),
         (flash_attention, lambda: flash_attention.flash_attention_cuda(
             q, kv, kv, kv_len=lengths, q_offset=lengths - 1)),
+        (expert_gemm, lambda: expert_gemm.expert_gemm_cuda(x, w)),
     ]
     for module, call in calls:
         before = module.launches
@@ -133,6 +135,7 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
     assert ops.paged_decode_attention(q, pool, pool, pt, lengths).shape \
         == q.shape
     assert ops.multi_head_attention(q, kv, kv).shape == q.shape
+    assert ops.expert_gemm(x, w).shape == (3, 5, 8)
 
 
 def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
@@ -141,7 +144,7 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert build._LOADED == {} or torch.cuda.is_available()
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     for module in (ragged_attention, paged_decode_attention,
-                   flash_attention):
+                   flash_attention, expert_gemm):
         assert (REPO / module.SOURCE).is_file()
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -192,11 +195,9 @@ def test_model_and_engine_refuse_unported_architectures():
     model = build_model(swa, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         ServeEngine(model, _paged(), device="cpu")
-    for spec in (base.scaled(moe=MoESpec(num_experts=4, top_k=2,
-                                         d_ff_expert=64)),
-                 base.scaled(n_heads=0, n_kv_heads=0, ssm=SSMSpec())):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(spec, device="cpu", dtype=torch.float32)
+    ssm = base.scaled(n_heads=0, n_kv_heads=0, ssm=SSMSpec())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(ssm, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="int8 KV cache"):
         build_model(base, device="cpu", dtype=torch.float32, kv_quant=True)
 
