@@ -7,18 +7,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
   build         build every CUDA kernel of the serving paths from
                 ``src/repro_torch/csrc`` with nvcc for sm_90a, one nvcc per
-                source, all at once
+                source, all at once (six kernels)
   kernel_check  each kernel against its plain PyTorch version on the card,
                 at minitron-8b's attention shapes (Hq=32, Hkv=8, D=128,
-                page_size=16) and deepseek-moe-16b's (Hq=Hkv=16; experts
-                E=64, D=2048 <-> F=1408), float32 within 1e-4, bfloat16
-                within one bf16 ulp plus 1e-4 (under a 2e-2 ceiling), each
-                relative to the output's scale where that is not 1 (the
-                expert GEMM); median time of each over 50 launches with L2
+                page_size=16), deepseek-moe-16b's (Hq=Hkv=16; experts
+                E=64, D=2048 <-> F=1408) and rwkv6-3b's (H=40 heads of
+                N=64), float32 within 1e-4, bfloat16 within one bf16 ulp
+                plus 1e-4 (under a 2e-2 ceiling), each relative to the
+                output's scale where that is not 1 (the expert GEMM and the
+                WKV scan); median time of each over 50 launches with L2
                 flushed in between, beside the plain version's, the bound,
                 and one PyTorch call's where one computes the same
-                function (flash: scaled_dot_product_attention; expert GEMM:
-                torch.bmm):
+                function (flash and dense decode:
+                scaled_dot_product_attention; expert GEMM: torch.bmm):
                   ragged       decode (8 slots, kv_len 1..2048), prefill
                                (max_q=128), idle rows; decode and prefill
                                again at deepseek's G=1
@@ -32,6 +33,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                                products, the decode-only step's (C=8), the
                                mixed shape with distinct per-expert x, and
                                two ragged cases (C, D, F off the tiles)
+                  WKV scan     prefill (2 rows x 128 steps), partial chunk
+                               (37 steps), decode (8 rows x 1 step); a
+                               non-zero state0 and bonus, decays in
+                               (0.45, 0.95); out and final state both held
+                  dense decode 8 rows against a 2048-key cache, lengths
+                               0..2048, at G=4 and at deepseek's G=1
+  decode_op     the dense decode's path: kernels.ops.decode_attention, its
+                entry point (no model routes to it, as in the reference),
+                once per layer of a minitron-8b decode step; its launches
+                must equal the calls
   serve_full    minitron-8b at its published width (32 layers, random bf16
                 weights drawn on the card from a seed) served through
                 ServeEngine(EngineConfig(cache_layout="paged", unified=True)):
@@ -61,9 +72,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 dispatches and the ragged kernel's n_layers x (2 x mixed
                 steps + decode-only steps); then serve_profile of it
   serve_parity  again at deepseek-moe-16b widths, 2 layers, float32
+  serve_rwkv    rwkv6-3b at its published width (32 RWKV-6 layers, random
+                bf16 weights drawn on the card from a seed, the token-shift
+                mixes and the bonus drawn non-zero) through the dense and
+                the paged two-dispatch engines, after deepseek's weights
+                are freed: the same 8 requests; the WKV scan's launches
+                must equal n_layers x (prefill calls + decode steps) and
+                every other kernel's 0; then serve_profile of the dense
+                engine
+  serve_parity  again at rwkv6-3b widths, 2 layers, float32, mixes and
+                bonus drawn non-zero, in the two two-dispatch layouts
 
 then the card's name and power limit (nvidia-smi), one JSON line listing
-every kernel (launches summed over the main-path serves, error, times,
+every kernel (launches summed over its main-path runs, error, times,
 bound), and last ``{"ok": true, "device": {...}}``.  Without a CUDA device
 it exits 1 and prints no result.  Imports nothing of JAX or of the JAX
 package.
@@ -90,6 +111,7 @@ BF16_ATOL = 2e-2
 TIE_GAP = 1e-4  # serve_parity: a divergence is a tie below this gap
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
+F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores, published
 TIMED_LAUNCHES = 50
 PLAIN_LAUNCHES = 20
 SPIN_CYCLES = 5_000_000  # ~3 ms at H100 clocks: longer than any enqueue
@@ -266,8 +288,8 @@ def valid_rows(segs, max_q):
     return rows
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def _bound(nbytes, flops, peak=BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return dict(bytes=nbytes, flops=flops,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -343,6 +365,108 @@ def sdpa_call(torch, case):
     return lambda: f(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+# WKV scan at rwkv6-3b's heads (H 40 of N 64): the two-dispatch engine's
+# prefill calls (2 scratch rows, a full and a partial chunk) and its decode
+# steps (8 slots, one step); then, untimed, the decode step with the final
+# state written over state0 (as the engine's decode writes its cache in
+# place) and the head sizes of the reduced configs (N 16 and 32).
+RWKV_H, RWKV_N = 40, 64
+RWKV_PROFILES = {
+    "prefill": dict(b=2, t=128),
+    "prefill_partial": dict(b=2, t=37),
+    "decode": dict(b=8, t=1),
+    "decode_in_place": dict(b=8, t=1, in_place=True),
+    "n16": dict(b=2, t=37, h=4, n=16),
+    "n32": dict(b=2, t=37, h=4, n=32),
+}
+RWKV_TIMED = ("prefill", "prefill_partial", "decode")
+
+
+def rwkv_dims(prof):
+    return (prof["b"], prof["t"], prof.get("h", RWKV_H),
+            prof.get("n", RWKV_N))
+
+
+def make_rwkv_case(torch, prof, dtype, seed):
+    """r, k, v ~ N(0, 1/4) in ``dtype``; w, u and state0 float32: decays in
+    (0.45, 0.95) (as tests/test_kernels.py draws them), a non-zero bonus
+    u ~ N(0, 0.09) and state0 ~ N(0, 0.04)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b, t, h, n = rwkv_dims(prof)
+
+    def randn(shape, scale):
+        return torch.randn(shape, generator=gen, device=DEV) * scale
+
+    r, k, v = (randn((b, t, h, n), 0.5).to(dtype) for _ in range(3))
+    w = torch.sigmoid(randn((b, t, h, n), 1.0)) * 0.5 + 0.45
+    return dict(r=r, k=k, v=v, w=w, u=randn((h, n), 0.3),
+                state=randn((b, h, n, n), 0.2))
+
+
+def run_rwkv_in_place(rwkv6_scan, case):
+    """The kernel with its final state written over (a copy of) state0."""
+    state = case["state"].clone()
+    return rwkv6_scan.rwkv6_scan_cuda(**{**case, "state": state},
+                                      state_out=state)
+
+
+def work_rwkv(prof, itemsize):
+    """Least bytes and operations of one WKV scan: r, k, v read and out
+    written once in the compute dtype, w, u and state0 read and the final
+    state written once in f32; 5 N^2 + 5 N f32 operations per (row, step,
+    head): out_j = sum_i r_i S_ij (2 N^2) + v_j * sum_i r_i u_i k_i (3 N
+    for the sum, 2 N for the product and the add), and S_ij <- w_i S_ij +
+    k_i v_j (3 N^2), at the f32 rate outside the tensor cores."""
+    b, t, h, n = rwkv_dims(prof)
+    seq = b * t * h * n
+    state = b * h * n * n
+    nbytes = 4 * seq * itemsize + (seq + h * n + 2 * state) * 4
+    return _bound(nbytes, (5 * n * n + 5 * n) * b * t * h, F32_FLOPS)
+
+
+# dense decode: 8 rows against a 2048-key cache at minitron-8b's heads and
+# at deepseek-moe-16b's (G = 1); DECODE_LENGTHS include a length-0 row
+DENSE_DECODE_T = 2048
+DENSE_DECODE_PROFILES = {"decode": dict(hq=HQ, hkv=HKV),
+                         "deepseek_decode": DS_HEADS}
+
+
+def make_dense_decode_case(torch, prof, dtype, seed):
+    """Dense decode inputs on the card; every key at or past a row's length
+    is 1e4, so a kernel that reads past the length disagrees loudly."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b, t = len(DECODE_LENGTHS), DENSE_DECODE_T
+    q = torch.randn((b, 1, prof["hq"], D), generator=gen, device=DEV)
+    k = torch.randn((b, t, prof["hkv"], D), generator=gen, device=DEV)
+    v = torch.randn((b, t, prof["hkv"], D), generator=gen, device=DEV)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=DEV)
+    past = torch.arange(t, device=DEV)[None, :] >= lengths[:, None]
+    k[past] = 1e4
+    v[past] = 1e4
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), lengths=lengths)
+
+
+def work_dense_decode(prof, itemsize):
+    """Least bytes and operations of one dense decode call: q read and the
+    output written once, K+V of each row's valid keys read once, and the
+    lengths; 4 D operations per valid key per query head."""
+    b, hq, hkv = len(DECODE_LENGTHS), prof["hq"], prof["hkv"]
+    nbytes = (2 * b * hq * D * itemsize
+              + sum(2 * n * hkv * D * itemsize for n in DECODE_LENGTHS)
+              + 4 * b)
+    return _bound(nbytes, 4 * D * hq * sum(DECODE_LENGTHS))
+
+
+def sdpa_decode_call(torch, case):
+    """scaled_dot_product_attention with the length mask and grouped-query
+    heads: the dense decode's yardstick (the port never calls it)."""
+    q, k, v = (case[n].transpose(1, 2).contiguous() for n in "qkv")
+    kpos = torch.arange(k.shape[2], device=DEV)
+    mask = (kpos[None, :] < case["lengths"][:, None])[:, None, None]
+    f = torch.nn.functional.scaled_dot_product_attention
+    return lambda: f(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
 def median_ms(torch, fn, n):
     """Median device time of one call over n calls, each after a 64 MiB
     write that evicts the 50 MB L2 (the serving step finds the pools
@@ -387,13 +511,22 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
     exactly 0, when given; with ``scaled``, the tolerances relative to the
     output's scale, max(1, max |want|)); then in bfloat16 the kernel's,
     the plain version's and (``library``) the yardstick call's median
-    times beside the bound."""
+    times beside the bound.  A kernel that returns (out, state) has both
+    held, the float32 state within the float32 tolerance in both runs."""
     res = dict(info)
     for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
                              (torch.bfloat16, BF16_RTOL, "bf16")):
         case = make(dtype)
         got, want = run(case), plain(case)
         torch.cuda.synchronize()
+        if isinstance(got, tuple):  # (out, final state): the state is f32
+            (got, got_state), (want, want_state) = got, want
+            scale = max(1.0, float(want_state.abs().max())) if scaled \
+                else 1.0
+            res[f"state_scale_{tag}"] = scale
+            res[f"max_abs_err_state_{tag}"] = _compare(
+                f"{kernel}/{profile}/{tag}/state", got_state, want_state,
+                0.0, scale)
         if rows is not None:
             gap = sorted(set(range(got.shape[0])) - set(rows))
             if gap and bool(got[gap].ne(0).any()):
@@ -419,13 +552,12 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
 
 
 def phase_kernel_check(torch) -> dict:
-    """{kernel: {profile: result}} for the four kernels."""
-    from repro_torch.kernels import (expert_gemm, flash_attention,
-                                     paged_decode_attention,
-                                     ragged_attention, ref)
+    """{kernel: {profile: result}} for the six kernels."""
+    from repro_torch.kernels import (decode_attention, expert_gemm,
+                                     flash_attention, paged_decode_attention,
+                                     ragged_attention, ref, rwkv6_scan)
 
-    out = {"ragged_paged_attention": {}, "paged_decode_attention": {},
-           "flash_attention": {}, "expert_gemm": {}}
+    out = {name: {} for name in kernel_modules()}
     for name, prof in PROFILES.items():
         segs, max_q = prof["segs"], prof["max_q"]
         heads = {k: prof[k] for k in ("hq", "hkv") if k in prof}
@@ -460,6 +592,32 @@ def phase_kernel_check(torch) -> dict:
             lambda c: ref.moe_gemm_reference(**c),
             work_gemm(prof, 2), library=bmm_call,
             timed=name in GEMM_TIMED, scaled=True, **prof)
+    # the WKV scan: f32 tolerances relative to the output's and the state's
+    # scale (sums over N in another order; the state update fused into one
+    # multiply-add where the plain version rounds twice, over T steps)
+    for name, prof in RWKV_PROFILES.items():
+        h, n = rwkv_dims(prof)[2:]
+        out["rwkv6_scan"][name] = check_profile(
+            torch, "rwkv6_scan", name,
+            lambda dt: make_rwkv_case(torch, prof, dt, seed=prof["t"]),
+            (lambda c: run_rwkv_in_place(rwkv6_scan, c))
+            if prof.get("in_place")
+            else (lambda c: rwkv6_scan.rwkv6_scan_cuda(**c)),
+            lambda c: ref.rwkv6_reference(**c),
+            work_rwkv(prof, 2), timed=name in RWKV_TIMED, scaled=True,
+            **{"h": h, "n": n, **prof})
+    for name, prof in DENSE_DECODE_PROFILES.items():
+        out["decode_attention"][name] = check_profile(
+            torch, "decode_attention", name,
+            lambda dt: make_dense_decode_case(torch, prof, dt,
+                                              seed=prof["hq"]),
+            lambda c: decode_attention.decode_attention_cuda(**c),
+            lambda c: ref.mha_reference(
+                c["q"], c["k"], c["v"], causal=False, kv_len=c["lengths"],
+                q_offset=c["lengths"].long() - 1),
+            work_dense_decode(prof, 2), library=sdpa_decode_call,
+            lengths=DECODE_LENGTHS, t=DENSE_DECODE_T,
+            split_keys=decode_attention.SPLIT_KEYS, **prof)
     return out
 
 
@@ -477,13 +635,24 @@ MAX_NEW = 32
 
 def kernel_modules():
     """{kernel name: wrapper module}; each module's ``launches`` counts."""
-    from repro_torch.kernels import (expert_gemm, flash_attention,
-                                     paged_decode_attention,
-                                     ragged_attention)
+    from repro_torch.kernels import (decode_attention, expert_gemm,
+                                     flash_attention, paged_decode_attention,
+                                     ragged_attention, rwkv6_scan)
     return {"ragged_paged_attention": ragged_attention,
             "paged_decode_attention": paged_decode_attention,
             "flash_attention": flash_attention,
-            "expert_gemm": expert_gemm}
+            "expert_gemm": expert_gemm,
+            "rwkv6_scan": rwkv6_scan,
+            "decode_attention": decode_attention}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
 def expert_launches_per_forward(spec) -> int:
@@ -514,17 +683,15 @@ def serve_counted(torch, model, spec, mode):
     cfg = EngineConfig(**GEOMETRY, **MODES[mode])
     eng = ServeEngine(model, cfg, device=DEV)
     reqs = make_requests(spec, 8, MAX_NEW, seed=0)
-    mods = kernel_modules()
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods.values():
-        mod.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {name: mod.launches for name, mod in mods.items()}
+    counts = read_launches()
     for r in reqs:
         if r.state != "done":
             raise AssertionError(f"{mode}: request {r.rid} not done "
@@ -550,7 +717,10 @@ def serve_counted(torch, model, spec, mode):
     return eng, stats
 
 
-def _expect(mode, counts, want):
+def _expect(mode, counts, nonzero):
+    """Every kernel's launches are as ``nonzero`` says, every other 0."""
+    want = {name: 0 for name in kernel_modules()}
+    want.update(nonzero)
     if counts != want:
         raise AssertionError(f"{mode}: kernel launches {counts}, expected "
                              f"{want}")
@@ -574,7 +744,6 @@ def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
     decode_only = m.dispatches - mixed
     _expect("unified", stats["launches"], {
         "ragged_paged_attention": spec.n_layers * (2 * mixed + decode_only),
-        "paged_decode_attention": 0, "flash_attention": 0,
         "expert_gemm": expert_launches_per_forward(spec) * m.dispatches})
     n_params = sum(p.numel() for p in model.parameters())
     emit(phase, model=spec.name, params=n_params,
@@ -593,8 +762,26 @@ def build_full(torch, arch):
     spec = get_spec(arch)
     t0 = time.perf_counter()
     model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0)
+    if spec.is_attention_free:
+        draw_rwkv_mixes(torch, model, seed=0)
     torch.cuda.synchronize()
     return spec, model, time.perf_counter() - t0
+
+
+def draw_rwkv_mixes(torch, model, seed) -> None:
+    """The reference's init leaves every RWKV layer's token-shift mixes and
+    its bonus u at zero, which exercises neither the token shift nor the
+    bonus term: draw them on the card from ``seed`` (mixes uniform in
+    [0, 1), bonus N(0, 1/4))."""
+    from repro_torch.models.ssm import MIXES
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.layers:
+            for name in MIXES:
+                p = getattr(layer.mixer, name)
+                p.copy_(torch.rand(p.shape, generator=gen, device=DEV))
+            u = layer.mixer.u_bonus
+            u.copy_(torch.randn(u.shape, generator=gen, device=DEV) * 0.5)
 
 
 def free(torch):
@@ -610,8 +797,7 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
         eng, stats = serve_counted(torch, model, spec, mode)
         m = eng.metrics
         n = spec.n_layers
-        want = {"ragged_paged_attention": 0,
-                "paged_decode_attention": n * m.decode_steps,
+        want = {"paged_decode_attention": n * m.decode_steps,
                 "flash_attention": n * m.prefill_calls,
                 "expert_gemm": expert_launches_per_forward(spec)
                 * (m.decode_steps + m.prefill_calls)}
@@ -628,12 +814,76 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
     return out
 
 
+def phase_decode_op(torch) -> dict:
+    """The dense decode's path: its entry point,
+    ``kernels.ops.decode_attention``, once per layer of a minitron-8b
+    decode step on the decode profile's bf16 inputs, counts set to 0 just
+    before and read just after; returns the counts."""
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import ops
+    n_layers = get_spec("minitron-8b").n_layers
+    case = make_dense_decode_case(torch, DENSE_DECODE_PROFILES["decode"],
+                                  torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [ops.decode_attention(case["q"], case["k"], case["v"],
+                                 lengths=case["lengths"])
+            for _ in range(n_layers)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    _expect("decode_op", counts, {"decode_attention": n_layers})
+    out = outs[-1].float()
+    if not bool(out.isfinite().all()):
+        raise AssertionError("decode_op: non-finite output")
+    zero_rows = [i for i, n in enumerate(DECODE_LENGTHS) if n == 0]
+    if bool(out[zero_rows].ne(0).any()):
+        raise AssertionError("decode_op: a length-0 row is not zero")
+    emit("decode_op", calls=n_layers, wall_ms=wall * 1e3,
+         shape=list(case["k"].shape), lengths=DECODE_LENGTHS,
+         launches=counts)
+    return counts
+
+
+def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
+    """The attention-free stack through the two-dispatch engine in both
+    layouts, then the dense engine's profile; returns each serve's kernel
+    launch counts."""
+    from repro_torch.serving import EngineConfig, Request, ServeEngine
+
+    dense = EngineConfig(**GEOMETRY, **MODES["dense"])
+    # warm-up on a throwaway engine (cuBLAS handles, first launches)
+    ServeEngine(model, dense, device=DEV).serve(
+        [Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    out = []
+    for mode in ("dense", "paged"):
+        eng, stats = serve_counted(torch, model, spec, mode)
+        m = eng.metrics
+        _expect(mode, stats["launches"], {
+            "rwkv6_scan": spec.n_layers * (m.prefill_calls
+                                           + m.decode_steps)})
+        emit("serve_rwkv", model=spec.name, params=n_params,
+             weight_gb=weight_gb, init_s=init_s, **stats,
+             kv=eng.kv_stats())
+        out.append(stats["launches"])
+        del eng
+        free(torch)
+    phase_serve_profile(torch, model, spec, dense)
+    return out
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "ragged_paged_attention" in n:
         return "ragged_attention"
     if "expert_gemm" in n:
         return "expert_gemm"
+    if "rwkv6_scan" in n:
+        return "rwkv6_scan"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                             "nvjet")):
         return "matmul"
@@ -648,8 +898,9 @@ def _kernel_class(name: str) -> str:
 
 def phase_serve_profile(torch, model, spec, cfg) -> None:
     """Where a step's time goes: torch.profiler over a short serve (8
-    requests of 100-1500 prompt tokens, 8 new tokens each), device time
-    summed by kernel class, against the wall clock of the same steps."""
+    requests of 100-1500 prompt tokens, 8 new tokens each) through the
+    engine ``cfg`` names, device time summed by kernel class, against the
+    wall clock of the same steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ServeEngine
@@ -675,9 +926,12 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
         launches += ev.count
     busy = sum(by_class.values())
     m = eng.metrics
-    emit("serve_profile", model=spec.name, steps=m.steps,
-         mixed_steps=m.prefill_calls,
-         decode_only_steps=m.dispatches - m.prefill_calls,
+    steps = (dict(mixed_steps=m.prefill_calls,
+                  decode_only_steps=m.dispatches - m.prefill_calls)
+             if cfg.unified else dict(decode_steps=m.decode_steps,
+                                      prefill_calls=m.prefill_calls))
+    emit("serve_profile", model=spec.name, layout=cfg.cache_layout,
+         unified=cfg.unified, steps=m.steps, **steps,
          wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3),
          kernel_launches=launches,
@@ -687,9 +941,17 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
 
 def _last_logits(torch, model, tokens):
     """Logits after ``tokens`` through the packed step alone: one prefill
-    segment walked chunk by chunk on a fresh cache (plain attention)."""
+    segment walked chunk by chunk on a fresh cache (plain attention).  An
+    attention-free stack has no packed step: its chunks run through
+    ``prefill_chunk`` on a fresh one-row dense cache."""
     from repro_torch.models.attention import PackedSegs
     chunk, ps = GEOMETRY["chunk_size"], GEOMETRY["page_size"]
+    if model.spec.is_attention_free:
+        cache = model.init_cache(1, GEOMETRY["max_seq"], layout="dense")
+        for lo in range(0, len(tokens), chunk):
+            toks = torch.tensor([tokens[lo:lo + chunk]], device=DEV)
+            logits, cache = model.prefill_chunk(cache, toks)
+        return logits[0].float()
     max_pages = GEOMETRY["max_seq"] // ps
     cache = model.init_cache(1, GEOMETRY["max_seq"], page_size=ps,
                              n_pages=max_pages + 1)
@@ -729,27 +991,32 @@ def _ties(torch, model, prompts, a, b, what):
 
 
 def phase_serve_parity(torch, arch) -> None:
-    """``arch``'s widths at 2 layers in float32, every engine mode through
-    the kernels and through the plain versions."""
+    """``arch``'s widths at 2 layers in float32, every engine mode that
+    serves it through the kernels and through the plain versions (an
+    attention-free stack: the two two-dispatch layouts, its RWKV mixes and
+    bonus drawn non-zero)."""
     from repro_torch.configs import get_spec
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, ServeEngine
 
     spec = get_spec(arch).scaled(name=f"{arch}-2l", n_layers=2)
     model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+    modes = tuple(MODES)
+    if spec.is_attention_free:
+        draw_rwkv_mixes(torch, model, seed=1)
+        modes = ("dense", "paged")
     outs = {}
-    for mode, kw in MODES.items():
+    for mode in modes:
         for impl in ("kernel", "plain"):
             model.kernel_impl = impl
             reqs = make_requests(spec, 8, 16, seed=1)
-            ServeEngine(model, EngineConfig(**GEOMETRY, **kw),
+            ServeEngine(model, EngineConfig(**GEOMETRY, **MODES[mode]),
                         device=DEV).serve(reqs)
             outs[mode, impl] = [r.output for r in reqs]
             prompts = [r.prompt for r in reqs]
     model.kernel_impl = "plain"
-    pairs = [((mode, "kernel"), (mode, "plain")) for mode in MODES] + [
-        (("unified", "kernel"), (mode, "kernel")) for mode in ("paged",
-                                                                "dense")]
+    pairs = [((mode, "kernel"), (mode, "plain")) for mode in modes] + [
+        ((modes[0], "kernel"), (mode, "kernel")) for mode in modes[1:]]
     comparisons = {}
     for a, b in pairs:
         what = f"{'/'.join(a)} vs {'/'.join(b)}"
@@ -758,7 +1025,7 @@ def phase_serve_parity(torch, arch) -> None:
             "ties": _ties(torch, model, prompts, outs[a], outs[b], what)}
     emit("serve_parity", model=spec.name, dtype="float32",
          requests=len(prompts),
-         tokens=sum(len(o) for o in outs["unified", "kernel"]),
+         tokens=sum(len(o) for o in outs[modes[0], "kernel"]),
          comparisons=comparisons)
     del model
     free(torch)
@@ -779,7 +1046,8 @@ def kernel_entry(name, mod, launches, profiles, top):
             "profiles": {p: {k: r[k] for k in
                              ("ms", "plain_ms", "library_ms", "bound_ms",
                               "bound_by", "max_abs_err_f32",
-                              "max_abs_err_bf16")}
+                              "max_abs_err_bf16", "max_abs_err_state_f32",
+                              "max_abs_err_state_bf16") if k in r}
                          for p, r in timed.items()}}
 
 
@@ -810,9 +1078,11 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     checks = phase_kernel_check(torch)
+    serves = [phase_decode_op(torch)]
 
     spec, model, init_s = build_full(torch, "minitron-8b")
-    serves = [phase_serve_unified(torch, model, spec, init_s, "serve_full")]
+    serves.append(phase_serve_unified(torch, model, spec, init_s,
+                                      "serve_full"))
     serves += phase_serve_two_dispatch(torch, model, spec)
     del model
     free(torch)
@@ -825,10 +1095,21 @@ def main() -> int:
     free(torch)
     phase_serve_parity(torch, "deepseek-moe-16b")
 
+    spec, model, init_s = build_full(torch, "rwkv6-3b")
+    serves += phase_serve_rwkv(torch, model, spec, init_s)
+    del model
+    free(torch)
+    phase_serve_parity(torch, "rwkv6-3b")
+
     launches = {name: sum(c[name] for c in serves) for name in mods}
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: "
+                             f"{idle}")
     tops = {"ragged_paged_attention": "decode",
             "paged_decode_attention": "decode", "flash_attention": "prefill",
-            "expert_gemm": "mixed"}
+            "expert_gemm": "mixed", "rwkv6_scan": "decode",
+            "decode_attention": "decode"}
     kernels = [kernel_entry(name, mod, launches[name], checks[name],
                             tops[name]) for name, mod in mods.items()]
     print(smi, flush=True)

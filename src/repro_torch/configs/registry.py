@@ -1,9 +1,11 @@
 """Architecture registry: ``--arch <id>`` -> ModelSpec (+ reduced config).
 
 Only the architectures the port serves so far; the rest of the JAX
-registry waits for the modules they need (SSM, encoders, frontends).
+registry waits for the modules they need (Mamba, encoders, frontends).
 mistral-7b-swa's sliding window is served by the dense two-dispatch engine
-only.
+only; rwkv6-3b, attention-free, by the two-dispatch engine in either
+layout (the unified step refuses state-carrying layers, as the
+reference's does).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ _ARCH_MODULES: dict[str, str] = {
     "qwen1.5-0.5b": ".qwen15_05b",
     "deepseek-moe-16b": ".deepseek_moe_16b",
     "granite-moe-3b-a800m": ".granite_moe_3b",
+    "rwkv6-3b": ".rwkv6_3b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)

@@ -4,7 +4,7 @@ Same fields, same defaults and the same derived ``d_head``/``n_kv_heads``,
 so a spec written for the JAX package describes the same architecture
 here.  Only what the port's model and engine read is kept: the analytical
 accounting (parameter counts, KV formulas) stays with the reference.  The
-``ssm`` field is kept so the port can refuse those architectures by name.
+``ssm`` field selects the RWKV-6 mixer (Mamba is refused by name).
 """
 
 from __future__ import annotations
@@ -75,6 +75,10 @@ class ModelSpec:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
         if self.n_heads and not self.n_kv_heads:
             object.__setattr__(self, "n_kv_heads", self.n_heads)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return all(k == "ssm" for k in self.layer_kinds())
 
     def layer_kinds(self) -> tuple[str, ...]:
         if self.hybrid_pattern is not None:

@@ -1,6 +1,6 @@
-// Device helpers shared by the paged decode and flash forward kernels.
-// Each has its own grid, addressing and entry point; what they share is the
-// inner loop of a flash-style walk over 32-key tiles on the CUDA cores, the
+// Device helpers shared by the decode (paged and dense) and flash forward
+// kernels.  Each has its own grid, addressing and entry point; what they
+// share is the inner loop of a flash-style walk over 32-key tiles on the CUDA cores, the
 // loop the ragged kernel (ragged_paged_attention.cu, kept as measured in
 // its own source) runs too:
 //
@@ -16,6 +16,7 @@
 //     output dims j + 32 c.  The finite NEG_INF makes a row with no visible
 //     key end with l == 0, which `out` turns into a zero output, as the
 //     plain versions' nan_to_num does.
+//   * decode_combine_kernel: the second pass of the split-KV decodes.
 //
 // Shared-memory layout of a staged tile: K rows padded to d + 4 floats (so
 // lane j's float4 reads of row j spread over the banks), V rows unpadded.
@@ -206,5 +207,61 @@ struct Rows {
     return acc[r][c] / (l[r] == 0.f ? 1.f : l[r]);
   }
 };
+
+// Keys slot b sees: its length clamped to [0, max_keys].
+__device__ __forceinline__ int slot_keys(const int* lengths, int b,
+                                         int max_keys) {
+  return min(max(lengths[b], 0), max_keys);
+}
+
+// Second pass of a split-KV decode (the paged and the dense decode
+// kernels): grid (B * Hkv), one block per (slot, KV head).  The split pass
+// left, for each used split s of the slot (split_keys keys each) and each
+// of the G query heads, the unnormalised partial (m, l, acc) in f32
+// scratch laid out (B * Hkv, n_split, G[, D]); this rescales them to their
+// common max and writes the normalised output (zeros for a slot that saw
+// no key).  Dynamic shared memory: n_split * G floats.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ m_part,
+                      const float* __restrict__ l_part,
+                      const float* __restrict__ acc_part,
+                      const int* __restrict__ lengths, T* __restrict__ out,
+                      int hq, int hkv, int d, int max_keys, int split_keys,
+                      int n_split) {
+  extern __shared__ float w_s[];  // (n_split, G) weight of each partial
+  const int g = hq / hkv;
+  const int bh = blockIdx.x;
+  const int b = bh / hkv;
+  const int h = bh % hkv;
+  const int n_used =
+      (slot_keys(lengths, b, max_keys) + split_keys - 1) / split_keys;
+  const size_t base = (size_t)bh * n_split * g;
+
+  // per head: the common max, the total sum, then each split's weight
+  // exp(m_s - m) / l (every used split saw at least one key, so l > 0)
+  for (int row = threadIdx.x; row < g; row += blockDim.x) {
+    float m = kNegInf;
+    for (int s = 0; s < n_used; ++s) m = fmaxf(m, m_part[base + s * g + row]);
+    float l = 0.f;
+    for (int s = 0; s < n_used; ++s) {
+      const float w = expf(m_part[base + s * g + row] - m);
+      w_s[s * g + row] = w;
+      l += w * l_part[base + s * g + row];
+    }
+    const float inv = l == 0.f ? 0.f : 1.f / l;
+    for (int s = 0; s < n_used; ++s) w_s[s * g + row] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g * d; idx += blockDim.x) {
+    const int row = idx / d;
+    const int dd = idx % d;
+    float o = 0.f;
+    for (int s = 0; s < n_used; ++s) {
+      o += w_s[s * g + row] * acc_part[(base + s * g + row) * d + dd];
+    }
+    store(out + ((size_t)b * hq + h * g + row) * d + dd, o);
+  }
+}
 
 }  // namespace attn

@@ -29,8 +29,9 @@
 //      (m, l, acc) of each of the G query heads into f32 scratch.  Blocks
 //      whose split lies past the slot's length return at once.  Each warp
 //      owns ceil(G / 4) query heads, so at G = 4 all four warps compute.
-//   2. `paged_decode_combine_kernel`, grid (B * Hkv): rescales the used
-//      splits of each head to their common max and writes the output.
+//   2. `decode_combine_kernel` (attention_common.cuh), grid (B * Hkv):
+//      rescales the used splits of each head to their common max and
+//      writes the output.
 //
 // The wrapper allocates the scratch (torch.empty) and counts the two
 // launches as one call.
@@ -40,11 +41,6 @@
 namespace {
 
 using namespace attn;
-
-__device__ __forceinline__ int slot_keys(const int* lengths, int b,
-                                         int max_keys) {
-  return min(max(lengths[b], 0), max_keys);
-}
 
 // kC = ceil(D / 32); kR = query heads per warp (G <= 4 kR)
 template <typename T, int kC, int kR>
@@ -148,49 +144,6 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_combine_kernel(const float* __restrict__ m_part,
-                            const float* __restrict__ l_part,
-                            const float* __restrict__ acc_part,
-                            const int* __restrict__ lengths,
-                            T* __restrict__ out, int hq, int hkv, int d,
-                            int max_keys, int split_keys, int n_split) {
-  extern __shared__ float w_s[];  // (n_split, G) weight of each partial
-  const int g = hq / hkv;
-  const int bh = blockIdx.x;
-  const int b = bh / hkv;
-  const int h = bh % hkv;
-  const int n_used =
-      (slot_keys(lengths, b, max_keys) + split_keys - 1) / split_keys;
-  const size_t base = (size_t)bh * n_split * g;
-
-  // per head: the common max, the total sum, then each split's weight
-  // exp(m_s - m) / l (every used split saw at least one key, so l > 0)
-  for (int row = threadIdx.x; row < g; row += blockDim.x) {
-    float m = kNegInf;
-    for (int s = 0; s < n_used; ++s) m = fmaxf(m, m_part[base + s * g + row]);
-    float l = 0.f;
-    for (int s = 0; s < n_used; ++s) {
-      const float w = expf(m_part[base + s * g + row] - m);
-      w_s[s * g + row] = w;
-      l += w * l_part[base + s * g + row];
-    }
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    for (int s = 0; s < n_used; ++s) w_s[s * g + row] *= inv;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < g * d; idx += blockDim.x) {
-    const int row = idx / d;
-    const int dd = idx % d;
-    float o = 0.f;
-    for (int s = 0; s < n_used; ++s) {
-      o += w_s[s * g + row] * acc_part[(base + s * g + row) * d + dd];
-    }
-    store(out + ((size_t)b * hq + h * g + row) * d + dd, o);
-  }
-}
-
 template <typename T, int kC, int kR>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    void* out, const void* page_table, const void* lengths,
@@ -207,7 +160,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
     if (err != cudaSuccess) return err;
   }
   const size_t smem_w = sizeof(float) * (size_t)n_split * (hq / hkv);
-  auto combine = paged_decode_combine_kernel<T>;
+  auto combine = decode_combine_kernel<T>;
   if (smem_w > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         combine, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_w);

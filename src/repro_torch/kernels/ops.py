@@ -6,6 +6,10 @@ version (the port of ``repro.kernels.ops``).
   ragged_paged_attention : token-packed mixed decode + prefill attention
                            against the paged pools
   expert_gemm            : the MoE FFN's batched per-expert GEMM
+  rwkv6_scan             : the RWKV-6 WKV recurrence
+  decode_attention       : one-token decode against a dense (B, T, Hkv, D)
+                           cache (no model routes to it, as in the
+                           reference)
 
 ``impl="kernel"`` (the default) launches the CUDA kernel for tensors on the
 card and takes the plain version only for tensors on the CPU; it never
@@ -19,10 +23,12 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .decode_attention import decode_attention_cuda
 from .expert_gemm import expert_gemm_cuda
 from .flash_attention import flash_attention_cuda
 from .paged_decode_attention import paged_decode_attention_cuda
 from .ragged_attention import ragged_paged_attention_cuda
+from .rwkv6_scan import rwkv6_scan_cuda
 
 IMPLS = ("kernel", "plain")
 
@@ -95,3 +101,32 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor, *,
     if _plain(impl, x, "expert gemm"):
         return ref.moe_gemm_reference(x, w)
     return expert_gemm_cuda(x, w)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+               state_out: torch.Tensor | None = None,
+               impl: str = "kernel") -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV: r, k, v (B, T, H, N) in the compute dtype, w (B, T, H, N)
+    float32 decays, u (H, N) float32, state (B, H, N, N) float32 ->
+    (out (B, T, H, N) in r's dtype, final state float32).  The final state
+    is written into ``state_out`` when given (it may be ``state``)."""
+    if _plain(impl, r, "rwkv6 scan"):
+        out, final = ref.rwkv6_reference(r, k, v, w, u, state)
+        if state_out is None:
+            return out, final
+        return out, state_out.copy_(final)
+    return rwkv6_scan_cuda(r, k, v, w, u, state, state_out)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     lengths: torch.Tensor, sm_scale: float | None = None,
+                     impl: str = "kernel") -> torch.Tensor:
+    """One-token decode against a dense cache: q (B, 1, Hq, D); k, v (B, T,
+    Hkv, D); lengths (B,) int32 valid keys, the query at lengths - 1.
+    Returns (B, 1, Hq, D); a row of length 0 is zeros."""
+    if _plain(impl, q, "decode"):
+        return ref.mha_reference(q, k, v, causal=False, sm_scale=sm_scale,
+                                 kv_len=lengths,
+                                 q_offset=lengths.long() - 1)
+    return decode_attention_cuda(q, k, v, lengths=lengths, sm_scale=sm_scale)

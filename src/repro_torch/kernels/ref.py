@@ -141,3 +141,28 @@ def moe_gemm_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert batched GEMM: (E, C, D) @ (E, D, F) -> (E, C, F), an f32
     einsum cast back to x's dtype."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def rwkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV recurrence, sequential over time in f32.
+
+    r, k, v: (B, T, H, N); w: (B, T, H, N) data-dependent decay in (0, 1);
+    u: (H, N) bonus; state: (B, H, N, N) mapping the k-dim to the v-dim.
+    Returns (out (B, T, H, N) in r's dtype, final state (B, H, N, N) f32):
+
+      out_t  = r_t . (state + u * k_t^T v_t)
+      state' = diag(w_t) state + k_t^T v_t
+    """
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    s = state.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, N, N)
+        outs.append(torch.einsum("bhk,bhkn->bhn", rf[:, t],
+                                 s + uf[:, :, None] * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    out = torch.stack(outs, dim=1) if outs else torch.zeros_like(rf)
+    return out.to(r.dtype), s

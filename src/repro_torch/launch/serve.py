@@ -6,13 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --layout dense --two-dispatch
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch rwkv6-3b --layout paged --two-dispatch
 
 Serves random-weight models (weights drawn from seed 0).  By default
 through the unified paged engine, ``EngineConfig(cache_layout="paged",
 unified=True)``; ``--two-dispatch`` selects the two-dispatch engine in the
 ``--layout`` given (``dense`` is the only layout that serves
-sliding-window models).  The reduced config by default; ``--full`` serves
-the published width.  Runs on the card unless ``--device cpu`` is given
+sliding-window models; the attention-free rwkv6-3b needs
+``--two-dispatch``: the engine refuses it in the unified step, as the
+reference does).  The reduced config by default; ``--full`` serves the
+published width.  Runs on the card unless ``--device cpu`` is given
 (the CPU serves in float32).  Prints per-request outputs and the engine's
 metrics.
 """
@@ -52,9 +56,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     spec = registry.get_spec(args.arch) if args.full \
         else registry.get_reduced(args.arch)
+    dev = resolve_device(args.device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     model = build_model(spec, device=dev, dtype=dtype, seed=0)
     eng = ServeEngine(model, EngineConfig(

@@ -1,5 +1,6 @@
 """The port's model: dense, GQA and MoE decoders served through the
-token-packed paged step.
+token-packed paged step, and RWKV-6 decoders through the two-dispatch
+steps.
 
     model = build_model(spec)                   # on the card, bf16 weights
     model = build_model(spec, device="cpu", dtype=torch.float32)

@@ -9,7 +9,8 @@ per period position over a leading ``repeats`` axis
 repeat ``i // period``.  Weights keep the (in, out) orientation both sides
 use as ``h @ w``.  An MoE layer's ``ffn`` holds the router, the 3-D
 expert tensors and, with shared experts, the nested ``shared`` MLP dict,
-which becomes ``layers.{i}.ffn.shared.{name}``.  A tied head has no
+which becomes ``layers.{i}.ffn.shared.{name}``.  An RWKV-6 layer has a
+``mixer`` only (its channel mix is its FFN).  A tied head has no
 ``lm_head``: the port reads ``embed.T`` as the reference does.
 """
 
@@ -46,10 +47,10 @@ def from_jax_params(params_np: dict, spec: ModelSpec
     classes = layer_classes(spec)
     state: dict[str, torch.Tensor] = {"embed": _f32(params_np["embed"])}
     for i in range(spec.n_layers):
-        if classes[i].kind != "attn":
+        if classes[i].kind == "mamba":
             raise NotImplementedError(
-                f"layer {i} of {spec.name!r} is {classes[i].key}: only "
-                "attention layers (dense or MoE) are ported")
+                f"layer {i} of {spec.name!r} is {classes[i].key}: mamba "
+                "layers are not ported yet (ROADMAP: queue 1, item 13)")
         stacked = params_np["layers"][f"pos{i % period}"]
         for block in ("mixer", "ffn"):
             _flatten(stacked.get(block, {}), f"layers.{i}.{block}",

@@ -8,8 +8,9 @@ steps (the port of ``repro.models.model``'s serving half).
     logits, scratch = model.prefill_chunk(scratch, tokens)
     logits, cache = model.decode_step(cache, tokens)
 
-Every step writes K/V into the cache's tensors in place and returns a
-``ModelCache`` holding the same layers and new lengths.
+Every step writes K/V (or an RWKV layer's state) into the cache's tensors
+in place and returns a ``ModelCache`` holding the same layers and new
+lengths.
 """
 
 from __future__ import annotations
@@ -25,14 +26,16 @@ from . import transformer as T
 from .attention import (AttnCache, PackedSegs, PagedAttnCache,
                         init_attn_cache, init_paged_attn_cache)
 from .common import embed_init_, rms_norm, weight
+from .ssm import RWKVCache, init_rwkv_cache
 
 
 @dataclass
 class ModelCache:
     """Serving cache.  ``page_table`` is the (B, max_pages) int32 slot
     table the paged decode reads (None for the dense layout; the packed
-    step reads each segment's pages from its ``PackedSegs.page_table``)."""
-    layers: list[AttnCache] | list[PagedAttnCache]  # one per layer
+    step reads each segment's pages from its ``PackedSegs.page_table``).
+    An RWKV layer's cache is per-slot state in either layout."""
+    layers: list[AttnCache | PagedAttnCache | RWKVCache]  # one per layer
     lengths: torch.Tensor  # (B,) int32 valid tokens per slot
     page_table: torch.Tensor | None = None
 
@@ -86,32 +89,36 @@ class Model(nn.Module):
                    page_size: int = 16, n_pages: int | None = None
                    ) -> ModelCache:
         """Serving cache.  ``layout="dense"``: one (batch, max_len, Hkv, Dh)
-        cache per layer.  ``layout="paged"``: one (n_pages, Hkv, page_size,
-        Dh) pool per layer, sized by default to the dense reservation plus
-        the null page, and a zero (batch, max_pages) page table."""
-        dev = self.device
+        cache per attention layer.  ``layout="paged"``: one (n_pages, Hkv,
+        page_size, Dh) pool per attention layer, sized by default to the
+        dense reservation plus the null page, and a zero (batch, max_pages)
+        page table.  An RWKV layer gets its per-slot state in both layouts:
+        paging never applies to state."""
+        dev, spec = self.device, self.spec
         lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
-        if layout == "dense":
-            return ModelCache(
-                layers=[init_attn_cache(self.spec, batch, max_len, dev,
-                                        self.dtype)
-                        for _ in range(self.spec.n_layers)],
-                lengths=lengths)
-        if layout != "paged":
+        if layout not in ("dense", "paged"):
             raise ValueError(f"unknown cache layout {layout!r}")
-        if max_len % page_size:
-            raise ValueError(f"max_len {max_len} must be a multiple of "
-                             f"page_size {page_size}")
-        max_pages = max_len // page_size
-        if n_pages is None:  # +1: reserved null page
-            n_pages = batch * max_pages + 1
-        layers = [init_paged_attn_cache(self.spec, n_pages, page_size, dev,
-                                        self.dtype)
-                  for _ in range(self.spec.n_layers)]
-        return ModelCache(layers=layers, lengths=lengths,
-                          page_table=torch.zeros((batch, max_pages),
-                                                 dtype=torch.int32,
-                                                 device=dev))
+        page_table = None
+        if layout == "paged":
+            if max_len % page_size:
+                raise ValueError(f"max_len {max_len} must be a multiple of "
+                                 f"page_size {page_size}")
+            max_pages = max_len // page_size
+            if n_pages is None:  # +1: reserved null page
+                n_pages = batch * max_pages + 1
+            page_table = torch.zeros((batch, max_pages), dtype=torch.int32,
+                                     device=dev)
+
+        def one(cls: T.LayerClass):
+            if cls.kind == "rwkv6":
+                return init_rwkv_cache(spec, batch, dev, self.dtype)
+            if layout == "dense":
+                return init_attn_cache(spec, batch, max_len, dev, self.dtype)
+            return init_paged_attn_cache(spec, n_pages, page_size, dev,
+                                         self.dtype)
+
+        return ModelCache(layers=[one(cls) for cls in T.layer_classes(spec)],
+                          lengths=lengths, page_table=page_table)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, cache: ModelCache,
@@ -141,8 +148,9 @@ class Model(nn.Module):
                       ) -> tuple[torch.Tensor, ModelCache]:
         """Chunked-prefill continuation on a dense cache: the next (B, S)
         tokens of each row from its ``cache.lengths``.  ``rows`` (R,) names
-        the rows whose state advances (their K/V written, their lengths
-        moved on by S); the others keep theirs bit for bit, as the
+        the rows whose state advances (their K/V or RWKV state written,
+        their lengths moved on by S); the others keep theirs bit for bit,
+        as the
         reference's masked ``jnp.where`` keeps them (None: every row).
         Returns the (B, V) logits at each row's last chunk position (rows
         outside ``rows`` are unspecified) and the cache."""

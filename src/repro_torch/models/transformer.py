@@ -19,6 +19,7 @@ from .attention import (Attention, AttnCache, PackedSegs, PagedAttnCache,
                         attention_block)
 from .mlp import MLP, mlp_block
 from .moe import MoE, moe_block
+from .ssm import RWKV6, RWKVCache, rwkv6_block
 
 
 @dataclass(frozen=True)
@@ -58,16 +59,22 @@ def stack_period(spec: ModelSpec) -> tuple[int, int]:
 
 
 class Layer(nn.Module):
-    """One attention layer: ``mixer`` (attention) + ``ffn`` (the MoE block
-    where the layer class is MoE, else the dense MLP)."""
+    """One layer.  Attention: ``mixer`` (attention) + ``ffn`` (the MoE
+    block where the layer class is MoE, else the dense MLP).  RWKV-6:
+    ``mixer`` (time mix and channel mix) and no ``ffn``, as in the
+    reference: the channel mix is its FFN."""
 
     def __init__(self, spec: ModelSpec, cls: LayerClass, device, dtype):
         super().__init__()
-        if cls.kind != "attn":
+        if cls.kind == "mamba":
             raise NotImplementedError(
-                f"{spec.name!r}: {cls.kind} layers are not ported yet "
+                f"{spec.name!r}: mamba layers are not ported yet "
                 "(ROADMAP: queue 1, item 13)")
         self.cls = cls
+        if cls.kind == "rwkv6":
+            self.mixer = RWKV6(spec, device, dtype)
+            self.ffn = None
+            return
         self.mixer = Attention(spec, device, dtype)
         if cls.is_moe:
             self.ffn = MoE(spec, device, dtype)
@@ -81,12 +88,17 @@ class Layer(nn.Module):
 
 
 def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
-               positions: torch.Tensor, cache: AttnCache | PagedAttnCache,
-               *, impl: str, **attn_kw) -> torch.Tensor:
-    if layer.cls.kind != "attn":
-        raise NotImplementedError(
-            "the port's stacks are attention-only; layer kind "
-            f"{layer.cls.kind!r} carries sequential state")
+               positions: torch.Tensor,
+               cache: AttnCache | PagedAttnCache | RWKVCache, *, impl: str,
+               **attn_kw) -> torch.Tensor:
+    if layer.cls.kind == "rwkv6":
+        if attn_kw["packed"] is not None:
+            raise NotImplementedError(
+                "the token-packed unified step supports attention-only "
+                "stacks; layer kind 'rwkv6' carries sequential state")
+        # both residuals inside the block: the stack adds none
+        return rwkv6_block(spec, layer.mixer, x, cache,
+                           rows=attn_kw["rows"], impl=impl)
     x = x + attention_block(spec, layer.mixer, x, positions, cache,
                             impl=impl, **attn_kw)
     if layer.cls.is_moe:
@@ -98,19 +110,19 @@ def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
 
 def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 positions: torch.Tensor,
-                caches: list[AttnCache] | list[PagedAttnCache], *,
+                caches: list[AttnCache | PagedAttnCache | RWKVCache], *,
                 lengths: torch.Tensor | None = None,
                 page_table: torch.Tensor | None = None,
                 packed: PackedSegs | None = None,
                 rows: torch.Tensor | None = None,
                 impl: str = "kernel") -> torch.Tensor:
-    """Run every layer; each writes its K/V into its own cache (in place).
-    ``impl`` routes every kernel of the stack, attention and expert GEMMs
-    (``kernels.ops.IMPLS``).
+    """Run every layer; each writes its K/V (or its RWKV state) into its own
+    cache, in place.  ``impl`` routes every kernel of the stack, attention,
+    expert GEMMs and the WKV scan (``kernels.ops.IMPLS``).
     ``lengths``/``page_table`` are the (B,) valid tokens and the shared
     (B, max_pages) page table; ``packed`` the shared segment table when x
-    is a token-packed unified step; ``rows`` the dense rows whose K/V a
-    chunk writes (see :func:`attention_block`)."""
+    is a token-packed unified step; ``rows`` the dense rows whose K/V or
+    state a chunk writes (see :func:`attention_block`)."""
     for layer, cache in zip(layers, caches, strict=True):
         x = _apply_one(spec, layer, x, positions, cache, lengths=lengths,
                        page_table=page_table, packed=packed, rows=rows,

@@ -21,6 +21,12 @@ concurrent prefill rows.  Two engines, as in the reference:
   paged layout).  Decode is one ``decode_step`` over every slot and one
   sample, in ``decode_priority`` order with the prefill.
 
+An attention-free stack (RWKV-6) serves through the two-dispatch engine
+in either layout: its per-slot state is reset, advanced and inserted as
+K/V rows are, and the paged layout's page accounting runs unchanged, as
+the reference's does.  The unified step refuses it (``ValueError``, as the
+reference).
+
 In the paged layout pages are allocated on append and freed on finish;
 when the pool runs dry the youngest active request is preempted back to
 the queue (recompute-style, so greedy outputs are unchanged).
@@ -38,13 +44,14 @@ from __future__ import annotations
 import itertools
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.attention import PackedSegs, paged_insert_rows
+from ..models.attention import (AttnCache, PackedSegs, PagedAttnCache,
+                                paged_insert_rows)
 from ..models.model import Model, ModelCache
 from .paging import PageAllocator
 from .sampling import SamplingConfig, sample_slots
@@ -180,6 +187,12 @@ class EngineMetrics:
         return out
 
 
+def _tensors(layer_cache) -> list[torch.Tensor]:
+    """Every tensor of one layer's cache (K/V, or an RWKV layer's state),
+    each with the batch (or page) axis first."""
+    return [getattr(layer_cache, f.name) for f in fields(layer_cache)]
+
+
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP: queue 1, {item})")
@@ -208,6 +221,12 @@ class ServeEngine:
             raise ValueError(
                 "unified=True needs cache_layout='paged': the packed step "
                 "writes prefill K/V directly into KV pages")
+        spec = model.spec
+        if config.unified and any(k == "ssm" for k in spec.layer_kinds()):
+            raise ValueError(
+                "unified=True supports attention-only stacks; "
+                f"{spec.name!r} has SSM layers whose sequential state has "
+                "no packed-segment forward")
         if config.prefix_cache:
             _refuse("prefix_cache=True", "item 6")
         if config.n_spec:
@@ -217,9 +236,6 @@ class ServeEngine:
             _refuse(f"tp={config.tp} pp={config.pp}", "item 12")
         if config.debug_guards:
             _refuse("debug_guards=True", "item 5")
-        spec = model.spec
-        if any(k != "attn" for k in spec.layer_kinds()):
-            _refuse(f"SSM layers ({spec.name!r})", "item 13")
         self.unified = config.unified
         self.paged = config.cache_layout == "paged"
         if spec.attn.kind == "swa" and self.unified:
@@ -476,10 +492,11 @@ class ServeEngine:
 
     # -- two-dispatch device work -----------------------------------------
     def _reset_row(self, row: int) -> None:
-        """Zero one scratch row (claimed by a newly admitted prompt)."""
+        """Zero one scratch row (claimed by a newly admitted prompt): its
+        K/V, or an RWKV layer's shift caches and WKV state."""
         for layer in self.scratch.layers:
-            layer.k[row].zero_()
-            layer.v[row].zero_()
+            for t in _tensors(layer):
+                t[row].zero_()
         self.scratch.lengths[row] = 0
 
     def _prefill_masked(self, tokens: np.ndarray, rows: list[int]
@@ -493,20 +510,26 @@ class ServeEngine:
         return logits
 
     def _insert(self, slot: int, row: int) -> None:
-        """Copy scratch row ``row`` (K/V and length) into decode slot
-        ``slot`` of the dense cache."""
+        """Copy scratch row ``row`` (K/V or RWKV state, and length) into
+        decode slot ``slot`` of the dense cache."""
         for big, small in zip(self.cache.layers, self.scratch.layers):
-            big.k[slot].copy_(small.k[row])
-            big.v[slot].copy_(small.v[row])
+            for b, s in zip(_tensors(big), _tensors(small)):
+                b[slot].copy_(s[row])
         self.cache.lengths[slot] = self.scratch.lengths[row]
 
     def _insert_paged(self, slot: int, row: int, pages: np.ndarray) -> None:
         """Scatter scratch row ``row`` into the pool pages named by
-        ``pages`` and install the slot's length and page-table row on the
-        device (so the table needs no separate upload)."""
+        ``pages`` (attention layers), copy its RWKV state into slot
+        ``slot`` (paging never applies to state), and install the slot's
+        length and page-table row on the device (so the table needs no
+        separate upload)."""
         pages_dev = self._up(pages)
         for big, small in zip(self.cache.layers, self.scratch.layers):
-            paged_insert_rows(big, small, row, pages_dev)
+            if isinstance(big, PagedAttnCache):
+                paged_insert_rows(big, small, row, pages_dev)
+            else:
+                for b, s in zip(_tensors(big), _tensors(small)):
+                    b[slot].copy_(s[row])
         self.cache.lengths[slot] = self.scratch.lengths[row]
         self.cache.page_table[slot] = pages_dev
 
@@ -753,9 +776,11 @@ class ServeEngine:
     def kv_stats(self) -> dict:
         """Static + peak KV-capacity numbers: the decode cache's device
         reservation in bytes and the peak bytes holding live tokens (the
-        dense layout's footprint is its reservation)."""
+        dense layout's footprint is its reservation).  Attention K/V only,
+        as the reference counts: RWKV state is not KV."""
         reserved = sum(t.numel() * t.element_size()
                        for layer in self.cache.layers
+                       if isinstance(layer, (AttnCache, PagedAttnCache))
                        for t in (layer.k, layer.v))
         out = {"cache_layout": self.cfg.cache_layout,
                "kv_reserved_bytes": reserved}

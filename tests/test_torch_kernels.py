@@ -1,13 +1,14 @@
 """Port parity: the plain PyTorch kernels (``repro_torch.kernels``: ragged
 paged attention, paged decode attention, attention over dense K/V with a
-window) against the JAX oracles and the Pallas kernels in interpret mode,
-on the cases of ``tests/test_kernels.py``.
+window, dense decode attention) against the JAX oracles and the Pallas
+kernels in interpret mode, on the cases of ``tests/test_kernels.py``.
 
 Inputs are made from numpy seeds and handed to both frameworks; everything
 runs in float32 on the CPU.  Rows in packing gaps are unspecified on both
 sides and masked.  Tolerance: atol 1e-5 (float32 softmax over at most a
 few dozen keys, summed in different orders), 1e-4 against the flash
-kernel's blockwise sums over up to 128 keys.
+kernel's blockwise sums over up to 128 keys; the dense decode also runs in
+bfloat16, within one bf16 ulp more.
 """
 
 import jax
@@ -18,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import pallas_decode_attention
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -318,3 +320,80 @@ def test_plain_attention_single_query_and_masked_rows():
     # a query before every key (q_offset -1, causal) sees nothing: 0
     masked = tops.multi_head_attention(*_torch((q, k, v)), q_offset=-1)
     assert torch.equal(masked, torch.zeros_like(masked))
+
+
+# ---------------------------------------------------------------------------
+# dense decode attention (the Pallas ``_decode_kernel``'s function)
+# ---------------------------------------------------------------------------
+
+_jax_decode = jax.jit(pallas_decode_attention,
+                      static_argnames=("block_kv", "interpret"))
+# (B, T, Hq, Hkv, D, Pallas block_kv): the cases of tests/test_kernels.py
+DECODE_CASES = [(3, 96, 8, 2, 16, 32), (1, 64, 4, 4, 32, 16),
+                (2, 128, 16, 8, 8, 64)]
+BF16_ULP = 2.0 ** -7
+
+
+def _decode_case(b, t, hq, hkv, d, seed, dtype):
+    """q, k, v as numpy (rounded to bf16 and widened back for bf16)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((b, 1, hq, d), (b, t, hkv, d), (b, t, hkv, d))]
+    if dtype == "bfloat16":
+        arrs = [torch.from_numpy(a).bfloat16().float().numpy() for a in arrs]
+    return arrs
+
+
+def _check_decode(got, want, dtype):
+    """float32: atol 1e-5 (softmax sums in another order); bfloat16: both
+    sides sum in f32 and round once, so one bf16 ulp more."""
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    ulp = BF16_ULP * np.abs(want) if dtype == "bfloat16" else 0.0
+    assert np.all(np.abs(got - want) <= ATOL + ulp), \
+        float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5])))
+def test_plain_decode_attention_matches_jax(case, dtype):
+    """ops.decode_attention (plain on the CPU) against the JAX oracle as
+    tests/test_kernels.py defines it and the Pallas kernel in interpret
+    mode, on the reference test's lengths."""
+    b, t, hq, hkv, d, bk = case
+    q, k, v = _decode_case(b, t, hq, hkv, d, seed=t, dtype=dtype)
+    lengths = (np.arange(1, b + 1) * (t // (b + 1)) + 1).astype(np.int32)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    oracle = jref.mha_reference(jq, jk, jv, causal=False,
+                                kv_len=jnp.asarray(lengths),
+                                q_offset=jnp.asarray(lengths) - 1)
+    pallas = _jax_decode(jq, jk, jv, lengths=jnp.asarray(lengths),
+                         block_kv=bk, interpret=True)
+    tdt = getattr(torch, dtype)
+    got = tops.decode_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        lengths=torch.from_numpy(lengths))
+    assert got.dtype == tdt and got.shape == (b, 1, hq, d)
+    _check_decode(got, oracle, dtype)
+    _check_decode(got, pallas, dtype)
+
+
+def test_plain_decode_attention_length_zero_row():
+    """A row of length 0 is zeros, as the Pallas kernel's l_safe makes it;
+    a row past the cache sees every key."""
+    b, t, hq, hkv, d = 3, 64, 8, 2, 16
+    q, k, v = _decode_case(b, t, hq, hkv, d, seed=7, dtype="float32")
+    lengths = np.asarray([0, 5, t], np.int32)
+    pallas = _jax_decode(*(jnp.asarray(x) for x in (q, k, v)),
+                         lengths=jnp.asarray(lengths), block_kv=16,
+                         interpret=True)
+    got = tops.decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                lengths=torch.from_numpy(lengths))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _check_decode(got, pallas, "float32")
+    plain = tops.decode_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  lengths=torch.from_numpy(lengths),
+                                  impl="plain")
+    assert torch.equal(got, plain)

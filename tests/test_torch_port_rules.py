@@ -5,7 +5,7 @@
   importing the port leaves ``jax`` out of ``sys.modules``.
 * Entry points default to the card: without one, ``build_model`` and
   ``ServeEngine`` raise unless ``device="cpu"`` is given.
-* The CUDA wrapper refuses tensors on the CPU instead of falling back, and
+* The CUDA wrappers refuse tensors on the CPU instead of falling back, and
   nothing builds or loads a kernel at import.
 * The engine refuses, by name, every mode the port does not serve yet.
 * ``chip_smoke.py`` exits non-zero and prints no result without a card,
@@ -24,8 +24,10 @@ import torch
 
 from repro_torch.configs import get_reduced
 from repro_torch.core.modelspec import AttnSpec, SSMSpec
-from repro_torch.kernels import (build, expert_gemm, flash_attention, ops,
-                                 paged_decode_attention, ragged_attention)
+from repro_torch.kernels import (build, decode_attention, expert_gemm,
+                                 flash_attention, ops,
+                                 paged_decode_attention, ragged_attention,
+                                 rwkv6_scan)
 from repro_torch.models import build_model
 from repro_torch.serving import EngineConfig, ServeEngine
 
@@ -112,20 +114,27 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_new_cuda_wrappers_refuse_cpu_tensors():
-    """The paged decode, flash and expert GEMM wrappers refuse CPU tensors
-    too, and count no launch; ``ops`` takes the plain version for them."""
+    """The paged decode, flash, expert GEMM, WKV scan and dense decode
+    wrappers refuse CPU tensors too, and count no launch; ``ops`` takes the
+    plain version for them."""
     q = torch.zeros((2, 1, 4, 16))
     pool = torch.zeros((4, 2, 4, 16))
     pt = torch.zeros((2, 3), dtype=torch.int32)
     lengths = torch.tensor([1, 5], dtype=torch.int32)
     kv = torch.zeros((2, 8, 2, 16))
     x, w = torch.zeros((3, 5, 16)), torch.zeros((3, 16, 8))
+    rkvw = torch.zeros((2, 3, 4, 16))
+    u, s0 = torch.zeros((4, 16)), torch.zeros((2, 4, 16, 16))
     calls = [
         (paged_decode_attention, lambda: paged_decode_attention
          .paged_decode_attention_cuda(q, pool, pool, pt, lengths)),
         (flash_attention, lambda: flash_attention.flash_attention_cuda(
             q, kv, kv, kv_len=lengths, q_offset=lengths - 1)),
         (expert_gemm, lambda: expert_gemm.expert_gemm_cuda(x, w)),
+        (rwkv6_scan, lambda: rwkv6_scan.rwkv6_scan_cuda(
+            rkvw, rkvw, rkvw, rkvw, u, s0)),
+        (decode_attention, lambda: decode_attention.decode_attention_cuda(
+            q, kv, kv, lengths=lengths)),
     ]
     for module, call in calls:
         before = module.launches
@@ -136,6 +145,9 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
         == q.shape
     assert ops.multi_head_attention(q, kv, kv).shape == q.shape
     assert ops.expert_gemm(x, w).shape == (3, 5, 8)
+    out, fin = ops.rwkv6_scan(rkvw, rkvw, rkvw, rkvw, u, s0)
+    assert out.shape == rkvw.shape and fin.shape == s0.shape
+    assert ops.decode_attention(q, kv, kv, lengths=lengths).shape == q.shape
 
 
 def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
@@ -144,7 +156,8 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert build._LOADED == {} or torch.cuda.is_available()
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     for module in (ragged_attention, paged_decode_attention,
-                   flash_attention, expert_gemm):
+                   flash_attention, expert_gemm, rwkv6_scan,
+                   decode_attention):
         assert (REPO / module.SOURCE).is_file()
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
