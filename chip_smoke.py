@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch/CUDA port (``repro_torch``), one H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --kernels NAME,...   # build + kernel_check only
 
 Phases, each printing one JSON line (any failure raises and exits non-zero):
 
@@ -27,7 +28,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                   flash        prefill (2 rows x 128 queries), partial
                                chunk (37 queries), dense decode (8 slots,
                                Sq=1), sliding window (mistral-7b-swa's
-                               W=4096 at 8192 keys)
+                               W=4096 at 8192 keys); prefill and decode
+                               again at deepseek's G=1; untimed, the
+                               tensor-core tile edges: D=64 (Hq 24 over
+                               Hkv 8) at 37 queries, D=16, a row with
+                               kv_len 0 beside a 24-key window (16
+                               queries and a decode), and D=72, which
+                               takes the CUDA-core walk in bf16 too
                   expert GEMM  a mixed step's up/gate (C=264 packed tokens,
                                x broadcast over the experts) and down
                                products, the decode-only step's (C=8), the
@@ -38,7 +45,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                                non-zero state0 and bonus, decays in
                                (0.45, 0.95); out and final state both held
                   dense decode 8 rows against a 2048-key cache, lengths
-                               0..2048, at G=4 and at deepseek's G=1
+                               0..2048, at G=4 and at deepseek's G=1;
+                               untimed, G=3 at D=64
+                the flash and dense decode lines name the route each dtype
+                took (bf16 at D % 16 == 0, D <= 128: tensor_core; else
+                cuda_core) and the bf16 launch plan
   decode_op     the dense decode's path: kernels.ops.decode_attention, its
                 entry point (no model routes to it, as in the reference),
                 once per layer of a minitron-8b decode step; its launches
@@ -58,7 +69,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 and EngineConfig(cache_layout="dense"); launch counts exact:
                 paged decode n_layers x decode steps and flash n_layers x
                 prefill calls (paged); flash n_layers x (prefill calls +
-                decode steps) (dense)
+                decode steps) (dense), every flash call on the tensor-core
+                route (each line prints the calls of each route); then
+                serve_profile of the dense engine, where flash launches
+                most
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
                 served through the kernels and with the plain versions
                 selected explicitly: greedy outputs token-identical between
@@ -158,15 +172,46 @@ TIMED = ("decode", "prefill", "deepseek_decode",
 DECODE_LENGTHS = [1, 17, 255, 0, 640, 1024, 1500, 2048]
 
 # flash forward: (rows, queries, keys, q_offset per row, window); kv_len =
-# q_offset + queries.  The two scratch rows of a full and of a partial
-# chunk, the dense decode of 8 slots, and mistral-7b-swa's window.
+# q_offset + queries unless given.  The two scratch rows of a full and of a
+# partial chunk, the dense decode of 8 slots, and mistral-7b-swa's window;
+# the same prefill and decode at deepseek-moe-16b's heads (G = 1, the head
+# shape of its two-dispatch serve).  Then, untimed, the edges of the
+# tensor-core tiles: granite-moe's D = 64 heads (Hq 24 over Hkv 8) at a
+# partial chunk, the reduced configs' D = 16, one row with kv_len 0 beside
+# a window narrower than one 64-key tile (a 16-query chunk, and a decode),
+# and D = 72 (a multiple of 8, not
+# of 16), which takes the CUDA-core walk in bf16 too.
 FLASH_PROFILES = {
     "prefill": dict(b=2, sq=128, skv=2048, q_offset=[1372, 128]),
     "prefill_partial": dict(b=2, sq=37, skv=2048, q_offset=[256, 0]),
     "dense_decode": dict(b=8, sq=1, skv=2048,
                          q_offset=[0, 16, 254, 639, 1023, 1499, 2046, 2047]),
     "window": dict(b=1, sq=128, skv=8192, q_offset=[6000], window=4096),
+    "deepseek_prefill": dict(b=2, sq=128, skv=2048, q_offset=[1372, 128],
+                             **DS_HEADS),
+    "deepseek_decode": dict(b=8, sq=1, skv=2048,
+                            q_offset=[0, 16, 254, 639, 1023, 1499, 2046,
+                                      2047], **DS_HEADS),
+    "granite_d64_partial": dict(b=2, sq=37, skv=2048, q_offset=[256, 0],
+                                hq=24, hkv=8, d=64),
+    "reduced_d16": dict(b=2, sq=37, skv=512, q_offset=[300, 0], hq=8, hkv=2,
+                        d=16),
+    "kv_len0_narrow_window": dict(b=3, sq=16, skv=512,
+                                  q_offset=[200, 0, 400],
+                                  kv_len=[216, 0, 416], window=24),
+    "decode_kv_len0_window": dict(b=3, sq=1, skv=512,
+                                  q_offset=[215, 0, 415],
+                                  kv_len=[216, 0, 416], window=24),
+    "d72_cuda_core": dict(b=2, sq=37, skv=512, q_offset=[300, 0], hq=8,
+                          hkv=2, d=72),
 }
+FLASH_TIMED = ("prefill", "prefill_partial", "dense_decode", "window",
+               "deepseek_prefill", "deepseek_decode")
+
+
+def head_dims(prof):
+    """(Hq, Hkv, D) of a profile (minitron-8b's unless it says)."""
+    return prof.get("hq", HQ), prof.get("hkv", HKV), prof.get("d", D)
 
 
 def _pools(torch, gen, kv_lens, hkv=HKV):
@@ -222,11 +267,13 @@ def make_flash_case(torch, prof, dtype, seed):
     1e4, so a kernel that reads past kv_len disagrees loudly."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     b, sq, skv = prof["b"], prof["sq"], prof["skv"]
-    q = torch.randn((b, sq, HQ, D), generator=gen, device=DEV)
-    k = torch.randn((b, skv, HKV, D), generator=gen, device=DEV)
-    v = torch.randn((b, skv, HKV, D), generator=gen, device=DEV)
+    hq, hkv, d = head_dims(prof)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=DEV)
+    k = torch.randn((b, skv, hkv, d), generator=gen, device=DEV)
+    v = torch.randn((b, skv, hkv, d), generator=gen, device=DEV)
     qo = torch.tensor(prof["q_offset"], dtype=torch.int32, device=DEV)
-    kl = qo + sq
+    kl = (torch.tensor(prof["kv_len"], dtype=torch.int32, device=DEV)
+          if "kv_len" in prof else qo + sq)
     past = torch.arange(skv, device=DEV)[None, :] >= kl[:, None]
     k[past] = 1e4
     v[past] = 1e4
@@ -327,12 +374,15 @@ def work_decode(lengths, itemsize):
 def _visible(prof):
     """(keys any query of the row sees, visible query-key pairs) per row."""
     out = []
-    for qo in prof["q_offset"]:
-        kl, w = qo + prof["sq"], prof.get("window")
+    for r, qo in enumerate(prof["q_offset"]):
+        kl = prof["kv_len"][r] if "kv_len" in prof else qo + prof["sq"]
+        w = prof.get("window")
         spans = [(max(0, qo + i - w + 1) if w else 0, min(kl, qo + i + 1))
                  for i in range(prof["sq"])]
-        keys = max(hi for _, hi in spans) - min(lo for lo, _ in spans)
-        out.append((keys, sum(max(0, hi - lo) for lo, hi in spans)))
+        spans = [(lo, hi) for lo, hi in spans if hi > lo]
+        keys = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)
+                if spans else 0)
+        out.append((keys, sum(hi - lo for lo, hi in spans)))
     return out
 
 
@@ -341,11 +391,12 @@ def work_flash(prof, itemsize):
     written once, K+V of the keys some query of the row can see (inside
     kv_len, the causal bound and the window) read once, kv_len and
     q_offset; 4 D operations per visible query-key pair per head."""
+    hq, hkv, d = head_dims(prof)
     vis = _visible(prof)
-    nbytes = (2 * prof["b"] * prof["sq"] * HQ * D * itemsize
-              + sum(2 * keys * HKV * D * itemsize for keys, _ in vis)
+    nbytes = (2 * prof["b"] * prof["sq"] * hq * d * itemsize
+              + sum(2 * keys * hkv * d * itemsize for keys, _ in vis)
               + 8 * prof["b"])
-    return _bound(nbytes, 4 * D * HQ * sum(pairs for _, pairs in vis))
+    return _bound(nbytes, 4 * d * hq * sum(pairs for _, pairs in vis))
 
 
 def sdpa_call(torch, case):
@@ -425,21 +476,36 @@ def work_rwkv(prof, itemsize):
 
 
 # dense decode: 8 rows against a 2048-key cache at minitron-8b's heads and
-# at deepseek-moe-16b's (G = 1); DECODE_LENGTHS include a length-0 row
+# at deepseek-moe-16b's (G = 1); DECODE_LENGTHS include a length-0 row.
+# Untimed: granite-moe's heads (G = 3, D = 64), a tile edge of the
+# tensor-core walk; and 2 rows of a 4096-key cache, whose 16 (row, KV
+# head) pairs would ask for 64 splits, past the tensor-core combine's 32.
 DENSE_DECODE_T = 2048
 DENSE_DECODE_PROFILES = {"decode": dict(hq=HQ, hkv=HKV),
-                         "deepseek_decode": DS_HEADS}
+                         "deepseek_decode": DS_HEADS,
+                         "granite_d64": dict(hq=24, hkv=8, d=64),
+                         "long_cache": dict(hq=HQ, hkv=HKV, t=4096,
+                                            lengths=[4096, 2113])}
+DENSE_DECODE_TIMED = ("decode", "deepseek_decode")
+
+
+def dense_decode_shape(prof):
+    """(row lengths, cache length T) of a dense decode profile."""
+    return (prof.get("lengths", DECODE_LENGTHS),
+            prof.get("t", DENSE_DECODE_T))
 
 
 def make_dense_decode_case(torch, prof, dtype, seed):
     """Dense decode inputs on the card; every key at or past a row's length
     is 1e4, so a kernel that reads past the length disagrees loudly."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    b, t = len(DECODE_LENGTHS), DENSE_DECODE_T
-    q = torch.randn((b, 1, prof["hq"], D), generator=gen, device=DEV)
-    k = torch.randn((b, t, prof["hkv"], D), generator=gen, device=DEV)
-    v = torch.randn((b, t, prof["hkv"], D), generator=gen, device=DEV)
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=DEV)
+    lens, t = dense_decode_shape(prof)
+    b = len(lens)
+    hq, hkv, d = head_dims(prof)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=DEV)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=DEV)
+    v = torch.randn((b, t, hkv, d), generator=gen, device=DEV)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=DEV)
     past = torch.arange(t, device=DEV)[None, :] >= lengths[:, None]
     k[past] = 1e4
     v[past] = 1e4
@@ -450,11 +516,13 @@ def work_dense_decode(prof, itemsize):
     """Least bytes and operations of one dense decode call: q read and the
     output written once, K+V of each row's valid keys read once, and the
     lengths; 4 D operations per valid key per query head."""
-    b, hq, hkv = len(DECODE_LENGTHS), prof["hq"], prof["hkv"]
-    nbytes = (2 * b * hq * D * itemsize
-              + sum(2 * n * hkv * D * itemsize for n in DECODE_LENGTHS)
+    lens, _ = dense_decode_shape(prof)
+    b = len(lens)
+    hq, hkv, d = head_dims(prof)
+    nbytes = (2 * b * hq * d * itemsize
+              + sum(2 * n * hkv * d * itemsize for n in lens)
               + 4 * b)
-    return _bound(nbytes, 4 * D * hq * sum(DECODE_LENGTHS))
+    return _bound(nbytes, 4 * d * hq * sum(lens))
 
 
 def sdpa_decode_call(torch, case):
@@ -505,20 +573,33 @@ def _compare(what, got, want, rtol, scale=1.0):
 
 
 def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
-                  rows=None, library=None, timed=True, scaled=False, **info):
+                  rows=None, library=None, timed=True, scaled=False,
+                  module=None, **info):
     """One profile of one kernel: float32 and bfloat16 against the plain
     version on the same inputs (only on ``rows`` of the output, the rest
     exactly 0, when given; with ``scaled``, the tolerances relative to the
     output's scale, max(1, max |want|)); then in bfloat16 the kernel's,
     the plain version's and (``library``) the yardstick call's median
     times beside the bound.  A kernel that returns (out, state) has both
-    held, the float32 state within the float32 tolerance in both runs."""
+    held, the float32 state within the float32 tolerance in both runs.
+    A ``module`` with routes records the route each dtype took, which must
+    be the one its ``tensor_core_route`` names."""
     res = dict(info)
     for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
                              (torch.bfloat16, BF16_RTOL, "bf16")):
         case = make(dtype)
         got, want = run(case), plain(case)
         torch.cuda.synchronize()
+        if module is not None:
+            route = module.last_plan.route
+            d = case["q"].shape[-1]
+            if (route == "tensor_core") != \
+                    module.tensor_core_route(dtype, d):
+                raise AssertionError(f"{kernel}/{profile}/{tag}: route "
+                                     f"{route} at D = {d}")
+            res[f"route_{tag}"] = route
+            if tag == "bf16":
+                res["plan_bf16"] = vars(module.last_plan)
         if isinstance(got, tuple):  # (out, final state): the state is f32
             (got, got_state), (want, want_state) = got, want
             scale = max(1.0, float(want_state.abs().max())) if scaled \
@@ -551,14 +632,20 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
     return res
 
 
-def phase_kernel_check(torch) -> dict:
-    """{kernel: {profile: result}} for the six kernels."""
+def phase_kernel_check(torch, only=None) -> dict:
+    """{kernel: {profile: result}} for the six kernels (those ``only``
+    names, when given)."""
     from repro_torch.kernels import (decode_attention, expert_gemm,
                                      flash_attention, paged_decode_attention,
                                      ragged_attention, ref, rwkv6_scan)
 
+    def skip(kernel):
+        return only is not None and kernel not in only
+
     out = {name: {} for name in kernel_modules()}
     for name, prof in PROFILES.items():
+        if skip("ragged_paged_attention"):
+            break
         segs, max_q = prof["segs"], prof["max_q"]
         heads = {k: prof[k] for k in ("hq", "hkv") if k in prof}
         out["ragged_paged_attention"][name] = check_profile(
@@ -570,21 +657,28 @@ def phase_kernel_check(torch) -> dict:
             lambda c: ref.ragged_paged_reference(**c, max_q=max_q),
             work(segs, max_q, 2, **heads), rows=valid_rows(segs, max_q),
             timed=name in TIMED, max_q=max_q, segments=segs, **heads)
-    out["paged_decode_attention"]["decode"] = check_profile(
-        torch, "paged_decode_attention", "decode",
-        lambda dt: make_decode_case(torch, DECODE_LENGTHS, dt, seed=8),
-        lambda c: paged_decode_attention.paged_decode_attention_cuda(**c),
-        lambda c: ref.paged_decode_reference(**c),
-        work_decode(DECODE_LENGTHS, 2), lengths=DECODE_LENGTHS,
-        split_keys=paged_decode_attention.SPLIT_KEYS)
+    if not skip("paged_decode_attention"):
+        out["paged_decode_attention"]["decode"] = check_profile(
+            torch, "paged_decode_attention", "decode",
+            lambda dt: make_decode_case(torch, DECODE_LENGTHS, dt, seed=8),
+            lambda c: paged_decode_attention.paged_decode_attention_cuda(
+                **c),
+            lambda c: ref.paged_decode_reference(**c),
+            work_decode(DECODE_LENGTHS, 2), lengths=DECODE_LENGTHS,
+            split_keys=paged_decode_attention.SPLIT_KEYS)
     for name, prof in FLASH_PROFILES.items():
+        if skip("flash_attention"):
+            break
         out["flash_attention"][name] = check_profile(
             torch, "flash_attention", name,
             lambda dt: make_flash_case(torch, prof, dt, seed=prof["sq"]),
             lambda c: flash_attention.flash_attention_cuda(**c),
             lambda c: ref.mha_reference(**c),
-            work_flash(prof, 2), library=sdpa_call, **prof)
+            work_flash(prof, 2), library=sdpa_call,
+            timed=name in FLASH_TIMED, module=flash_attention, **prof)
     for name, prof in GEMM_PROFILES.items():
+        if skip("expert_gemm"):
+            break
         out["expert_gemm"][name] = check_profile(
             torch, "expert_gemm", name,
             lambda dt: make_gemm_case(torch, prof, dt, seed=prof["c"]),
@@ -596,6 +690,8 @@ def phase_kernel_check(torch) -> dict:
     # scale (sums over N in another order; the state update fused into one
     # multiply-add where the plain version rounds twice, over T steps)
     for name, prof in RWKV_PROFILES.items():
+        if skip("rwkv6_scan"):
+            break
         h, n = rwkv_dims(prof)[2:]
         out["rwkv6_scan"][name] = check_profile(
             torch, "rwkv6_scan", name,
@@ -607,6 +703,8 @@ def phase_kernel_check(torch) -> dict:
             work_rwkv(prof, 2), timed=name in RWKV_TIMED, scaled=True,
             **{"h": h, "n": n, **prof})
     for name, prof in DENSE_DECODE_PROFILES.items():
+        if skip("decode_attention"):
+            break
         out["decode_attention"][name] = check_profile(
             torch, "decode_attention", name,
             lambda dt: make_dense_decode_case(torch, prof, dt,
@@ -616,8 +714,8 @@ def phase_kernel_check(torch) -> dict:
                 c["q"], c["k"], c["v"], causal=False, kv_len=c["lengths"],
                 q_offset=c["lengths"].long() - 1),
             work_dense_decode(prof, 2), library=sdpa_decode_call,
-            lengths=DECODE_LENGTHS, t=DENSE_DECODE_T,
-            split_keys=decode_attention.SPLIT_KEYS, **prof)
+            timed=name in DENSE_DECODE_TIMED, module=decode_attention,
+            **{"lengths": DECODE_LENGTHS, "t": DENSE_DECODE_T, **prof})
     return out
 
 
@@ -647,8 +745,17 @@ def kernel_modules():
 
 
 def reset_launches() -> None:
+    """Every kernel's launch count, and each route's calls, to 0."""
     for mod in kernel_modules().values():
         mod.launches = 0
+        for route in getattr(mod, "routes", {}):
+            mod.routes[route] = 0
+
+
+def read_routes() -> dict[str, dict[str, int]]:
+    """Calls of each route of the kernels that have two."""
+    return {name: dict(mod.routes) for name, mod in kernel_modules().items()
+            if hasattr(mod, "routes")}
 
 
 def read_launches() -> dict[str, int]:
@@ -692,6 +799,7 @@ def serve_counted(torch, model, spec, mode):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
+    routes = read_routes()
     for r in reqs:
         if r.state != "done":
             raise AssertionError(f"{mode}: request {r.rid} not done "
@@ -713,7 +821,7 @@ def serve_counted(torch, model, spec, mode):
                  tokens_per_s=m.generated_tokens / wall,
                  ttft_s_mean=s["ttft_s_mean"], tpot_s_mean=s["tpot_s_mean"],
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 launches=counts)
+                 launches=counts, routes=routes)
     return eng, stats
 
 
@@ -790,8 +898,10 @@ def free(torch):
 
 
 def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
-    """The two-dispatch engine in both layouts; returns each serve's
-    kernel launch counts."""
+    """The two-dispatch engine in both layouts, then the dense engine's
+    profile; returns each serve's kernel launch counts.  Every flash call
+    of the bf16 model must take the tensor-core route."""
+    from repro_torch.serving import EngineConfig
     out = []
     for mode in ("paged", "dense"):
         eng, stats = serve_counted(torch, model, spec, mode)
@@ -806,11 +916,19 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
                         flash_attention=n * (m.prefill_calls
                                              + m.decode_steps))
         _expect(mode, stats["launches"], want)
+        flash_routes = stats["routes"]["flash_attention"]
+        if flash_routes != {"tensor_core": want["flash_attention"],
+                            "cuda_core": 0}:
+            raise AssertionError(f"{mode}: flash routes {flash_routes}, "
+                                 f"expected all {want['flash_attention']} "
+                                 "on the tensor cores")
         emit("serve_two_dispatch", model=spec.name, **stats,
              kv=eng.kv_stats())
         out.append(stats["launches"])
         del eng
         free(torch)
+    phase_serve_profile(torch, model, spec,
+                        EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
 
 
@@ -833,7 +951,10 @@ def phase_decode_op(torch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()
+    routes = read_routes()["decode_attention"]
     _expect("decode_op", counts, {"decode_attention": n_layers})
+    if routes != {"tensor_core": n_layers, "cuda_core": 0}:
+        raise AssertionError(f"decode_op: routes {routes}")
     out = outs[-1].float()
     if not bool(out.isfinite().all()):
         raise AssertionError("decode_op: non-finite output")
@@ -842,7 +963,7 @@ def phase_decode_op(torch) -> dict:
         raise AssertionError("decode_op: a length-0 row is not zero")
     emit("decode_op", calls=n_layers, wall_ms=wall * 1e3,
          shape=list(case["k"].shape), lengths=DECODE_LENGTHS,
-         launches=counts)
+         launches=counts, routes=routes)
     return counts
 
 
@@ -877,9 +998,16 @@ def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
 
 
 def _kernel_class(name: str) -> str:
+    """The class of a device kernel by its name.  The tensor-core attention
+    walk (attn_tc_*) counts as flash: no serve calls the dense decode, its
+    other user; the split-KV combine belongs to the paged decode."""
     n = name.lower()
     if "ragged_paged_attention" in n:
         return "ragged_attention"
+    if "flash_attention" in n or "attn_tc_" in n:
+        return "flash_attention"
+    if "paged_decode" in n or "decode_combine" in n:
+        return "paged_decode_attention"
     if "expert_gemm" in n:
         return "expert_gemm"
     if "rwkv6_scan" in n:
@@ -1051,12 +1179,25 @@ def kernel_entry(name, mod, launches, profiles, top):
                          for p, r in timed.items()}}
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    """No arguments: every phase.  ``--kernels a,b``: build, then only the
+    kernel_check of the named kernels (no serve, no result line)."""
+    only = None
+    if argv[:1] == ["--kernels"] and len(argv) == 2:
+        only = set(argv[1].split(","))
+    elif argv:
+        print("usage: chip_smoke.py [--kernels NAME,...]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    unknown = sorted((only or set()) - set(kernel_modules()))
+    if unknown:
+        print(f"chip_smoke.py: unknown kernels {unknown}; the kernels are "
+              f"{sorted(kernel_modules())}", file=sys.stderr)
+        return 2
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1064,7 +1205,8 @@ def main() -> int:
     smi = nvidia_smi()
 
     mods = kernel_modules()
-    names = [Path(mod.SOURCE).stem for mod in mods.values()]
+    names = [Path(mod.SOURCE).stem for name, mod in mods.items()
+             if only is None or name in only]
     t0 = time.perf_counter()
     built = build.build_all(names)
     for name in names:
@@ -1073,10 +1215,15 @@ def main() -> int:
          compile_seconds={n: b.seconds for n, b in built.items()},
          libraries=[str(b.path.relative_to(ROOT)) for b in built.values()],
          ptxas={n: [ln.strip() for ln in b.log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill"))]
                 for n, b in built.items()},
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
+    if only is not None:  # a short run: the named kernels' checks alone
+        phase_kernel_check(torch, only)
+        print(smi, flush=True)
+        return 0
     checks = phase_kernel_check(torch)
     serves = [phase_decode_op(torch)]
 
@@ -1121,4 +1268,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

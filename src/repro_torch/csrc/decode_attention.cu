@@ -17,25 +17,38 @@
 // What bounds it on the H100: bytes, each row's valid K and V once; its
 // arithmetic (4 D operations per key per query head) is two orders of
 // magnitude below the tensor-core line.  The TPU kernel walks (row x KV
-// head, 512-key block) in order on one core.  On Hopper that order gives 64
-// blocks for 8 rows x 8 KV heads, so the walk is split as the paged
-// decode's is (paged_decode_attention.cu), with contiguous addressing in
-// place of the page walk:
+// head, 512-key block) in order on one core; on Hopper that order gives 64
+// blocks for 8 rows x 8 KV heads, so the keys are split over n_split
+// blocks (the wrapper's `_plan` sizes the split from B Hkv and T so that
+// the grid holds several blocks per SM), and:
 //
-//   1. `decode_split_kernel`, grid (B * Hkv, n_split): block (row, KV
-//      head, split) walks the split_keys key positions of its split in
-//      32-key tiles (register-staged, next tile in flight while the
-//      current one computes) and writes the unnormalised partial (m, l,
-//      acc) of each of the G query heads into f32 scratch.  Blocks whose
-//      split lies past the row's length return at once.
-//   2. `decode_combine_kernel` (attention_common.cuh), grid (B * Hkv):
-//      rescales the used splits of each head to their common max and
-//      writes the output.
+//   1. a split pass, grid (B * Hkv, n_split): block (row, KV head, split)
+//      walks its share of the row's keys and writes the unnormalised
+//      partial (m, l, acc) of each of the G query heads into f32 scratch.
+//      Blocks whose share lies past the row's length return at once.
+//        * bf16 with D % 16 == 0 and D <= 128: the flash forward's
+//          tensor-core walk (attention_tc.cuh) at Sq = 1 with the G heads
+//          as one 16-row m16 tile (padded; the waste is free in a kernel
+//          bound by bytes): 64-key bf16 tiles staged by cp.async in a 2-3
+//          stage ring, each of the 4 warps taking 16 keys of every tile,
+//          the warps' partials merged through shared memory before the
+//          block writes its split.  Split s takes the s-th tile-aligned
+//          share of the row's own lengths[b] keys (read on the card), so a
+//          short row spreads over the splits as a long one does.
+//        * f32 and every other D: `decode_split_kernel` below, 32-key tiles
+//          widened to f32 and register-staged (the next tile in flight
+//          while the current one computes), products on the CUDA cores;
+//          split s takes the fixed keys [s split_keys, (s + 1) split_keys).
+//   2. the combine, grid (B * Hkv): rescales the used splits of each head
+//      to their common max and writes the output (attn_tc's combine for
+//      the tensor-core route, decode_combine_kernel of
+//      attention_common.cuh for the other).
 //
 // The wrapper allocates the scratch (torch.empty) and counts the two
 // launches as one call.
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -200,27 +213,54 @@ cudaError_t launch_d(int d, int g, const void* q, const void* k,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16.  Every pointer is a device pointer of a contiguous tensor;
-// m_part/l_part hold B * Hkv * n_split * G floats and acc_part that times D
-// (n_split = ceil(t_max / split_keys)).  Both launches go on `stream` and
-// nothing is synchronised.  Returns the cudaError_t of the launches
-// (0 = cudaSuccess).
+// 1 = bfloat16.  Every pointer is a device pointer of a contiguous tensor.
+// On the tensor-core route (bf16, D % 16 == 0, D <= 128) split_keys is 0
+// and n_split (1 to 32) shares cut each row's valid keys; m_part/l_part
+// hold B * Hkv * n_split * 16 floats and acc_part that times D, all null
+// when n_split == 1.  On the other route split_keys is a multiple of 32,
+// n_split = ceil(t_max / split_keys), and the scratch holds
+// B * Hkv * n_split * G floats (acc_part that times D).  Both launches go
+// on `stream` and nothing is synchronised.  Returns the cudaError_t of the
+// launches (0 = cudaSuccess).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const void* lengths, void* m_part, void* l_part, void* acc_part, int b,
-    int hq, int hkv, int d, int t_max, int split_keys, int dtype,
-    float sm_scale, void* stream) {
+    int hq, int hkv, int d, int t_max, int split_keys, int n_split,
+    int dtype, float sm_scale, void* stream) {
+  const bool tc = attn_tc::takes_walk(dtype, d);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > 16 || d <= 0 || d > 256
-      || d % 8 != 0 || t_max <= 0 || split_keys <= 0
-      || split_keys % kTileN != 0) {
+      || d % 8 != 0 || t_max <= 0
+      || (tc ? split_keys != 0
+             : split_keys <= 0 || split_keys % kTileN != 0
+                   || n_split != (t_max + split_keys - 1) / split_keys)) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0) return (int)cudaSuccess;
-  const int n_split = (t_max + split_keys - 1) / split_keys;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   float* ap = static_cast<float*>(acc_part);
+  if (tc) {
+    attn_tc::Params p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k);
+    p.v = static_cast<const __nv_bfloat16*>(v);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.m_part = mp;
+    p.l_part = lp;
+    p.acc_part = ap;
+    p.kv_len = static_cast<const int*>(lengths);
+    p.q_offset = nullptr;  // the query sits at lengths - 1
+    p.sq = 1;
+    p.skv = t_max;
+    p.hq = hq;
+    p.hkv = hkv;
+    p.causal = 0;
+    p.window = 0;
+    p.n_split = n_split;
+    p.scale_log2 = sm_scale * attn_tc::kLog2e;
+    return (int)attn_tc::launch(p, b, d, 16, st);
+  }
   const int g = hq / hkv;
   cudaError_t err;
   if (dtype == 0) {

@@ -14,26 +14,34 @@
 //   * f32 online softmax with the finite NEG_INF, so a row with no visible
 //     key writes zeros, as the reference does.
 //
-// Grid (B * Hkv, ceil(Sq * G / (4 kR))).  A block owns 4 kR flattened
-// (query i, head g) rows of one batch row and one KV head (row r is query
-// r / G, head h * G + r % G), so the G query heads of a KV head share every
-// staged K/V tile.  Each of the 4 warps owns kR rows: kR = 4 for prefill
-// (16 rows a block); a decode (Sq = 1) takes the smallest kR with
-// 4 kR >= G, so at G = 4 every warp computes one head.  The Pallas grid's
-// sequential kv axis becomes a loop over 32-key tiles inside the block.
-// The walk starts at the window's lower bound for the block's first query
-// and stops at the causal bound of its last, so tiles outside both are
-// never read.  No padding: Sq = 1 runs as one row per head.
-//
 // What bounds it on the H100: at decode (Sq = 1) bytes, every valid key's K
-// and V once; at a 128-query prefill chunk the arithmetic (4 D operations
-// per visible query-key pair and head) is still below the bf16 tensor-core
-// line, but this kernel runs it on the CUDA cores in f32, which caps it
-// near 67 TFLOP/s.  Tensor-core (mma.sync / wgmma) products for the
-// prefill rows and a split over the key axis for decode are left for
-// later work.
+// and V once; at a 128-query prefill chunk the arithmetic, 4 D operations
+// per visible query-key pair and head, which only the tensor cores run at
+// the card's rate.  Two routes, chosen from the dtype and D alone:
+//
+//   * bf16 with D % 16 == 0 and D <= 128 (every served model's heads, and
+//     the reduced configs' D = 16): the tensor-core walk of
+//     attention_tc.cuh.  mma.sync m16n8k16 products on bf16 tiles staged by
+//     cp.async in a 2-3 stage ring; blocks of 64 rows (4 warps x 16) for a
+//     prefill chunk, of 16 rows with the warps splitting each tile's keys
+//     for a decode (Sq G <= 16); and, where the (B Hkv, row block) grid
+//     would leave the 132 SMs short, a split of each block's visible key
+//     range over n_split blocks with a combine pass.  The wrapper's `_plan`
+//     sizes block rows, n_split and the f32 scratch from the shapes.
+//   * f32, and bf16 at any other D (a multiple of 8 up to 256): the
+//     CUDA-core walk below, which serve_parity and the f32 checks hold
+//     exactly.  Grid (B * Hkv, ceil(Sq * G / (4 kR))); a block owns 4 kR
+//     flattened (query i, head g) rows of one batch row and one KV head
+//     (row r is query r / G, head h * G + r % G), each of the 4 warps kR of
+//     them (kR = 4 for prefill; a decode takes the smallest kR with
+//     4 kR >= G).  The Pallas grid's sequential kv axis becomes a loop over
+//     32-key tiles inside the block, K/V widened to f32 in shared memory and
+//     dot products on the CUDA cores.  The walk starts at the window's lower
+//     bound for the block's first query and stops at the causal bound of
+//     its last, so tiles outside both are never read.
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -200,19 +208,46 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
 // 1 = bfloat16; kv_len and q_offset are (B,) int32; window <= 0 means no
 // sliding window.  Every pointer is a device pointer of a contiguous
-// tensor; the launch goes on `stream` and nothing is synchronised.
-// Returns the cudaError_t of the launch (0 = cudaSuccess).
+// tensor; the launches go on `stream` and nothing is synchronised.
+// block_rows and n_split: the tensor-core route's row block (16 or 64) and
+// key split, from the wrapper's `_plan`; with n_split > 1, m_part/l_part
+// hold B * Hkv * ceil(Sq G / block_rows) * n_split * block_rows floats and
+// acc_part that times D (else they may be null).  The CUDA-core route takes
+// n_split == 1.  Returns the cudaError_t of the launches (0 = cudaSuccess).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
-    const void* kv_len, const void* q_offset, int b, int sq, int skv, int hq,
-    int hkv, int d, int causal, int window, int dtype, float sm_scale,
-    void* stream) {
+    const void* kv_len, const void* q_offset, void* m_part, void* l_part,
+    void* acc_part, int b, int sq, int skv, int hq, int hkv, int d,
+    int causal, int window, int dtype, int block_rows, int n_split,
+    float sm_scale, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || d <= 0 || d > 256 || d % 8 != 0
-      || sq < 0 || skv < 0) {
+      || sq < 0 || skv < 0 || n_split < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (attn_tc::takes_walk(dtype, d)) {
+    attn_tc::Params p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k);
+    p.v = static_cast<const __nv_bfloat16*>(v);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.m_part = static_cast<float*>(m_part);
+    p.l_part = static_cast<float*>(l_part);
+    p.acc_part = static_cast<float*>(acc_part);
+    p.kv_len = static_cast<const int*>(kv_len);
+    p.q_offset = static_cast<const int*>(q_offset);
+    p.sq = sq;
+    p.skv = skv;
+    p.hq = hq;
+    p.hkv = hkv;
+    p.causal = causal;
+    p.window = window;
+    p.n_split = n_split;
+    p.scale_log2 = sm_scale * attn_tc::kLog2e;
+    return (int)attn_tc::launch(p, b, d, block_rows, st);
+  }
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
     err = launch_d<float>(d, q, k, v, out, kv_len, q_offset, b, sq, skv, hq,

@@ -51,15 +51,21 @@ def find_nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
-    flag set exists; raises with nvcc's output when the compile fails."""
+def digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` header and the
+    flags: the part of the library's file name that changes with them."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    digest = h.hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    return h.hexdigest()[:16]
+
+
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    flag set exists; raises with nvcc's output when the compile fails."""
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"{name}-{digest(name)}.so"
     if out.exists():
         return Built(out, 0.0, "")
     nvcc = find_nvcc()

@@ -1,7 +1,10 @@
 """Port parity: the plain PyTorch kernels (``repro_torch.kernels``: ragged
 paged attention, paged decode attention, attention over dense K/V with a
 window, dense decode attention) against the JAX oracles and the Pallas
-kernels in interpret mode, on the cases of ``tests/test_kernels.py``.
+kernels in interpret mode, on the cases of ``tests/test_kernels.py`` and
+at the edges of the Hopper kernels' tensor-core tiles; and the launch
+plans of the flash and dense decode wrappers (route, row blocks, key
+split), which are pure Python.
 
 Inputs are made from numpy seeds and handed to both frameworks; everything
 runs in float32 on the CPU.  Rows in packing gaps are unspecified on both
@@ -21,6 +24,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import pallas_decode_attention
 from repro.kernels.flash_attention import pallas_flash_attention
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -322,6 +326,168 @@ def test_plain_attention_single_query_and_masked_rows():
     assert torch.equal(masked, torch.zeros_like(masked))
 
 
+# the edges of the Hopper kernel's tensor-core tiles (64-key tiles, 16-row
+# m16 tiles of flattened (query, head) rows): G = 1, D = 64 and 16, a
+# 37-query chunk (148 rows at G = 4: two full 64-row blocks and a partial
+# one), a row with kv_len 0, a window narrower than one tile, and a decode
+# (Sq = 1) with a window; small Skv, per-row q_offset and kv_len
+FLASH_EDGE_CASES = {
+    # B, Sq, Skv, Hq, Hkv, D, q_offset, kv_len, window
+    "g1": (2, 16, 64, 4, 4, 16, [40, 0], [56, 16], None),
+    "d64_sq37": (2, 37, 96, 6, 2, 64, [50, 0], [87, 37], None),
+    "d16_sq37_g4": (2, 37, 80, 8, 2, 16, [40, 3], [77, 40], None),
+    "kv_len0": (3, 8, 64, 4, 2, 16, [20, 0, 40], [28, 0, 48], None),
+    "window_under_tile": (2, 16, 96, 4, 2, 16, [60, 10], [76, 26], 5),
+    "decode_window": (3, 1, 64, 8, 2, 32, [30, 0, 63], [31, 0, 64], 7),
+}
+
+
+@pytest.mark.parametrize("name", FLASH_EDGE_CASES)
+def test_plain_attention_tile_edges_match_pallas_flash(name):
+    """The plain attention at the tile edges of the Hopper kernel, against
+    the Pallas flash kernel in interpret mode and the JAX oracle; a row
+    with kv_len 0 is exactly 0."""
+    b, sq, skv, hq, hkv, d, q_off, kv_len, win = FLASH_EDGE_CASES[name]
+    q, k, v = _qkv(b, sq, skv, hq, hkv, d, seed=sq + d + b)
+    kv_len = np.asarray(kv_len, np.int32)
+    q_off = np.asarray(q_off, np.int32)
+    jargs = dict(causal=True, window=win, kv_len=jnp.asarray(kv_len),
+                 q_offset=jnp.asarray(q_off))
+    want = np.asarray(_jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), block_q=32, block_kv=32,
+                                 interpret=True, **jargs))
+    oracle = np.asarray(jref.mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), **jargs))
+    got = tops.multi_head_attention(
+        *_torch((q, k, v)), causal=True, window=win,
+        kv_len=torch.from_numpy(kv_len),
+        q_offset=torch.from_numpy(q_off)).numpy()
+    np.testing.assert_allclose(got, want, atol=FLASH_ATOL, rtol=0)
+    np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=0)
+    assert np.all(got[kv_len == 0] == 0)
+
+
+# ---------------------------------------------------------------------------
+# the launch plans of the flash and dense decode wrappers (pure Python: the
+# CUDA side takes what they return)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+# minitron-8b's heads (Hq 32 over Hkv 8, D 128) at chip_smoke.py's flash
+# profiles: (B, Sq, Skv)
+MAIN_FLASH = {"prefill": (2, 128, 2048), "prefill_partial": (2, 37, 2048),
+              "dense_decode": (8, 1, 2048), "window": (1, 128, 8192)}
+
+
+def _flash_plan(shape, hq=32, hkv=8, d=128, dtype=torch.bfloat16):
+    b, sq, skv = shape
+    return flash_attention._plan(b, sq, skv, hq, hkv, d, dtype, H100_SMS)
+
+
+def test_flash_plan_at_the_main_path_shapes():
+    """bf16 prefill takes the tensor-core route in 64-row blocks and no
+    split; the dense decode and the window profile split their keys over
+    at least 2 x 132 blocks; the decode's rows fit one 16-row block."""
+    pre = _flash_plan(MAIN_FLASH["prefill"])
+    assert (pre.route, pre.block_rows, pre.row_blocks, pre.n_split,
+            pre.part_rows) == ("tensor_core", 64, 8, 1, 0)
+    for name in ("dense_decode", "window"):
+        b = MAIN_FLASH[name][0]
+        plan = _flash_plan(MAIN_FLASH[name])
+        assert plan.route == "tensor_core" and plan.n_split > 1
+        assert b * 8 * plan.blocks >= 2 * H100_SMS
+        assert plan.part_rows == b * 8 * plan.blocks * plan.block_rows
+    assert _flash_plan(MAIN_FLASH["dense_decode"]).block_rows == 16
+    assert _flash_plan(MAIN_FLASH["window"]).block_rows == 64
+    part = _flash_plan(MAIN_FLASH["prefill_partial"])
+    assert (part.block_rows, part.row_blocks) == (64, 3)  # 148 rows
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 72),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 16)])
+def test_flash_plan_cuda_core_route(dtype, d):
+    """f32, and bf16 at a D off the 16-wide tiles or above 128, take the
+    CUDA-core walk, unsplit and without scratch."""
+    for shape in MAIN_FLASH.values():
+        plan = _flash_plan(shape, d=d, dtype=dtype)
+        assert (plan.route, plan.n_split, plan.part_rows) \
+            == ("cuda_core", 1, 0)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_plan_tile_edges(d):
+    """Every bf16 D % 16 == 0 up to 128 takes the tensor-core route;
+    deepseek's G = 1 decode and prefill split; the split never exceeds the
+    key tiles or the combine's bound."""
+    for hq, hkv in ((16, 16), (24, 8), (4, 2)):
+        for b, sq, skv in ((8, 1, 2048), (2, 128, 2048), (3, 16, 64),
+                           (1, 1, 16)):
+            plan = _flash_plan((b, sq, skv), hq=hq, hkv=hkv, d=d)
+            assert plan.route == "tensor_core"
+            assert plan.block_rows == (16 if sq * hq // hkv <= 16 else 64)
+            assert 1 <= plan.n_split <= min(flash_attention.MAX_SPLIT,
+                                            -(-skv // 64))
+    ds_decode = _flash_plan((8, 1, 2048), hq=16, hkv=16, d=d)
+    assert 8 * 16 * ds_decode.blocks >= 2 * H100_SMS
+
+
+def test_decode_plan_at_the_main_path_shapes():
+    """The dense decode at minitron's and deepseek's heads (8 rows, a
+    2048-key cache): in bf16 the tensor-core route with the flash
+    forward's plan at Sq = 1, one 16-row block split over at least
+    2 x 132 blocks; f32 and D = 72 take the CUDA-core walk, whose fixed
+    64-key-aligned shares always combine, with G rows of scratch."""
+    for hq, hkv in ((32, 8), (16, 16)):
+        plan = decode_attention._plan(8, 2048, hq, hkv, 128, torch.bfloat16,
+                                      H100_SMS)
+        assert plan == flash_attention._plan(8, 1, 2048, hq, hkv, 128,
+                                             torch.bfloat16, H100_SMS)
+        assert (plan.route, plan.block_rows, plan.row_blocks,
+                plan.split_keys) == ("tensor_core", 16, 1, 0)
+        assert 8 * hkv * plan.n_split >= 2 * H100_SMS
+        assert plan.part_rows == 8 * hkv * plan.n_split * 16
+        for dtype, d in ((torch.float32, 128), (torch.bfloat16, 72)):
+            cc = decode_attention._plan(8, 2048, hq, hkv, d, dtype,
+                                        H100_SMS)
+            assert cc.route == "cuda_core" and cc.split_keys % 64 == 0
+            assert cc.n_split == -(-2048 // cc.split_keys)
+            assert cc.part_rows == 8 * hkv * cc.n_split * (hq // hkv)
+    # a grid that already fills the card is not split, and a one-split
+    # tensor-core call writes its rows without scratch
+    big = decode_attention._plan(64, 2048, 32, 8, 128, torch.bfloat16,
+                                 H100_SMS)
+    assert (big.n_split, big.part_rows) == (1, 0)
+
+
+@pytest.mark.parametrize("b,hkv,t", [(1, 8, 4096), (4, 8, 4096),
+                                     (4, 8, 2112), (1, 8, 65536)])
+def test_decode_plan_long_cache_stays_within_the_combine(b, hkv, t):
+    """A cache longer than 2048 keys at few (row, KV head) pairs (B Hkv = 8
+    or 32) would ask for more splits than the tensor-core combine takes
+    (one a lane): the plan holds n_split to MAX_SPLIT, with scratch for
+    exactly that many."""
+    plan = decode_attention._plan(b, t, 32, hkv, 128, torch.bfloat16,
+                                  H100_SMS)
+    assert plan.route == "tensor_core"
+    assert 1 < plan.n_split <= flash_attention.MAX_SPLIT
+    assert plan.part_rows == b * hkv * plan.n_split * 16
+    cc = decode_attention._plan(b, t, 32, hkv, 128, torch.float32, H100_SMS)
+    assert cc.n_split == -(-t // cc.split_keys)
+
+
+def test_plans_read_no_tensor():
+    """Both plans are functions of plain ints and a dtype: they never see
+    kv_len, q_offset or lengths, which lie on the card."""
+    import inspect
+    for fn in (flash_attention._plan, decode_attention._plan):
+        params = inspect.signature(fn).parameters
+        assert "kv_len" not in params and "lengths" not in params
+        assert all(p.annotation in ("int", "torch.dtype")
+                   for p in params.values())
+
+
 # ---------------------------------------------------------------------------
 # dense decode attention (the Pallas ``_decode_kernel``'s function)
 # ---------------------------------------------------------------------------
@@ -330,7 +496,11 @@ _jax_decode = jax.jit(pallas_decode_attention,
                       static_argnames=("block_kv", "interpret"))
 # (B, T, Hq, Hkv, D, Pallas block_kv): the cases of tests/test_kernels.py
 DECODE_CASES = [(3, 96, 8, 2, 16, 32), (1, 64, 4, 4, 32, 16),
-                (2, 128, 16, 8, 8, 64)]
+                (2, 128, 16, 8, 8, 64),
+                # the Hopper kernel's tile edges: G = 1 at D = 64, G = 3
+                # at D = 64 (granite-moe's heads), G = 4 at D = 16
+                (3, 80, 4, 4, 64, 16), (2, 96, 6, 2, 64, 32),
+                (4, 64, 8, 2, 16, 16)]
 BF16_ULP = 2.0 ** -7
 
 

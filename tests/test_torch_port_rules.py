@@ -13,6 +13,7 @@
 """
 
 import ast
+import ctypes
 import dataclasses
 import shutil
 import subprocess
@@ -166,6 +167,60 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     else:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.find_nvcc()
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float, "long long": ctypes.c_longlong}
+
+
+def _c_params(source: Path, symbol: str) -> list:
+    """The ctypes type of each parameter of ``extern "C" int symbol(...)``
+    in a CUDA source (pointers of any type are void*)."""
+    text = source.read_text()
+    start = text.index(f'extern "C" int {symbol}(') + len(
+        f'extern "C" int {symbol}(')
+    params = text[start:text.index(")", start)].split(",")
+    out = []
+    for param in params:
+        decl = " ".join(param.replace("const ", "").split()[:-1])
+        out.append(_C_TYPES["void*" if decl.endswith("*") else decl])
+    return out
+
+
+@pytest.mark.parametrize("module,symbol", [
+    (ragged_attention, "ragged_paged_attention_launch"),
+    (paged_decode_attention, "paged_decode_attention_launch"),
+    (flash_attention, "flash_attention_launch"),
+    (expert_gemm, "expert_gemm_launch"),
+    (rwkv6_scan, "rwkv6_scan_launch"),
+    (decode_attention, "decode_attention_launch"),
+], ids=lambda x: getattr(x, "__name__", str(x)).split(".")[-1])
+def test_wrapper_argtypes_match_the_c_entry_point(module, symbol):
+    """Each wrapper binds its C entry point with one ctypes type per C
+    parameter, in order: a miscount would only show on the card."""
+    assert list(module._ARGTYPES) == _c_params(REPO / module.SOURCE, symbol)
+
+
+def test_cuda_headers_are_hashed_and_jax_free(tmp_path, monkeypatch):
+    """Every kernel's build hash covers each csrc/*.cuh header (the
+    tensor-core walk attention_tc.cuh among them), so an edited header
+    rebuilds every kernel; no CUDA source names the JAX package."""
+    headers = sorted(p.name for p in build.CSRC.glob("*.cuh"))
+    assert "attention_tc.cuh" in headers
+    for src in sorted(build.CSRC.glob("*.cu*")):
+        assert "jax" not in src.read_text().lower(), src.name
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", copy)
+    names = [Path(m.SOURCE).stem for m in (ragged_attention,
+                                            paged_decode_attention,
+                                            flash_attention, expert_gemm,
+                                            rwkv6_scan, decode_attention)]
+    before = {n: build.digest(n) for n in names}
+    tc = copy / "attention_tc.cuh"
+    tc.write_text(tc.read_text() + "\n// edited\n")
+    after = {n: build.digest(n) for n in names}
+    assert all(before[n] != after[n] for n in names)
 
 
 def _paged(**kw):
