@@ -23,8 +23,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 scaled_dot_product_attention; expert GEMM: torch.bmm):
                   ragged       decode (8 slots, kv_len 1..2048), prefill
                                (max_q=128), idle rows; decode and prefill
-                               again at deepseek's G=1
-                  paged decode 8 slots, lengths 0..2048
+                               again at deepseek's G=1; untimed, the edges
+                               of the paged tensor-core walk: page sizes 8
+                               and 128, prefill segments packed back to
+                               back, D=64 at G=3, D=16, kv_len off the
+                               64-key tiles beside an idle segment, a
+                               4096-key table at 2 slots (the split's cap),
+                               and D=72, which takes the CUDA-core walk in
+                               bf16 too
+                  paged decode 8 slots, lengths 0..2048; untimed, the same
+                               edges
                   flash        prefill (2 rows x 128 queries), partial
                                chunk (37 queries), dense decode (8 slots,
                                Sq=1), sliding window (mistral-7b-swa's
@@ -47,9 +55,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                   dense decode 8 rows against a 2048-key cache, lengths
                                0..2048, at G=4 and at deepseek's G=1;
                                untimed, G=3 at D=64
-                the flash and dense decode lines name the route each dtype
-                took (bf16 at D % 16 == 0, D <= 128: tensor_core; else
-                cuda_core) and the bf16 launch plan
+                the ragged, paged decode, flash and dense decode lines
+                name the route each dtype took (bf16 at D % 16 == 0,
+                D <= 128: tensor_core; else cuda_core) and the bf16 launch
+                plan
   decode_op     the dense decode's path: kernels.ops.decode_attention, its
                 entry point (no model routes to it, as in the reference),
                 once per layer of a minitron-8b decode step; its launches
@@ -59,7 +68,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 ServeEngine(EngineConfig(cache_layout="paged", unified=True)):
                 8 greedy requests of 100-1500 prompt tokens, 32 new tokens
                 each; the ragged kernel's launch count must equal
-                n_layers x (2 x mixed steps + decode-only steps)
+                n_layers x (2 x mixed steps + decode-only steps), every
+                launch on the tensor-core route
   serve_profile the same model and engine under torch.profiler for a
                 short serve: device time by kernel class, the device's
                 busy share of the wall clock
@@ -69,8 +79,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 and EngineConfig(cache_layout="dense"); launch counts exact:
                 paged decode n_layers x decode steps and flash n_layers x
                 prefill calls (paged); flash n_layers x (prefill calls +
-                decode steps) (dense), every flash call on the tensor-core
-                route (each line prints the calls of each route); then
+                decode steps) (dense), every flash and paged decode call
+                on the tensor-core route (each line prints the calls of
+                each route); then
                 serve_profile of the dense engine, where flash launches
                 most
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
@@ -165,11 +176,49 @@ PROFILES = {
 DS_HEADS = dict(hq=16, hkv=16)
 PROFILES["deepseek_decode"] = dict(PROFILES["decode"], **DS_HEADS)
 PROFILES["deepseek_prefill"] = dict(PROFILES["prefill"], **DS_HEADS)
+# untimed, the edges of the paged tensor-core walk: page sizes 8 and 128
+# (a page a fraction of a 64-key tile, and two tiles a page); prefill
+# segments packed back to back (q_start 0, 37, 137: a row written past
+# its segment lands on the next one); granite-moe's D = 64 at G = 3 and
+# the reduced configs' D = 16; kv_len off the 64-key tiles beside an idle
+# segment; a 4,096-key table at 2 slots, which asks the split for more
+# than the combine's 32; and D = 72, which takes the CUDA-core walk in bf16
+# too
+_EDGE_SEGS = [(16, 200), (1, 33), (5, 5)]
+PROFILES.update({
+    "page8": dict(PROFILES["decode"], ps=8, max_pages=256),
+    "page128": dict(PROFILES["prefill"], ps=128, max_pages=16),
+    "tight_prefill": dict(max_q=128, packed=True,
+                          segs=[(37, 300), (100, 1100), (5, 64)]),
+    "granite_d64": dict(max_q=128, segs=[(1, 700), (37, 293), (0, 0),
+                                         (128, 1500)], hq=24, hkv=8, d=64),
+    "reduced_d16": dict(max_q=16, packed=True, segs=_EDGE_SEGS, hq=8,
+                        hkv=2, d=16),
+    "odd_lengths_idle": dict(max_q=64, segs=[(64, 1000), (0, 0), (13, 77),
+                                             (1, 65)]),
+    "long_pool": dict(max_q=1, segs=[(1, 4096), (1, 2113)], max_pages=256),
+    "d72_cuda_core": dict(max_q=16, segs=_EDGE_SEGS, hq=8, hkv=2, d=72),
+})
 TIMED = ("decode", "prefill", "deepseek_decode",
          "deepseek_prefill")  # profiles the main paths launch
 
-# paged decode: the same 8 slots, lengths counting the token just written
+# paged decode: the same 8 slots, lengths counting the token just written;
+# untimed, the same edges as the ragged kernel's
 DECODE_LENGTHS = [1, 17, 255, 0, 640, 1024, 1500, 2048]
+_EDGE_LENGTHS = [1, 40, 0, 300]
+PAGED_DECODE_PROFILES = {
+    "decode": dict(lengths=DECODE_LENGTHS),
+    "page8": dict(lengths=DECODE_LENGTHS, ps=8, max_pages=256),
+    "page128": dict(lengths=DECODE_LENGTHS, ps=128, max_pages=16),
+    "granite_d64": dict(lengths=DECODE_LENGTHS, hq=24, hkv=8, d=64),
+    "reduced_d16": dict(lengths=_EDGE_LENGTHS, hq=8, hkv=2, d=16,
+                        max_pages=32),
+    "odd_lengths": dict(lengths=[65, 0, 127, 1000, 1, 63]),
+    "long_pool": dict(lengths=[4096, 2113], max_pages=256),
+    "d72_cuda_core": dict(lengths=_EDGE_LENGTHS, hq=8, hkv=2, d=72,
+                          max_pages=32),
+}
+PAGED_DECODE_TIMED = ("decode",)
 
 # flash forward: (rows, queries, keys, q_offset per row, window); kv_len =
 # q_offset + queries unless given.  The two scratch rows of a full and of a
@@ -214,49 +263,74 @@ def head_dims(prof):
     return prof.get("hq", HQ), prof.get("hkv", HKV), prof.get("d", D)
 
 
-def _pools(torch, gen, kv_lens, hkv=HKV):
-    """Paged pools on the card with a page run of ``ceil(kv_len / 16)``
+def paged_dims(prof):
+    """(Hq, Hkv, D, page size, table width) of a ragged or paged decode
+    profile (minitron-8b's heads and the engine's 128 pages of 16 unless
+    it says)."""
+    return head_dims(prof) + (prof.get("ps", PS),
+                              prof.get("max_pages", MAX_PAGES))
+
+
+def _pools(torch, gen, kv_lens, hkv, d, ps, max_pages):
+    """Paged pools on the card with a page run of ``ceil(kv_len / ps)``
     random pages per row; every table entry past a row's kv_len points at
     a junk page filled with 1e4, so a kernel that reads past kv_len
     disagrees loudly."""
-    need = [-(-kl // PS) for kl in kv_lens]
+    need = [-(-kl // ps) for kl in kv_lens]
     n_junk = 16
     n_pool = 1 + sum(need) + n_junk
-    kp = torch.randn((n_pool, hkv, PS, D), generator=gen, device=DEV)
-    vp = torch.randn((n_pool, hkv, PS, D), generator=gen, device=DEV)
+    kp = torch.randn((n_pool, hkv, ps, d), generator=gen, device=DEV)
+    vp = torch.randn((n_pool, hkv, ps, d), generator=gen, device=DEV)
     junk = list(range(n_pool - n_junk, n_pool))
     kp[junk] = 1e4
     vp[junk] = 1e4
     perm = (torch.randperm(n_pool - 1 - n_junk, generator=gen,
                            device=DEV) + 1).tolist()
     pt = torch.tensor([junk[(i + j) % n_junk] for i in range(len(kv_lens))
-                       for j in range(MAX_PAGES)],
-                      dtype=torch.int32).reshape(len(kv_lens), MAX_PAGES)
+                       for j in range(max_pages)],
+                      dtype=torch.int32).reshape(len(kv_lens), max_pages)
     for i, n in enumerate(need):
         pt[i, :n] = torch.tensor(perm[:n], dtype=torch.int32)
         perm = perm[n:]
     return kp, vp, pt.to(DEV)
 
 
-def make_case(torch, segs, max_q, dtype, seed, hq=HQ, hkv=HKV):
+def q_starts(prof):
+    """Each segment's first packed row: the engine's fixed layout (segment
+    i at i max_q), or back to back when the profile is ``packed``."""
+    lens = [ql for ql, _ in prof["segs"]]
+    if prof.get("packed"):
+        return [sum(lens[:i]) for i in range(len(lens))]
+    return [i * prof["max_q"] for i in range(len(lens))]
+
+
+def make_case(torch, prof, dtype, seed):
     """Packed ragged inputs on the card (see ``_pools``)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    kp, vp, pt = _pools(torch, gen, [kl for _, kl in segs], hkv)
-    q_start = torch.arange(len(segs), dtype=torch.int32) * max_q
-    q = torch.randn((len(segs) * max_q, hq, D), generator=gen, device=DEV)
+    segs = prof["segs"]
+    hq, hkv, d, ps, max_pages = paged_dims(prof)
+    kp, vp, pt = _pools(torch, gen, [kl for _, kl in segs], hkv, d, ps,
+                        max_pages)
+    starts = q_starts(prof)
+    t = (starts[-1] + segs[-1][0] if prof.get("packed")
+         else len(segs) * prof["max_q"])
+    q = torch.randn((t, hq, d), generator=gen, device=DEV)
     return dict(q=q.to(dtype), k_pool=kp.to(dtype), v_pool=vp.to(dtype),
-                seg_page_table=pt, q_start=q_start.to(DEV),
+                seg_page_table=pt,
+                q_start=torch.tensor(starts, dtype=torch.int32, device=DEV),
                 q_len=torch.tensor([s[0] for s in segs], dtype=torch.int32,
                                    device=DEV),
                 kv_len=torch.tensor([s[1] for s in segs], dtype=torch.int32,
                                     device=DEV))
 
 
-def make_decode_case(torch, lengths, dtype, seed):
+def make_decode_case(torch, prof, dtype, seed):
     """Paged decode inputs on the card (see ``_pools``)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    kp, vp, pt = _pools(torch, gen, lengths)
-    q = torch.randn((len(lengths), 1, HQ, D), generator=gen, device=DEV)
+    lengths = prof["lengths"]
+    hq, hkv, d, ps, max_pages = paged_dims(prof)
+    kp, vp, pt = _pools(torch, gen, lengths, hkv, d, ps, max_pages)
+    q = torch.randn((len(lengths), 1, hq, d), generator=gen, device=DEV)
     return dict(q=q.to(dtype), k_pool=kp.to(dtype), v_pool=vp.to(dtype),
                 page_table=pt,
                 lengths=torch.tensor(lengths, dtype=torch.int32, device=DEV))
@@ -328,10 +402,11 @@ def bmm_call(torch, case):
     return lambda: torch.bmm(case["x"], case["w"])
 
 
-def valid_rows(segs, max_q):
+def valid_rows(prof):
+    """The packed rows of the profile's live segments."""
     rows = []
-    for i, (ql, _) in enumerate(segs):
-        rows.extend(range(i * max_q, i * max_q + ql))
+    for start, (ql, _) in zip(q_starts(prof), prof["segs"]):
+        rows.extend(range(start, start + ql))
     return rows
 
 
@@ -342,33 +417,38 @@ def _bound(nbytes, flops, peak=BF16_FLOPS):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def work(segs, max_q, itemsize, hq=HQ, hkv=HKV):
+def work(prof, itemsize):
     """Least bytes and operations of one ragged launch.  Bytes: the live q
     rows (q_len of each segment) read once, the whole (T, Hq, D) output
     written once (gap rows are zero-filled), K+V of the valid tokens read
     once, and the table entries the walk reads (q_start/q_len/kv_len of
     every segment, ceil(kv_len / page) page ids of each live one).
     Operations: 4 D per visible query-key pair per head."""
+    segs = prof["segs"]
+    hq, hkv, d, ps, _ = paged_dims(prof)
     live = [(ql, kl) for ql, kl in segs if ql > 0]
-    t = len(segs) * max_q
-    nbytes = (sum(ql for ql, _ in live) * hq * D * itemsize
-              + t * hq * D * itemsize
-              + sum(2 * kl * hkv * D * itemsize for _, kl in live)
-              + (3 * len(segs) + sum(-(-kl // PS) for _, kl in live)) * 4)
+    t = (sum(ql for ql, _ in segs) if prof.get("packed")
+         else len(segs) * prof["max_q"])
+    nbytes = (sum(ql for ql, _ in live) * hq * d * itemsize
+              + t * hq * d * itemsize
+              + sum(2 * kl * hkv * d * itemsize for _, kl in live)
+              + (3 * len(segs) + sum(-(-kl // ps) for _, kl in live)) * 4)
     pairs = sum(kl - ql + i + 1 for ql, kl in live for i in range(ql))
-    return _bound(nbytes, 4 * D * hq * pairs)
+    return _bound(nbytes, 4 * d * hq * pairs)
 
 
-def work_decode(lengths, itemsize):
+def work_decode(prof, itemsize):
     """Least bytes and operations of one paged decode call: q read and the
     output written once, K+V of each slot's valid tokens read once, its
     ceil(length / page) page ids and its length; 4 D operations per valid
     key per query head."""
+    lengths = prof["lengths"]
+    hq, hkv, d, ps, _ = paged_dims(prof)
     b = len(lengths)
-    nbytes = (2 * b * HQ * D * itemsize
-              + sum(2 * n * HKV * D * itemsize for n in lengths)
-              + (sum(-(-n // PS) for n in lengths) + b) * 4)
-    return _bound(nbytes, 4 * D * HQ * sum(lengths))
+    nbytes = (2 * b * hq * d * itemsize
+              + sum(2 * n * hkv * d * itemsize for n in lengths)
+              + (sum(-(-n // ps) for n in lengths) + b) * 4)
+    return _bound(nbytes, 4 * d * hq * sum(lengths))
 
 
 def _visible(prof):
@@ -646,26 +726,27 @@ def phase_kernel_check(torch, only=None) -> dict:
     for name, prof in PROFILES.items():
         if skip("ragged_paged_attention"):
             break
-        segs, max_q = prof["segs"], prof["max_q"]
-        heads = {k: prof[k] for k in ("hq", "hkv") if k in prof}
+        max_q = prof["max_q"]
         out["ragged_paged_attention"][name] = check_profile(
             torch, "ragged_paged_attention", name,
-            lambda dt: make_case(torch, segs, max_q, dt, seed=len(segs),
-                                 **heads),
+            lambda dt: make_case(torch, prof, dt, seed=len(prof["segs"])),
             lambda c: ragged_attention.ragged_paged_attention_cuda(
                 **c, max_q=max_q),
             lambda c: ref.ragged_paged_reference(**c, max_q=max_q),
-            work(segs, max_q, 2, **heads), rows=valid_rows(segs, max_q),
-            timed=name in TIMED, max_q=max_q, segments=segs, **heads)
-    if not skip("paged_decode_attention"):
-        out["paged_decode_attention"]["decode"] = check_profile(
-            torch, "paged_decode_attention", "decode",
-            lambda dt: make_decode_case(torch, DECODE_LENGTHS, dt, seed=8),
+            work(prof, 2), rows=valid_rows(prof), timed=name in TIMED,
+            module=ragged_attention, segments=prof["segs"],
+            **{k: v for k, v in prof.items() if k != "segs"})
+    for name, prof in PAGED_DECODE_PROFILES.items():
+        if skip("paged_decode_attention"):
+            break
+        out["paged_decode_attention"][name] = check_profile(
+            torch, "paged_decode_attention", name,
+            lambda dt: make_decode_case(torch, prof, dt, seed=8),
             lambda c: paged_decode_attention.paged_decode_attention_cuda(
                 **c),
             lambda c: ref.paged_decode_reference(**c),
-            work_decode(DECODE_LENGTHS, 2), lengths=DECODE_LENGTHS,
-            split_keys=paged_decode_attention.SPLIT_KEYS)
+            work_decode(prof, 2), timed=name in PAGED_DECODE_TIMED,
+            module=paged_decode_attention, **prof)
     for name, prof in FLASH_PROFILES.items():
         if skip("flash_attention"):
             break
@@ -834,6 +915,14 @@ def _expect(mode, counts, nonzero):
                              f"{want}")
 
 
+def _expect_tensor_cores(mode, routes, kernel, n):
+    """All ``n`` calls of ``kernel`` (bf16 at D % 16 == 0) took the
+    tensor-core route."""
+    if routes[kernel] != {"tensor_core": n, "cuda_core": 0}:
+        raise AssertionError(f"{mode}: {kernel} routes {routes[kernel]}, "
+                             f"expected all {n} on the tensor cores")
+
+
 def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
     """The unified engine, then its profile (``phase`` names the serve's
     line); returns the serve's kernel launch counts."""
@@ -850,9 +939,12 @@ def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
                              f"{m.dispatches} dispatches")
     mixed = m.prefill_calls
     decode_only = m.dispatches - mixed
+    n_ragged = spec.n_layers * (2 * mixed + decode_only)
     _expect("unified", stats["launches"], {
-        "ragged_paged_attention": spec.n_layers * (2 * mixed + decode_only),
+        "ragged_paged_attention": n_ragged,
         "expert_gemm": expert_launches_per_forward(spec) * m.dispatches})
+    _expect_tensor_cores("unified", stats["routes"], "ragged_paged_attention",
+                         n_ragged)
     n_params = sum(p.numel() for p in model.parameters())
     emit(phase, model=spec.name, params=n_params,
          weight_gb=n_params * 2 / 1e9, init_s=init_s, mixed_steps=mixed,
@@ -916,12 +1008,8 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
                         flash_attention=n * (m.prefill_calls
                                              + m.decode_steps))
         _expect(mode, stats["launches"], want)
-        flash_routes = stats["routes"]["flash_attention"]
-        if flash_routes != {"tensor_core": want["flash_attention"],
-                            "cuda_core": 0}:
-            raise AssertionError(f"{mode}: flash routes {flash_routes}, "
-                                 f"expected all {want['flash_attention']} "
-                                 "on the tensor cores")
+        for kernel in ("flash_attention", "paged_decode_attention"):
+            _expect_tensor_cores(mode, stats["routes"], kernel, want[kernel])
         emit("serve_two_dispatch", model=spec.name, **stats,
              kv=eng.kv_stats())
         out.append(stats["launches"])
@@ -999,15 +1087,17 @@ def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
 
 def _kernel_class(name: str) -> str:
     """The class of a device kernel by its name.  The tensor-core attention
-    walk (attn_tc_*) counts as flash: no serve calls the dense decode, its
-    other user; the split-KV combine belongs to the paged decode."""
+    walk (attn_tc_*) names its caller's addressing type: the ragged
+    kernel's and the paged decode's contain their names, and the dense one
+    counts as flash (no serve calls the dense decode, its other user); the
+    CUDA-core split-KV combine belongs to the paged decode."""
     n = name.lower()
-    if "ragged_paged_attention" in n:
+    if "ragged_paged" in n:
         return "ragged_attention"
-    if "flash_attention" in n or "attn_tc_" in n:
-        return "flash_attention"
     if "paged_decode" in n or "decode_combine" in n:
         return "paged_decode_attention"
+    if "flash_attention" in n or "attn_tc_" in n:
+        return "flash_attention"
     if "expert_gemm" in n:
         return "expert_gemm"
     if "rwkv6_scan" in n:

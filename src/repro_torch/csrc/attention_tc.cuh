@@ -1,13 +1,37 @@
-// The bf16 tensor-core tile walk of the flash forward (flash_attention.cu)
-// and the dense decode (decode_attention.cu), for Hopper (sm_90a).
+// The bf16 tensor-core tile walk of four kernels for Hopper (sm_90a): the
+// flash forward (flash_attention.cu) and the dense decode
+// (decode_attention.cu) over dense K/V, the ragged paged attention
+// (ragged_paged_attention.cu) and the paged decode
+// (paged_decode_attention.cu) over the paged pools.
 //
-// Both kernels compute attention of flattened (query i, head-in-group)
-// rows over dense K/V (B, Skv, Hkv, D): row r of a (batch row b, KV head
-// h) is query r / G, head h * G + r % G, so the G query heads of a KV head
-// share every staged tile.  Query i sits at q_offset[b] + i; a key at p is
-// visible when p < kv_len[b] (clamped to Skv), p <= q_offset[b] + i if
-// causal, and q_offset[b] + i - p < window if window > 0.  The dense decode
-// is the case Sq = 1, q_offset = lengths - 1, not causal, no window.
+// Every one computes attention of flattened (query i, head-in-group) rows:
+// row r of a (batch row b, KV head h) is query r / G, head h * G + r % G,
+// so the G query heads of a KV head share every staged tile.  Query i sits
+// at q_offset[b] + i; a key at p is visible when p < kv_len[b] (clamped to
+// Skv), p <= q_offset[b] + i if causal, and q_offset[b] + i - p < window if
+// window > 0.  The dense decode is the case Sq = 1, q_offset = lengths - 1,
+// not causal, no window.  One template parameter says how keys and rows
+// are addressed:
+//
+//   * DenseKV: K/V (B, Skv, Hkv, D), rows b * Sq + i of q and out.
+//   * PagedKV: K/V in the pools (n_pool, Hkv, ps, D); key p of row b is row
+//     p % ps of page page_table[b, p / ps], so its head h lies at pool row
+//     (page Hkv + h) ps + p % ps.  A block reads the ids of the pages its
+//     keys span into shared memory once.  Beside each ring slot it keeps a
+//     table of the slot's 64 pool rows, which 64 threads fill (one division
+//     by ps a key) one step before the tile's copies are issued; the copies
+//     then run as the dense layout's do, one table read per 16-byte chunk.
+//     Nothing assumes that ps divides the 64-key tile or the reverse.  (Per
+//     chunk address arithmetic in the copy loop put a serial page lookup
+//     on every tile's critical path: 1.7x the prefill time on the H100,
+//     PERF.md.)  An id outside [0, n_pool) and any key at or past the
+//     walk's bound are zero-filled, never read.  With q_start / q_len the
+//     rows are packed (the ragged kernel): segment b owns rows
+//     q_start[b] + i for i below its clamped q_len, query i at
+//     kv_len[b] - q_len[b] + i, causal; a block past those rows returns at
+//     once and no row past them is written, since the next segment's rows
+//     follow.  Without them (the paged decode) the rows are b * Sq + i as
+//     in the dense layout.
 //
 // What bounds it on the H100: at decode (a few rows per KV head) the bytes
 // of K and V; at a prefill chunk (64+ rows per KV head) the 4 D operations
@@ -47,17 +71,17 @@
 //     (m, l, acc) partials to f32 scratch; attn_tc_combine_kernel rescales
 //     them and writes the rows.  Each block's visible key range [lo, hi),
 //     read on the device, is cut into n_split tile-aligned shares, for the
-//     flash forward and the dense decode alike; n_split and the scratch
-//     size come from the shapes alone (the wrappers' `_plan`), and a split
-//     whose share is empty returns at once.
+//     four kernels alike; n_split and the scratch size come from the shapes
+//     alone (the shared plan, kernels/attention_tc.py), and a split whose
+//     share is empty returns at once.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_ptx.cuh"
 
 namespace attn_tc {
+
+using namespace mma_ptx;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -71,57 +95,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
 
-// ---------------------------------------------------------------------------
-// PTX helpers (the same ldmatrix / mma as expert_gemm.cu, plus cp.async)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 bf16 matrices; lane l names row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16-byte global -> shared copy; zero-filled when !valid (nothing read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -132,10 +105,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------------------
 
 struct Params {
-  const bf16* q;    // (B, Sq, Hq, D)
-  const bf16* k;    // (B, Skv, Hkv, D)
+  const bf16* q;    // (B, Sq, Hq, D), or packed (T, Hq, D)
+  const bf16* k;    // (B, Skv, Hkv, D), or the pool (n_pool, Hkv, ps, D)
   const bf16* v;
-  bf16* out;        // (B, Sq, Hq, D)
+  bf16* out;        // as q
   float* m_part;    // (B * Hkv, row blocks, n_split, block rows)
   float* l_part;
   float* acc_part;  // the same, times D
@@ -147,21 +120,78 @@ struct Params {
   float scale_log2;  // sm_scale * log2(e)
 };
 
+// The paged policy's problem: k and v are the pools (n_pool, Hkv, ps, D)
+struct PagedParams : Params {
+  // key p of row b is row p % ps of page page_table[b * max_pages + p / ps]
+  // (skv = max_pages * ps); a page id outside [0, n_pool) reads as zeros
+  const int* page_table;
+  int ps, max_pages, n_pool;
+  // packed rows, or null: row b owns packed rows q_start[b] + i for
+  // i < min(q_len[b], sq, n_tokens - q_start[b]), query i sitting at
+  // kv_len[b] - q_len[b] + i.  Null: rows b * sq + i, as in the dense
+  // layout.
+  const int* q_start;
+  const int* q_len;
+  int n_tokens;
+};
+
+// How keys and rows are addressed, and the kernels' parameter type.  The
+// dense policy (flash, the dense decode) reads K/V as (B, Skv, Hkv, D);
+// the paged one (the ragged kernel, the paged decode) reads them from the
+// pools through the page table, and may pack its rows.  A kernel source
+// passes its own type derived from one of them, so that its name tells a
+// profile which caller ran.  (The dense kernels keep Params as it was:
+// ptxas allocates their registers differently when the struct grows.)
+struct DenseKV {
+  static constexpr bool kPaged = false;
+  using P = Params;
+};
+struct PagedKV {
+  static constexpr bool kPaged = true;
+  using P = PagedParams;
+};
+
+// Flattened rows of batch row (segment) b: Sq G, or G per packed query
+template <class A>
+__device__ __forceinline__ int row_count(const typename A::P& p, int b) {
+  const int g = p.hq / p.hkv;
+  if constexpr (A::kPaged) {
+    if (p.q_len) {
+      const int ql = min(min(p.q_len[b], p.sq), p.n_tokens - p.q_start[b]);
+      return max(ql, 0) * g;
+    }
+  }
+  return p.sq * g;
+}
+
+// The first query row of batch row (segment) b in q and out
+template <class A>
+__device__ __forceinline__ size_t first_row(const typename A::P& p, int b) {
+  if constexpr (A::kPaged) {
+    if (p.q_start) return (size_t)p.q_start[b];
+  }
+  return (size_t)b * p.sq;
+}
+
 // Keys [s0, s1) that split `split` of row block [row0, row_end) of batch
 // row b walks (s0 on a tile boundary; empty when s0 >= s1), and the
-// block's kv_len and q_offset.  The combine kernel calls it too, so both
-// passes agree on which splits hold a partial.
+// block's kv_len and query offset.  The combine kernel calls it too, so
+// both passes agree on which splits hold a partial.
 struct Range {
   int s0, s1, kl, qo;
 };
 
-__device__ __forceinline__ Range split_range(const Params& p, int b,
+template <class A>
+__device__ __forceinline__ Range split_range(const typename A::P& p, int b,
                                              int row0, int row_end,
                                              int split) {
   const int g = p.hq / p.hkv;
   Range r;
   r.kl = min(max(p.kv_len[b], 0), p.skv);
   r.qo = p.q_offset ? p.q_offset[b] : r.kl - 1;
+  if constexpr (A::kPaged) {
+    if (p.q_len) r.qo = p.kv_len[b] - p.q_len[b];
+  }
   // keys any row of the block can see: [lo, hi), lo on a tile boundary
   int hi = r.kl;
   if (p.causal) hi = min(hi, r.qo + (row_end - 1) / g + 1);
@@ -327,8 +357,9 @@ struct Walk {
 };
 
 // Shared memory of one block: block_rows staged query rows and the ring of
-// kStages K and V tiles, all bf16 rows of D + kPad; after the walk the
-// same bytes hold the key groups' partials while they merge.
+// kStages K and V tiles, all bf16 rows of D + kPad, then (paged policy)
+// the page ids of the block's keys; after the walk the same bytes hold the
+// key groups' partials while they merge.
 __host__ __device__ constexpr size_t ring_bytes(int d, int block_rows,
                                                 int stages) {
   return sizeof(bf16) * (size_t)(d + kPad)
@@ -342,12 +373,40 @@ __host__ __device__ constexpr size_t merge_bytes(int d, int block_rows,
                           + 3 * (size_t)block_rows);
 }
 
+// tables: ints after the ring (the paged policy's page ids and row tables)
 __host__ __device__ constexpr size_t smem_bytes(int d, int block_rows,
-                                                int stages, int groups) {
+                                                int stages, int groups,
+                                                int tables = 0) {
   return groups > 1 && merge_bytes(d, block_rows, groups)
                            > ring_bytes(d, block_rows, stages)
+                               + sizeof(int) * (size_t)tables
              ? merge_bytes(d, block_rows, groups)
-             : ring_bytes(d, block_rows, stages);
+             : ring_bytes(d, block_rows, stages)
+                   + sizeof(int) * (size_t)tables;
+}
+
+// Page ids one block of the paged policy stages: its keys are a
+// tile-aligned share of at most ceil(ceil(skv / kTileN) / n_split) tiles,
+// which spans at most ceil(share / ps) + 1 pages
+__host__ __device__ inline int block_pages(const PagedParams& p) {
+  const int tiles = (p.skv + kTileN - 1) / kTileN;
+  const int share = (tiles + p.n_split - 1) / p.n_split * kTileN;
+  const int pages = (share + p.ps - 1) / p.ps + 1;
+  return pages < p.max_pages ? pages : p.max_pages;
+}
+
+// Paged: thread tid < kTileN writes the pool row of key base + tid of a
+// tile into its ring slot's table `rows`, ((page Hkv + h) ps + key % ps),
+// or -1 for a key at or past s1 or on a page outside the pool; ids: the
+// block's page ids from page0 on.  One division by ps a key.
+__device__ __forceinline__ void stage_rows(const PagedParams& p, int* rows,
+                                           const int* ids, int page0, int h,
+                                           int s1, int base, int tid) {
+  if (tid < kTileN) {
+    const int pos = base + tid;
+    const int id = pos < s1 ? ids[pos / p.ps - page0] : -1;
+    rows[tid] = id < 0 ? -1 : (id * p.hkv + h) * p.ps + pos % p.ps;
+  }
 }
 
 // Where a block row's output goes: row r of (b, h) is query r / g, head
@@ -358,17 +417,31 @@ __device__ __forceinline__ size_t out_offset(const Params& p, int b, int h,
   return (((size_t)b * p.sq + row / g) * p.hq + h * g + row % g) * d;
 }
 
+// The same for either policy: q0 is b's first row (first_row), which
+// packed rows need
+template <class A>
+__device__ __forceinline__ size_t row_offset(const typename A::P& p, int b,
+                                             size_t q0, int h, int row,
+                                             int d) {
+  if constexpr (A::kPaged) {
+    const int g = p.hq / p.hkv;
+    return ((q0 + row / g) * p.hq + h * g + row % g) * d;
+  }
+  return out_offset(p, b, h, row, d);
+}
+
 // Writes row `row` (block-local `r`) of a block: the normalised output
 // when the block is the only split, else its unnormalised partial.
-template <int D>
-__device__ __forceinline__ void put_pair(const Params& p, int b, int h,
-                                         int bh, int rb, int split,
+template <int D, class A>
+__device__ __forceinline__ void put_pair(const typename A::P& p, int b,
+                                         size_t q0,
+                                         int h, int bh, int rb, int split,
                                          int block_rows, int row, int r,
                                          int dd, float x0, float x1,
                                          float inv_l) {
   if (p.n_split == 1) {
-    *reinterpret_cast<__nv_bfloat162*>(p.out + out_offset(p, b, h, row, D)
-                                       + dd) =
+    *reinterpret_cast<__nv_bfloat162*>(
+        p.out + row_offset<A>(p, b, q0, h, row, D) + dd) =
         __floats2bfloat162_rn(x0 * inv_l, x1 * inv_l);
   } else {
     *reinterpret_cast<float2*>(
@@ -383,9 +456,9 @@ __device__ __forceinline__ void put_pair(const Params& p, int b, int h,
 // take 64 / kGroups keys of every staged tile and merge at the end.
 // ---------------------------------------------------------------------------
 
-template <int D, int kStages, int kRowWarps, int kGroups>
+template <int D, int kStages, int kRowWarps, int kGroups, class A>
 __global__ void __launch_bounds__(32 * kRowWarps * kGroups)
-attn_tc_split_kernel(const Params p) {
+attn_tc_split_kernel(const typename A::P p) {
   constexpr int kNThreads = 32 * kRowWarps * kGroups;
   constexpr int kStride = D + kPad;
   constexpr int kBlockRows = 16 * kRowWarps;
@@ -406,21 +479,30 @@ attn_tc_split_kernel(const Params p) {
   const int rb = blockIdx.y;
   const int split = blockIdx.z;
   const int row0 = rb * kBlockRows;
-  const int row_end = min(row0 + kBlockRows, p.sq * g);
-  const Range rg = split_range(p, b, row0, row_end, split);
+  const int row_end = min(row0 + kBlockRows, row_count<A>(p, b));
+  if constexpr (A::kPaged) {
+    // past a packed segment's rows: the rows that follow are another
+    // segment's, so the block writes nothing (the combine skips it too)
+    if (row0 >= row_end) return;
+  }
+  const Range rg = split_range<A>(p, b, row0, row_end, split);
   // an empty share holds no partial (the combine skips it); a lone split
   // still writes its rows (zeros)
   if (p.n_split > 1 && rg.s0 >= rg.s1) return;
   const int s0 = rg.s0;
   const int s1 = max(rg.s0, rg.s1);
+  const size_t q0 = first_row<A>(p, b);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int group = warp / kRowWarps;
   const size_t kv_row = (size_t)p.hkv * D;  // elements between key rows
-  const bf16* kb = p.k + ((size_t)b * p.skv * p.hkv + h) * D;
-  const bf16* vb = p.v + ((size_t)b * p.skv * p.hkv + h) * D;
+  // dense: row b's keys of head h; paged: the pools (rows from the tables)
+  const bf16* kb =
+      A::kPaged ? p.k : p.k + ((size_t)b * p.skv * p.hkv + h) * D;
+  const bf16* vb =
+      A::kPaged ? p.v : p.v + ((size_t)b * p.skv * p.hkv + h) * D;
 
   // the block's query rows (zeros past row_end)
   for (int idx = tid; idx < kBlockRows * kChunks; idx += kNThreads) {
@@ -429,21 +511,57 @@ attn_tc_split_kernel(const Params p) {
     const int row = row0 + r;
     const bool ok = row < row_end;
     cp_async16(q_s + r * kStride + c,
-               ok ? p.q + out_offset(p, b, h, row, D) + c : p.q, ok);
+               ok ? p.q + row_offset<A>(p, b, q0, h, row, D) + c : p.q,
+               ok);
+  }
+  // paged: the ids of the pages that hold keys [s0, s1), once per block
+  // (-1 for an id outside the pool: its keys are zero-filled), then a
+  // table per ring slot of each staged key's head row in the pool,
+  // ((page Hkv + h) ps + key % ps), or -1 for a key that is not read
+  int* pt_s = reinterpret_cast<int*>(v_s + kStages * kTileN * kStride);
+  int* row_s = pt_s;  // (kStages, kTileN), after the page ids
+  int page0 = 0;  // the page of key s0
+  if constexpr (A::kPaged) {
+    row_s += block_pages(p);
+    page0 = s0 / p.ps;
+    const int n_pages = s1 > s0 ? (s1 - 1) / p.ps - page0 + 1 : 0;
+    const int* ids = p.page_table + (size_t)b * p.max_pages + page0;
+    for (int i = tid; i < n_pages; i += kNThreads) {
+      const int id = ids[i];
+      pt_s[i] = id < 0 || id >= p.n_pool ? -1 : id;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      if (s0 + st * kTileN < s1) {
+        stage_rows(p, row_s + st * kTileN, pt_s, page0, h, s1,
+                   s0 + st * kTileN, tid);
+      }
+    }
+    __syncthreads();
   }
   // stage the tile at key `base` into ring slot `slot`; keys >= s1 zero
   auto fetch = [&](int slot, int base) {
     bf16* kd = k_s + slot * kTileN * kStride;
     bf16* vd = v_s + slot * kTileN * kStride;
+    const int* rows = row_s + slot * kTileN;  // paged: the slot's table
 #pragma unroll
     for (int it = 0; it < (kTileCopies + kNThreads - 1) / kNThreads; ++it) {
       const int idx = tid + it * kNThreads;
       if (kTileCopies % kNThreads != 0 && idx >= kTileCopies) break;
       const int t = idx / kChunks;
       const int c = (idx % kChunks) * 8;
-      const int pos = base + t;
-      const bool ok = pos < s1;
-      const size_t off = ok ? (size_t)pos * kv_row + c : 0;
+      bool ok;
+      size_t off;
+      if constexpr (A::kPaged) {  // the key's pool row (stage_rows)
+        const int row = rows[t];
+        ok = row >= 0;
+        off = ok ? (size_t)row * D + c : 0;
+      } else {
+        const int pos = base + t;
+        ok = pos < s1;
+        off = ok ? (size_t)pos * kv_row + c : 0;
+      }
       cp_async16(kd + t * kStride + c, kb + off, ok);
       cp_async16(vd + t * kStride + c, vb + off, ok);
     }
@@ -484,6 +602,14 @@ attn_tc_split_kernel(const Params p) {
       fetch((it + kStages - 1) % kStages, s0 + (it + kStages - 1) * kTileN);
     }
     cp_async_commit();
+    if constexpr (A::kPaged) {
+      // tile it's slot is free again: its rows were read by its fetch, and
+      // the barrier at the top of the next step publishes them
+      if (it + kStages < n_tiles) {
+        stage_rows(p, row_s + (it % kStages) * kTileN, pt_s, page0, h, s1,
+                   s0 + (it + kStages) * kTileN, tid);
+      }
+    }
     const int pos0 = s0 + it * kTileN + key0;
     if (!warp_live || pos0 >= s1) continue;
     const bool full = __all_sync(
@@ -513,8 +639,9 @@ attn_tc_split_kernel(const Params p) {
       }
 #pragma unroll
       for (int n = 0; n < W::kDN; ++n) {
-        put_pair<D>(p, b, h, bh, rb, split, kBlockRows, row, r, 8 * n + 2 * t,
-                    w.o[n][2 * hh], w.o[n][2 * hh + 1], inv);
+        put_pair<D, A>(p, b, q0, h, bh, rb, split, kBlockRows, row, r,
+                       8 * n + 2 * t, w.o[n][2 * hh], w.o[n][2 * hh + 1],
+                       inv);
       }
     }
     return;
@@ -572,8 +699,8 @@ attn_tc_split_kernel(const Params p) {
       x0 += wk * ov.x;
       x1 += wk * ov.y;
     }
-    put_pair<D>(p, b, h, bh, rb, split, kR, row0 + r, r, dd, x0, x1,
-                inv_s[r]);
+    put_pair<D, A>(p, b, q0, h, bh, rb, split, kR, row0 + r, r, dd, x0, x1,
+                   inv_s[r]);
   }
   if (p.n_split > 1 && tid < n_rows) {
     const size_t i = part_index(p, bh, rb, split, kR, tid);
@@ -591,9 +718,9 @@ attn_tc_split_kernel(const Params p) {
 // saw a key of writes zeros.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, class A>
 __global__ void __launch_bounds__(kThreads)
-attn_tc_combine_kernel(const Params p, int block_rows) {
+attn_tc_combine_kernel(const typename A::P p, int block_rows) {
   constexpr int kVecs = D / 4;  // float4 columns of a row
   const int g = p.hq / p.hkv;
   const int bh = blockIdx.x;
@@ -601,14 +728,15 @@ attn_tc_combine_kernel(const Params p, int block_rows) {
   const int h = bh % p.hkv;
   const int rb = blockIdx.y;
   const int row0 = rb * block_rows;
-  const int row_end = min(row0 + block_rows, p.sq * g);
+  const int row_end =
+      min(row0 + block_rows, A::kPaged ? row_count<A>(p, b) : p.sq * g);
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.z * kWarps + (threadIdx.x >> 5);  // block row
   if (row0 + r >= row_end) return;
 
   bool mine = false;  // split `lane` holds a partial of this row
   if (lane < p.n_split) {
-    const Range rg = split_range(p, b, row0, row_end, lane);
+    const Range rg = split_range<A>(p, b, row0, row_end, lane);
     mine = rg.s0 < rg.s1;
   }
   const unsigned used = __ballot_sync(kFull, mine);
@@ -629,7 +757,8 @@ attn_tc_combine_kernel(const Params p, int block_rows) {
   for (int o = 16; o > 0; o >>= 1) ls += __shfl_xor_sync(kFull, ls, o);
   wk *= ls == 0.f ? 0.f : 1.f / ls;
 
-  bf16* dst = p.out + out_offset(p, b, h, row0 + r, D);
+  bf16* dst =
+      p.out + row_offset<A>(p, b, first_row<A>(p, b), h, row0 + r, D);
   // every lane runs every pass (the shuffles need the whole warp); lanes
   // past the row's columns load and store nothing
   for (int c0 = 0; c0 < kVecs; c0 += 32) {
@@ -679,14 +808,17 @@ attn_tc_combine_kernel(const Params p, int block_rows) {
 // narrow, 16 rows a block (1 row warp x 4 key groups of 16 keys).  A ring
 // of 2 tiles at D > 64 and 3 at D <= 64: deeper rings and two key groups
 // in the wide layout (8 warps) measured no faster on the H100 (PERF.md).
-template <int D, bool kNarrow>
-cudaError_t launch_walk(const Params& p, int b, cudaStream_t stream) {
+template <int D, bool kNarrow, class A>
+cudaError_t launch_walk(const typename A::P& p, int b, cudaStream_t stream) {
   constexpr int kRowWarps = kNarrow ? 1 : 4;
   constexpr int kGroups = kNarrow ? 4 : 1;
   constexpr int kStages = D <= 64 ? 3 : 2;
   constexpr int kBlockRows = 16 * kRowWarps;
-  const size_t smem = smem_bytes(D, kBlockRows, kStages, kGroups);
-  auto kernel = attn_tc_split_kernel<D, kStages, kRowWarps, kGroups>;
+  // paged: the page ids and the kStages row tables after the ring
+  int tables = 0;
+  if constexpr (A::kPaged) tables = block_pages(p) + kStages * kTileN;
+  const size_t smem = smem_bytes(D, kBlockRows, kStages, kGroups, tables);
+  auto kernel = attn_tc_split_kernel<D, kStages, kRowWarps, kGroups, A>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -697,44 +829,55 @@ cudaError_t launch_walk(const Params& p, int b, cudaStream_t stream) {
   kernel<<<grid, 32 * kRowWarps * kGroups, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  attn_tc_combine_kernel<D>
+  attn_tc_combine_kernel<D, A>
       <<<dim3(grid.x, grid.y, kBlockRows / kWarps), kThreads, 0, stream>>>(
           p, kBlockRows);
   return cudaGetLastError();
 }
 
-template <bool kNarrow>
-cudaError_t launch_walk_d(int d, const Params& p, int b,
+template <bool kNarrow, class A>
+cudaError_t launch_walk_d(int d, const typename A::P& p, int b,
                           cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_walk<16, kNarrow>(p, b, stream);
-    case 32: return launch_walk<32, kNarrow>(p, b, stream);
-    case 48: return launch_walk<48, kNarrow>(p, b, stream);
-    case 64: return launch_walk<64, kNarrow>(p, b, stream);
-    case 80: return launch_walk<80, kNarrow>(p, b, stream);
-    case 96: return launch_walk<96, kNarrow>(p, b, stream);
-    case 112: return launch_walk<112, kNarrow>(p, b, stream);
-    case 128: return launch_walk<128, kNarrow>(p, b, stream);
+    case 16: return launch_walk<16, kNarrow, A>(p, b, stream);
+    case 32: return launch_walk<32, kNarrow, A>(p, b, stream);
+    case 48: return launch_walk<48, kNarrow, A>(p, b, stream);
+    case 64: return launch_walk<64, kNarrow, A>(p, b, stream);
+    case 80: return launch_walk<80, kNarrow, A>(p, b, stream);
+    case 96: return launch_walk<96, kNarrow, A>(p, b, stream);
+    case 112: return launch_walk<112, kNarrow, A>(p, b, stream);
+    case 128: return launch_walk<128, kNarrow, A>(p, b, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Does (dtype, d) take this walk?  bf16 (dtype 1) with d a multiple of 16
-// up to 128; the wrappers' `_plan` states the same rule.
+// up to 128; the wrappers' plan (kernels/attention_tc.py) states the same
+// rule.
 inline bool takes_walk(int dtype, int d) {
   return dtype == 1 && d % 16 == 0 && d >= 16 && d <= 128;
 }
 
-// block_rows: 16 (narrow) or 64 (wide), the layouts of launch_walk;
-// scratch as Params says when n_split > 1.
-inline cudaError_t launch(const Params& p, int b, int d, int block_rows,
-                          cudaStream_t stream) {
+// A: the addressing (DenseKV, or a type derived from PagedKV, which takes
+// a PagedParams); block_rows: 16 (narrow) or 64 (wide),
+// the layouts of launch_walk; scratch as Params says when n_split > 1.
+template <class A>
+cudaError_t launch(const typename A::P& p, int b, int d, int block_rows,
+                   cudaStream_t stream) {
   if (p.n_split < 1 || p.n_split > kMaxSplit
       || (p.n_split > 1 && (!p.m_part || !p.l_part || !p.acc_part))) {
     return cudaErrorInvalidValue;
   }
-  if (block_rows == 16) return launch_walk_d<true>(d, p, b, stream);
-  if (block_rows == kMaxRows) return launch_walk_d<false>(d, p, b, stream);
+  if constexpr (A::kPaged) {
+    // a pool row index ((page Hkv + h) ps + row) must fit an int
+    if (!p.page_table || p.ps <= 0 || p.max_pages <= 0
+        || (p.q_len && !p.q_start)
+        || (long long)p.n_pool * p.hkv * p.ps >= (1ll << 31)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (block_rows == 16) return launch_walk_d<true, A>(d, p, b, stream);
+  if (block_rows == kMaxRows) return launch_walk_d<false, A>(d, p, b, stream);
   return cudaErrorInvalidValue;
 }
 

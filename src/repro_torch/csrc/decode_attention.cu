@@ -259,7 +259,7 @@ extern "C" int decode_attention_launch(
     p.window = 0;
     p.n_split = n_split;
     p.scale_log2 = sm_scale * attn_tc::kLog2e;
-    return (int)attn_tc::launch(p, b, d, 16, st);
+    return (int)attn_tc::launch<attn_tc::DenseKV>(p, b, d, 16, st);
   }
   const int g = hq / hkv;
   cudaError_t err;

@@ -38,11 +38,11 @@
 //     (rows ty + 16 i, columns tx + 16 j, so a warp's shared-memory reads are
 //     broadcasts or consecutive words), summing its D products in order.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_ptx.cuh"
 
 namespace {
+
+using namespace mma_ptx;
 
 constexpr int kBM = 64;   // rows of C per block
 constexpr int kBN = 128;  // columns of F per block
@@ -55,36 +55,6 @@ constexpr int kThreads = 256;
 constexpr int kHK = 64;        // depth of one staged slab
 constexpr int kXP = kHK + 8;   // padded x row (bf16): 144 B, 36 words
 constexpr int kWP = kBN + 8;   // padded w row (bf16): 272 B, 68 words
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 bf16 matrices; lane l names row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __global__ void __launch_bounds__(kThreads)
     expert_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,

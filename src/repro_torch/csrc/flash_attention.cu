@@ -245,7 +245,7 @@ extern "C" int flash_attention_launch(
     p.window = window;
     p.n_split = n_split;
     p.scale_log2 = sm_scale * attn_tc::kLog2e;
-    return (int)attn_tc::launch(p, b, d, block_rows, st);
+    return (int)attn_tc::launch<attn_tc::DenseKV>(p, b, d, block_rows, st);
   }
   if (n_split != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err;

@@ -16,27 +16,34 @@
 // What bounds it on the H100: bytes.  A decode step reads every live
 // page's K and V once; its arithmetic (4 D operations per key per query
 // head) is two orders of magnitude below the tensor-core line.  The TPU
-// kernel walks (slot x KV head, page) in order on one core.  Walked that
-// way on Hopper (one block per slot and KV head, as the ragged kernel
-// does at decode shapes) 8 slots x 8 KV heads is 64 blocks for 132 SMs,
-// each walking up to 128 pages in a row.  So the walk is split
-// (flash-decode):
+// kernel walks (slot x KV head, page) in order on one core; here 8 slots x
+// 8 KV heads would be 64 blocks for 132 SMs, so the walk is split
+// (flash-decode) and a second pass combines the splits.  Two routes,
+// chosen from the dtype and D alone:
 //
-//   1. `paged_decode_split_kernel`, grid (B * Hkv, n_split): block
-//      (slot, KV head, split) walks the split_keys key positions of its
-//      split in 32-key tiles (register-staged, next tile in flight while
-//      the current one computes) and writes the unnormalised partial
-//      (m, l, acc) of each of the G query heads into f32 scratch.  Blocks
-//      whose split lies past the slot's length return at once.  Each warp
-//      owns ceil(G / 4) query heads, so at G = 4 all four warps compute.
-//   2. `decode_combine_kernel` (attention_common.cuh), grid (B * Hkv):
-//      rescales the used splits of each head to their common max and
-//      writes the output.
+//   * bf16 with D % 16 == 0 and D <= 128: the ragged kernel's function at
+//     q_len = 1, run on the tensor-core walk of attention_tc.cuh with its
+//     paged policy (rows b * 1 + 0, not packed).  The G query heads of a
+//     KV head form one 16-row tile whose 4 warps split each 64-key tile;
+//     each of n_split blocks takes a tile-aligned share of its slot's own
+//     length, read on the card, and attn_tc_combine_kernel merges the
+//     shares.  n_split and the scratch come from the shared plan
+//     (kernels/attention_tc.py).  What bounds it now: each block's short
+//     chain of dependent tiles and the combine's second launch.
+//   * f32 and every other D: `paged_decode_split_kernel` below, grid
+//     (B * Hkv, n_split): block (slot, KV head, split) walks the
+//     split_keys key positions of its split in 32-key tiles widened to f32
+//     (register-staged, next tile in flight while the current one
+//     computes) and writes the unnormalised partial (m, l, acc) of each of
+//     the G query heads into f32 scratch; blocks past the slot's length
+//     return at once; then `decode_combine_kernel` (attention_common.cuh)
+//     rescales the used splits and writes the output.
 //
 // The wrapper allocates the scratch (torch.empty) and counts the two
 // launches as one call.
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -218,28 +225,69 @@ cudaError_t launch_d(int d, int g, const void* q, const void* k_pool,
 
 }  // namespace
 
+// The tensor-core walk's addressing for this kernel: the paged policy,
+// one unpacked row per slot (its own type, so that a profile names the
+// caller)
+struct paged_decode_addressing : attn_tc::PagedKV {};
+
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16.  Every pointer is a device pointer of a contiguous tensor;
-// m_part/l_part hold B * Hkv * n_split * G floats and acc_part that times D
-// (n_split = ceil(max_pages * ps / split_keys)).  Both launches go on
-// `stream` and nothing is synchronised.  Returns the cudaError_t of the
+// 1 = bfloat16.  Every pointer is a device pointer of a contiguous tensor.
+// On the tensor-core route (bf16, D % 16 == 0, D <= 128) split_keys is 0
+// and n_split (1 to 32) shares cut each slot's valid keys; m_part/l_part
+// hold B * Hkv * n_split * 16 floats and acc_part that times D, all null
+// when n_split == 1.  On the other route split_keys is a multiple of 32,
+// n_split = ceil(max_pages * ps / split_keys), and the scratch holds
+// B * Hkv * n_split * G floats (acc_part that times D).  Both launches go
+// on `stream` and nothing is synchronised.  Returns the cudaError_t of the
 // launches (0 = cudaSuccess).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, void* out,
     const void* page_table, const void* lengths, void* m_part, void* l_part,
     void* acc_part, int b, int hq, int hkv, int d, int n_pool, int ps,
-    int max_pages, int split_keys, int dtype, float sm_scale, void* stream) {
+    int max_pages, int split_keys, int n_split, int dtype, float sm_scale,
+    void* stream) {
+  const bool tc = attn_tc::takes_walk(dtype, d);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > 16 || d <= 0 || d > 256
-      || d % 8 != 0 || ps <= 0 || max_pages <= 0 || split_keys <= 0
-      || split_keys % kTileN != 0) {
+      || d % 8 != 0 || ps <= 0 || max_pages <= 0 || n_split < 1
+      || (tc ? split_keys != 0
+             : split_keys <= 0 || split_keys % kTileN != 0
+                   || n_split != (max_pages * ps + split_keys - 1)
+                                     / split_keys)) {
     return (int)cudaErrorInvalidValue;
   }
   if (b == 0) return (int)cudaSuccess;
-  const int n_split = (max_pages * ps + split_keys - 1) / split_keys;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
   float* ap = static_cast<float*>(acc_part);
+  if (tc) {
+    attn_tc::PagedParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k_pool);
+    p.v = static_cast<const __nv_bfloat16*>(v_pool);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.m_part = mp;
+    p.l_part = lp;
+    p.acc_part = ap;
+    p.kv_len = static_cast<const int*>(lengths);
+    p.q_offset = nullptr;  // the query sits at lengths - 1
+    p.sq = 1;
+    p.skv = max_pages * ps;
+    p.hq = hq;
+    p.hkv = hkv;
+    p.causal = 0;
+    p.window = 0;
+    p.n_split = n_split;
+    p.scale_log2 = sm_scale * attn_tc::kLog2e;
+    p.page_table = static_cast<const int*>(page_table);
+    p.ps = ps;
+    p.max_pages = max_pages;
+    p.n_pool = n_pool;
+    p.q_start = nullptr;  // one row per slot: b * 1 + 0
+    p.q_len = nullptr;
+    p.n_tokens = 0;
+    return (int)attn_tc::launch<paged_decode_addressing>(p, b, d, 16, st);
+  }
   const int g = hq / hkv;
   cudaError_t err;
   if (dtype == 0) {

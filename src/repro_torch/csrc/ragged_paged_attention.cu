@@ -14,31 +14,40 @@
 //     p of segment s is row p % page_size of page page_table[s, p / ps].
 //   * f32 online softmax with the finite NEG_INF, so a fully masked row has
 //     l == 0 and writes zeros, as the reference does.
+//   * Rows past a segment's q_len (and every row of an idle segment) are
+//     neither read nor written: the next segment's rows follow them.  The
+//     wrapper zero-fills the output, so packing gaps stay finite.
 //
-// Grid (S * Hkv, ceil(max_q * G / 16)).  A block owns 16 flattened
-// (query i, head g) rows of one segment and one KV head (row r is query
-// r / G, head h * G + r % G), so the G query heads of a KV head share every
-// staged K/V tile.  The TPU grid's sequential page axis becomes a loop
-// inside the block over tiles of 32 key positions; the walk stops at the
-// causal bound of the block's last query, so pages past kv_len (and, for
-// early rows of a chunk, past the diagonal) are never read.  Outputs go
-// straight into packed rows q_start + i; rows past q_len are neither read
-// nor written (the wrapper zero-fills the output, so packing gaps stay
-// finite).  Blocks of inactive segments (q_len == 0) return at once.
+// What bounds it on the H100: at a decode segment (G rows per KV head) the
+// bytes of its valid pages' K and V; at a 128-query prefill chunk the 4 D
+// operations per visible query-key pair, which only the tensor cores run
+// at the card's rate.  Two routes, chosen from the dtype and D alone:
 //
-// Bound on the H100: bytes.  Every valid page's K and V tile is read from
-// device memory once per (segment, KV head, row block); at decode shapes
-// that is the whole cost.  The block reads its segment's page ids into
-// shared memory once, then issues all 16-byte loads of the next 32-key
-// tile into registers before it computes on the current one, so the walk
-// pays about one memory latency per tile rather than two dependent ones
-// per load.  The arithmetic runs on the CUDA cores in f32; tensor-core
-// (wgmma) products, TMA/cp.async pipelines and a split over the key axis
-// for decode segments are left for later work.
+//   * bf16 with D % 16 == 0 and D <= 128 (every served model's heads): the
+//     tensor-core walk of attention_tc.cuh with its paged policy and packed
+//     rows.  mma.sync products on bf16 64-key tiles that cp.async copies
+//     from the pages into a ring, the segment's page ids staged once per
+//     block; 16-row blocks whose warps split each tile's keys for decode
+//     segments (G <= 16 rows), 64-row blocks for prefill chunks; and a
+//     split of each block's visible keys over n_split blocks with a
+//     combine pass where the (segment x KV head x row block) grid leaves
+//     the 132 SMs short, planned from the shapes (kernels/attention_tc.py).
+//     What bounds it now: at decode each block's chain of dependent tiles
+//     and the combine's second launch, as for the dense decode; at
+//     prefill one causal block's chain of tiles on mma.sync (not wgmma).
+//   * f32, and bf16 at any other D (a multiple of 8 up to 256): the
+//     CUDA-core walk below, which serve_parity and the f32 checks hold
+//     exactly.  Grid (S * Hkv, ceil(max_q * G / 16)); a block owns 16
+//     flattened rows of one segment and one KV head, loops over 32-key
+//     tiles staged through registers and widened to f32, and stops at the
+//     causal bound of its last query, so pages past kv_len are never
+//     read.  Products on the CUDA cores in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -332,21 +341,62 @@ cudaError_t launch_d(int d, const void* q, const void* k_pool,
 
 }  // namespace
 
+// The tensor-core walk's addressing for this kernel: the paged policy with
+// packed rows (its own type, so that a profile names the caller)
+struct ragged_paged_addressing : attn_tc::PagedKV {};
+
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32,
 // 1 = bfloat16.  Every pointer is a device pointer of a contiguous tensor;
-// the launch goes on `stream` and nothing is synchronised.  Returns the
-// cudaError_t of the launch (0 = cudaSuccess).
+// the launches go on `stream` and nothing is synchronised.  block_rows and
+// n_split: the tensor-core route's row block (16 or 64) and key split, from
+// the wrapper's plan; with n_split > 1, m_part/l_part hold
+// S * Hkv * ceil(max_q G / block_rows) * n_split * block_rows floats and
+// acc_part that times D (else they may be null).  The CUDA-core route
+// takes n_split == 1.  Returns the cudaError_t of the launches
+// (0 = cudaSuccess).
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, void* out,
     const void* page_table, const void* q_start, const void* q_len,
-    const void* kv_len, int n_tokens, int n_segs, int hq, int hkv, int d,
-    int n_pool, int ps, int max_pages, int max_q, int dtype, float sm_scale,
-    void* stream) {
+    const void* kv_len, void* m_part, void* l_part, void* acc_part,
+    int n_tokens, int n_segs, int hq, int hkv, int d, int n_pool, int ps,
+    int max_pages, int max_q, int dtype, int block_rows, int n_split,
+    float sm_scale, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || d <= 0 || d > 256 || d % 8 != 0
-      || ps <= 0 || max_q <= 0) {
+      || ps <= 0 || max_pages <= 0 || max_q <= 0 || n_split < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  if (n_tokens == 0 || n_segs == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (attn_tc::takes_walk(dtype, d)) {
+    attn_tc::PagedParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k_pool);
+    p.v = static_cast<const __nv_bfloat16*>(v_pool);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.m_part = static_cast<float*>(m_part);
+    p.l_part = static_cast<float*>(l_part);
+    p.acc_part = static_cast<float*>(acc_part);
+    p.kv_len = static_cast<const int*>(kv_len);
+    p.q_offset = nullptr;  // query i sits at kv_len - q_len + i
+    p.sq = max_q;
+    p.skv = max_pages * ps;
+    p.hq = hq;
+    p.hkv = hkv;
+    p.causal = 1;
+    p.window = 0;
+    p.n_split = n_split;
+    p.scale_log2 = sm_scale * attn_tc::kLog2e;
+    p.page_table = static_cast<const int*>(page_table);
+    p.ps = ps;
+    p.max_pages = max_pages;
+    p.n_pool = n_pool;
+    p.q_start = static_cast<const int*>(q_start);
+    p.q_len = static_cast<const int*>(q_len);
+    p.n_tokens = n_tokens;
+    return (int)attn_tc::launch<ragged_paged_addressing>(p, n_segs, d,
+                                                         block_rows, st);
+  }
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
     err = launch_d<float>(d, q, k_pool, v_pool, out, page_table, q_start,

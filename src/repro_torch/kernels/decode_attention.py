@@ -39,9 +39,9 @@ import ctypes
 
 import torch
 
-from . import build, flash_attention
-from .flash_attention import (TILE_KEYS, Plan, scratch, sm_count,
-                              tensor_core_route)
+from . import attention_tc, build
+from .attention_tc import (NARROW_BLOCKS_PER_SM, TILE_KEYS, Plan, scratch,
+                           sm_count, tensor_core_route)
 
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:42"  # _decode_kernel
@@ -62,11 +62,11 @@ def _plan(b: int, t: int, hq: int, hkv: int, d: int, dtype: torch.dtype,
     fixed shares of whole 64-key tiles towards the same blocks per SM,
     under 2 blocks per SM, and always combines its G rows."""
     if tensor_core_route(dtype, d):
-        return flash_attention._plan(b, 1, t, hq, hkv, d, dtype, n_sm)
+        return attention_tc.plan(b, 1, t, hq, hkv, d, dtype, n_sm)
     base = b * hkv
     n_split = 1
     if base < 2 * n_sm:
-        target = flash_attention.NARROW_BLOCKS_PER_SM * n_sm
+        target = NARROW_BLOCKS_PER_SM * n_sm
         n_split = max(1, min(-(-target // max(base, 1)),
                              -(-t // TILE_KEYS)))
     split_keys = -(-t // n_split)

@@ -7,16 +7,31 @@ Replaces the Pallas TPU kernel ``_paged_decode_kernel`` behind
 query per slot against the pages its table row names.
 
 What bounds it on the H100: bytes, every live page's K and V once per
-step.  What the design does about it: the page walk of each (slot, KV
-head) is split over blocks of ``SPLIT_KEYS`` key positions, so a decode
-step of 8 slots fills the card instead of 64 blocks; each block writes a
-partial (m, l, acc) into f32 scratch this wrapper allocates, and a second
-small kernel combines them.  Blocks past a slot's length return at once.
+step.  Its function is the ragged kernel's with every segment's q_len = 1
+(``kv_len = lengths``), and it runs on the same walk.  Each (slot, KV
+head) is split over ``n_split`` blocks, which ``_plan`` sizes from B Hkv
+and the table's ``max_pages x page_size`` keys so that 8 slots fill the
+card instead of 64 blocks; each block writes a partial (m, l, acc) into
+f32 scratch this wrapper allocates, and a second small kernel combines
+them.  Blocks past a slot's length return at once.  The split pass runs
+one of two routes, chosen from the dtype and D:
+
+* ``"tensor_core"`` (bf16, D % 16 == 0, D <= 128): the tile walk of
+  ``csrc/attention_tc.cuh`` with its paged addressing, at Sq = 1 and with
+  the shared plan (``kernels/attention_tc.py``), so at most ``MAX_SPLIT``
+  splits: the G query heads as one 16-row tile, bf16 K/V tiles that
+  cp.async copies from the pages into a ring, the 4 warps each taking
+  their own keys of every tile; each split takes a tile-aligned share of
+  its slot's own length, read on the card.  What bounds it now: each
+  block's short chain of dependent tiles and the combine's second launch.
+* ``"cuda_core"`` (f32 and every other D): fixed shares of ``SPLIT_KEYS``
+  key positions, walked in 32-key tiles widened to f32, products on the
+  CUDA cores.
 
 ``launches`` counts calls that reach the card (the split and the combine
-kernel are one call); ``chip_smoke.py`` reads it.  A CPU tensor is
-refused here: :mod:`repro_torch.kernels.ops` routes CPU tensors to the
-plain version.
+kernel are one call) and ``routes`` the calls of each route;
+``chip_smoke.py`` reads both.  A CPU tensor is refused here:
+:mod:`repro_torch.kernels.ops` routes CPU tensors to the plain version.
 """
 
 from __future__ import annotations
@@ -25,21 +40,42 @@ import ctypes
 
 import torch
 
-from . import build
+from . import attention_tc, build
+from .attention_tc import Plan, scratch, sm_count, tensor_core_route
 
 SOURCE = "src/repro_torch/csrc/paged_decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:141"  # _paged_decode_kernel
 
-#: key positions one block of the split walks (a multiple of the kernel's
-#: 32-key tile)
+#: key positions one block of the CUDA-core route's split walks (a
+#: multiple of its 32-key tile)
 SPLIT_KEYS = 128
 
 #: kernel calls since import (or since a caller reset it to 0)
 launches = 0
+#: calls of each route since import (or since a caller reset them)
+routes = {"tensor_core": 0, "cuda_core": 0}
+#: the plan of the last call (``chip_smoke.py`` prints its route)
+last_plan: Plan | None = None
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 9
+_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 10
              + (ctypes.c_float, ctypes.c_void_p))
+
+
+def _plan(b: int, max_pages: int, ps: int, hq: int, hkv: int, d: int,
+          dtype: torch.dtype, n_sm: int) -> Plan:
+    """The launch plan from the shapes, the dtype and the SM count alone,
+    never from ``lengths`` (it lies on the card).  The tensor-core route
+    is the shared walk's plan at B slots of Sq = 1 query against Skv =
+    max_pages x ps keys: the ragged kernel's plan at max_q = 1.  The
+    CUDA-core route cuts the table's keys into shares of SPLIT_KEYS and
+    always combines its G rows."""
+    skv = max_pages * ps
+    if tensor_core_route(dtype, d):
+        return attention_tc.plan(b, 1, skv, hq, hkv, d, dtype, n_sm)
+    n_split = -(-skv // SPLIT_KEYS)
+    return Plan("cuda_core", 0, 0, n_split, b * hkv * n_split * (hq // hkv),
+                SPLIT_KEYS)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -57,7 +93,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     pools; page_table: (B, max_pages) int32 (0 = the null page); lengths:
     (B,) int32 valid KV tokens per slot, the token just written included.
     Returns (B, 1, Hq, D); a slot with length 0 gets zeros."""
-    global launches
+    global launches, last_plan
     tensors = (q, k_pool, v_pool, page_table, lengths)
     _check(all(t.device.type == "cuda" for t in tensors),
            "every tensor must lie on the card (the CPU takes the plain "
@@ -85,25 +121,24 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
            and v_pool.data_ptr() % 16 == 0, "16-byte aligned q and pools")
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     max_pages = page_table.shape[1]
-    n_split = -(-(max_pages * ps) // SPLIT_KEYS)
-    g = hq // hkv
+    _check(max_pages >= 1, "page_table needs a column")
+    plan = _plan(b, max_pages, ps, hq, hkv, d, q.dtype,
+                 sm_count(q.device.index))
 
     out = torch.empty_like(q)
-    part = (b * hkv * n_split * g,)
-    m_part = torch.empty(part, dtype=torch.float32, device=q.device)
-    l_part = torch.empty(part, dtype=torch.float32, device=q.device)
-    acc_part = torch.empty((part[0] * d,), dtype=torch.float32,
-                           device=q.device)
+    _buf, m_part, l_part, acc_part = scratch(plan.part_rows, d, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         fn = build.entry("paged_decode_attention",
                          "paged_decode_attention_launch", _ARGTYPES)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  out.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-                 m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-                 b, hq, hkv, d, n_pool, ps, max_pages, SPLIT_KEYS,
-                 _DTYPES[q.dtype], scale, stream)
+                 m_part, l_part, acc_part, b, hq, hkv, d, n_pool, ps,
+                 max_pages, plan.split_keys, plan.n_split, _DTYPES[q.dtype],
+                 scale, stream)
         launches += 1
+        routes[plan.route] += 1
+        last_plan = plan
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")

@@ -3,8 +3,8 @@ paged attention, paged decode attention, attention over dense K/V with a
 window, dense decode attention) against the JAX oracles and the Pallas
 kernels in interpret mode, on the cases of ``tests/test_kernels.py`` and
 at the edges of the Hopper kernels' tensor-core tiles; and the launch
-plans of the flash and dense decode wrappers (route, row blocks, key
-split), which are pure Python.
+plans of the four attention wrappers (route, row blocks, key split),
+which are pure Python.
 
 Inputs are made from numpy seeds and handed to both frameworks; everything
 runs in float32 on the CPU.  Rows in packing gaps are unspecified on both
@@ -24,7 +24,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import pallas_decode_attention
 from repro.kernels.flash_attention import pallas_flash_attention
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels import (attention_tc, decode_attention,
+                                 flash_attention, paged_decode_attention,
+                                 ragged_attention)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -367,6 +369,30 @@ def test_plain_attention_tile_edges_match_pallas_flash(name):
     assert np.all(got[kv_len == 0] == 0)
 
 
+# tight packing (segments back to back: q_start 0, 37, 137), partial last
+# pages at page sizes 8 and 32, and G = 8 query heads per KV head
+TIGHT_SEGS = [(37, 45), (100, 130), (5, 140)]
+
+
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("ps", [8, 32])
+def test_plain_ragged_tight_packing_and_page_sizes_match_pallas(ps, g):
+    """The plain version against the Pallas kernel (interpret mode) with
+    segments packed with no gaps, at page sizes 8 and 32 and at G = 1 and
+    G = 8: every packed row belongs to a segment, so a row written past
+    its segment's q_len would land on the next segment's rows."""
+    hkv, d, max_q = 2, 16, 100
+    mp = -(-max(kl for _, kl in TIGHT_SEGS) // ps)
+    args = _ragged_case(TIGHT_SEGS, g * hkv, hkv, d, ps, mp, seed=ps + g)
+    assert list(args[4]) == [0, 37, 137]
+    assert args[0].shape[0] == sum(ql for ql, _ in TIGHT_SEGS)
+    want = np.asarray(_jax_ragged(*[jnp.asarray(a) for a in args],
+                                  max_q=max_q, impl="pallas",
+                                  interpret=True))
+    got = tops.ragged_paged_attention(*_torch(args), max_q=max_q).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the launch plans of the flash and dense decode wrappers (pure Python: the
 # CUDA side takes what they return)
@@ -481,11 +507,100 @@ def test_plans_read_no_tensor():
     """Both plans are functions of plain ints and a dtype: they never see
     kv_len, q_offset or lengths, which lie on the card."""
     import inspect
-    for fn in (flash_attention._plan, decode_attention._plan):
+    for fn in (flash_attention._plan, decode_attention._plan,
+               ragged_attention._plan, paged_decode_attention._plan):
         params = inspect.signature(fn).parameters
         assert "kv_len" not in params and "lengths" not in params
+        assert "q_len" not in params
         assert all(p.annotation in ("int", "torch.dtype")
                    for p in params.values())
+
+
+# minitron-8b's heads (Hq 32 over Hkv 8) and deepseek-moe-16b's (16 over
+# 16), D 128, at the engine's sub-batches: the decode sub-batch (8 segments,
+# max_q 1) and the prefill sub-batch (2 rows of a 128-token chunk), over
+# tables of 128 pages of 16 keys
+RAGGED_MAIN = {
+    # (S, max_q, Hq, Hkv): (block rows, row blocks, n_split)
+    (8, 1, 32, 8): (16, 1, 17),
+    (2, 128, 32, 8): (64, 8, 1),
+    (8, 1, 16, 16): (16, 1, 9),
+    (2, 128, 16, 16): (64, 2, 9),
+}
+
+
+@pytest.mark.parametrize("shape", list(RAGGED_MAIN),
+                         ids=["decode", "prefill", "deepseek_decode",
+                              "deepseek_prefill"])
+def test_ragged_plan_at_the_main_path_shapes(shape):
+    """bf16 takes the tensor-core route with the shared plan at B = S,
+    Sq = max_q, Skv = max_pages x page_size: the decode sub-batch one
+    16-row block per (segment, KV head), split 17 ways (9 at G = 1); the
+    prefill sub-batch 64-row blocks, unsplit at G = 4 and split 9 ways at
+    G = 1; scratch for every split block's rows."""
+    s, max_q, hq, hkv = shape
+    plan = ragged_attention._plan(s, max_q, 128, 16, hq, hkv, 128,
+                                  torch.bfloat16, H100_SMS)
+    assert plan == attention_tc.plan(s, max_q, 128 * 16, hq, hkv, 128,
+                                     torch.bfloat16, H100_SMS)
+    assert plan.route == "tensor_core"
+    assert (plan.block_rows, plan.row_blocks, plan.n_split) \
+        == RAGGED_MAIN[shape]
+    want_rows = s * hkv * plan.blocks * plan.block_rows
+    assert plan.part_rows == (want_rows if plan.n_split > 1 else 0)
+
+
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (16, 16), (24, 8)])
+def test_paged_decode_plan_is_the_ragged_plan_at_max_q_1(hq, hkv):
+    """The paged decode is the ragged function at q_len = 1: in bf16 its
+    plan is the ragged plan of a max_q = 1 sub-batch over the same table,
+    with no fixed key shares."""
+    for b, mp, ps in ((8, 128, 16), (2, 256, 16), (3, 16, 128),
+                      (5, 64, 8)):
+        plan = paged_decode_attention._plan(b, mp, ps, hq, hkv, 128,
+                                            torch.bfloat16, H100_SMS)
+        assert plan == ragged_attention._plan(b, 1, mp, ps, hq, hkv, 128,
+                                              torch.bfloat16, H100_SMS)
+        assert (plan.route, plan.block_rows, plan.split_keys) \
+            == ("tensor_core", 16, 0)
+    main = paged_decode_attention._plan(8, 128, 16, 32, 8, 128,
+                                        torch.bfloat16, H100_SMS)
+    assert (main.n_split, main.part_rows) == (17, 8 * 8 * 17 * 16)
+
+
+@pytest.mark.parametrize("s,max_q", [(1, 1), (2, 1), (1, 128), (1, 37)])
+def test_ragged_and_paged_decode_plans_long_pool(s, max_q):
+    """A 65,536-key table at few (segment, KV head) pairs asks for more
+    splits than the tensor-core combine takes (one a lane): both plans hold
+    n_split to MAX_SPLIT, with scratch for exactly that many."""
+    plan = ragged_attention._plan(s, max_q, 4096, 16, 32, 8, 128,
+                                  torch.bfloat16, H100_SMS)
+    assert 1 < plan.n_split <= attention_tc.MAX_SPLIT
+    assert plan.part_rows == s * 8 * plan.blocks * plan.block_rows
+    pd = paged_decode_attention._plan(s, 4096, 16, 32, 8, 128,
+                                      torch.bfloat16, H100_SMS)
+    assert pd.n_split == attention_tc.MAX_SPLIT
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 72),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64)])
+def test_ragged_and_paged_decode_plans_cuda_core_route(dtype, d):
+    """f32, and bf16 at a D off the 16-wide tiles or above 128, keep the
+    CUDA-core kernels: the ragged one unsplit without scratch, the paged
+    decode's in fixed shares of SPLIT_KEYS keys with G rows of scratch for
+    every share."""
+    for s, max_q in ((8, 1), (2, 128)):
+        plan = ragged_attention._plan(s, max_q, 128, 16, 32, 8, d, dtype,
+                                      H100_SMS)
+        assert (plan.route, plan.n_split, plan.part_rows) \
+            == ("cuda_core", 1, 0)
+    pd = paged_decode_attention._plan(8, 128, 16, 32, 8, d, dtype, H100_SMS)
+    assert pd.route == "cuda_core"
+    assert pd.split_keys == paged_decode_attention.SPLIT_KEYS
+    assert pd.n_split == -(-128 * 16 // paged_decode_attention.SPLIT_KEYS)
+    assert pd.part_rows == 8 * 8 * pd.n_split * 4
 
 
 # ---------------------------------------------------------------------------

@@ -223,6 +223,17 @@ def test_cuda_headers_are_hashed_and_jax_free(tmp_path, monkeypatch):
     assert all(before[n] != after[n] for n in names)
 
 
+def test_tensor_core_ptx_helpers_live_in_one_header():
+    """The ldmatrix, mma.sync and cp.async wrappers are defined once, in
+    csrc/mma_ptx.cuh, and both tensor-core sources include it."""
+    asm = ('"ldmatrix.sync', '"mma.sync', '"cp.async')  # inline PTX
+    owners = sorted(src.name for src in build.CSRC.glob("*.cu*")
+                    if any(op in src.read_text() for op in asm))
+    assert owners == ["mma_ptx.cuh"]
+    for name in ("attention_tc.cuh", "expert_gemm.cu"):
+        assert '#include "mma_ptx.cuh"' in (build.CSRC / name).read_text()
+
+
 def _paged(**kw):
     return EngineConfig(**{"cache_layout": "paged", "unified": True,
                            "max_seq": 64, "page_size": 8, **kw})
