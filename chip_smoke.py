@@ -51,7 +51,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                   WKV scan     prefill (2 rows x 128 steps), partial chunk
                                (37 steps), decode (8 rows x 1 step); a
                                non-zero state0 and bonus, decays in
-                               (0.45, 0.95); out and final state both held
+                               (0.45, 0.95); out and final state both held;
+                               untimed, the decode in place at N 64,
+                               N 16 and 32 at 37 steps; after every other
+                               kernel's profiles (so that they are timed
+                               as before), the plan's edges: the decode
+                               in place at N 16 and 32, 161 steps (ring
+                               turns and a ragged tail), one row (80
+                               blocks), no step (the final state is
+                               state0), decays exp(-exp(x)) for x in
+                               [-8, 3]; the line prints the bf16 plan
                   dense decode 8 rows against a 2048-key cache, lengths
                                0..2048, at G=4 and at deepseek's G=1;
                                untimed, G=3 at D=64
@@ -108,11 +117,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   serve_parity  again at rwkv6-3b widths, 2 layers, float32, mixes and
                 bonus drawn non-zero, in the two two-dispatch layouts
 
-then the card's name and power limit (nvidia-smi), one JSON line listing
-every kernel (launches summed over its main-path runs, error, times,
-bound), and last ``{"ok": true, "device": {...}}``.  Without a CUDA device
-it exits 1 and prints no result.  Imports nothing of JAX or of the JAX
-package.
+After the phases: the card's name and power limit (nvidia-smi), one JSON
+line listing every kernel (launches summed over its main-path runs,
+error, times, bound), and last ``{"ok": true, "device": {...}}``.  Without
+a CUDA device it exits 1 and prints no result.  Imports nothing of JAX or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -500,7 +509,13 @@ def sdpa_call(torch, case):
 # prefill calls (2 scratch rows, a full and a partial chunk) and its decode
 # steps (8 slots, one step); then, untimed, the decode step with the final
 # state written over state0 (as the engine's decode writes its cache in
-# place) and the head sizes of the reduced configs (N 16 and 32).
+# place) and the head sizes of the reduced configs (N 16 and 32); and
+# RWKV_EDGES, the edges of the launch plan, which kernel_check runs after
+# every other kernel's profiles so that they change no kernel's timing
+# conditions: the in-place decode at N 16 and 32, 161 steps (several turns
+# of the chunk ring and a ragged tail), one row (a grid of 80 blocks), no
+# step at all (the final state is state0), and decays drawn as the model
+# draws them, exp(-exp(x)) for x in [-8, 3]: from 2e-9 to 0.9997.
 RWKV_H, RWKV_N = 40, 64
 RWKV_PROFILES = {
     "prefill": dict(b=2, t=128),
@@ -509,8 +524,16 @@ RWKV_PROFILES = {
     "decode_in_place": dict(b=8, t=1, in_place=True),
     "n16": dict(b=2, t=37, h=4, n=16),
     "n32": dict(b=2, t=37, h=4, n=32),
+    "decode_in_place_n16": dict(b=8, t=1, n=16, in_place=True),
+    "decode_in_place_n32": dict(b=8, t=1, n=32, in_place=True),
+    "t161": dict(b=2, t=161),
+    "one_row": dict(b=1, t=128),
+    "no_step": dict(b=2, t=0),
+    "decay_edge": dict(b=2, t=128, decay="edge"),
 }
 RWKV_TIMED = ("prefill", "prefill_partial", "decode")
+RWKV_EDGES = ("decode_in_place_n16", "decode_in_place_n32", "t161",
+              "one_row", "no_step", "decay_edge")
 
 
 def rwkv_dims(prof):
@@ -520,7 +543,8 @@ def rwkv_dims(prof):
 
 def make_rwkv_case(torch, prof, dtype, seed):
     """r, k, v ~ N(0, 1/4) in ``dtype``; w, u and state0 float32: decays in
-    (0.45, 0.95) (as tests/test_kernels.py draws them), a non-zero bonus
+    (0.45, 0.95) (as tests/test_kernels.py draws them), or exp(-exp(x))
+    for x uniform in [-8, 3] with ``decay="edge"``, a non-zero bonus
     u ~ N(0, 0.09) and state0 ~ N(0, 0.04)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     b, t, h, n = rwkv_dims(prof)
@@ -529,7 +553,11 @@ def make_rwkv_case(torch, prof, dtype, seed):
         return torch.randn(shape, generator=gen, device=DEV) * scale
 
     r, k, v = (randn((b, t, h, n), 0.5).to(dtype) for _ in range(3))
-    w = torch.sigmoid(randn((b, t, h, n), 1.0)) * 0.5 + 0.45
+    if prof.get("decay") == "edge":
+        x = torch.rand((b, t, h, n), generator=gen, device=DEV) * 11 - 8
+        w = torch.exp(-torch.exp(x))
+    else:
+        w = torch.sigmoid(randn((b, t, h, n), 1.0)) * 0.5 + 0.45
     return dict(r=r, k=k, v=v, w=w, u=randn((h, n), 0.3),
                 state=randn((b, h, n, n), 0.2))
 
@@ -644,12 +672,17 @@ def _compare(what, got, want, rtol, scale=1.0):
     ceiling (written so that NaN fails too)."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    err = float(diff.max())
+    err = float(diff.max()) if diff.numel() else 0.0
     if not (bool((diff <= rtol * w.abs() + F32_ATOL * scale).all())
             and err <= BF16_ATOL * scale):
         raise AssertionError(f"{what}: max abs err {err} over {rtol} |want| "
                              f"+ {F32_ATOL} x {scale}")
     return err
+
+
+def _amax(x):
+    """max |x|, 0 for an empty tensor (a WKV call of no step)."""
+    return float(x.abs().max()) if x.numel() else 0.0
 
 
 def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
@@ -662,15 +695,16 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
     the plain version's and (``library``) the yardstick call's median
     times beside the bound.  A kernel that returns (out, state) has both
     held, the float32 state within the float32 tolerance in both runs.
-    A ``module`` with routes records the route each dtype took, which must
-    be the one its ``tensor_core_route`` names."""
+    A ``module`` records the bf16 launch plan and, where it has routes,
+    the route each dtype took, which must be the one its
+    ``tensor_core_route`` names."""
     res = dict(info)
     for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
                              (torch.bfloat16, BF16_RTOL, "bf16")):
         case = make(dtype)
         got, want = run(case), plain(case)
         torch.cuda.synchronize()
-        if module is not None:
+        if module is not None and hasattr(module, "routes"):
             route = module.last_plan.route
             d = case["q"].shape[-1]
             if (route == "tensor_core") != \
@@ -678,12 +712,11 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
                 raise AssertionError(f"{kernel}/{profile}/{tag}: route "
                                      f"{route} at D = {d}")
             res[f"route_{tag}"] = route
-            if tag == "bf16":
-                res["plan_bf16"] = vars(module.last_plan)
+        if module is not None and tag == "bf16":
+            res["plan_bf16"] = vars(module.last_plan)
         if isinstance(got, tuple):  # (out, final state): the state is f32
             (got, got_state), (want, want_state) = got, want
-            scale = max(1.0, float(want_state.abs().max())) if scaled \
-                else 1.0
+            scale = max(1.0, _amax(want_state)) if scaled else 1.0
             res[f"state_scale_{tag}"] = scale
             res[f"max_abs_err_state_{tag}"] = _compare(
                 f"{kernel}/{profile}/{tag}/state", got_state, want_state,
@@ -694,7 +727,7 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
                 raise AssertionError(f"{kernel}/{profile}/{tag}: gap rows "
                                      "not zero")
             got, want = got[rows], want[rows]
-        scale = max(1.0, float(want.abs().max())) if scaled else 1.0
+        scale = max(1.0, _amax(want)) if scaled else 1.0
         res[f"output_scale_{tag}"] = scale
         res[f"max_abs_err_{tag}"] = _compare(f"{kernel}/{profile}/{tag}",
                                              got, want, rtol, scale)
@@ -770,9 +803,8 @@ def phase_kernel_check(torch, only=None) -> dict:
     # the WKV scan: f32 tolerances relative to the output's and the state's
     # scale (sums over N in another order; the state update fused into one
     # multiply-add where the plain version rounds twice, over T steps)
-    for name, prof in RWKV_PROFILES.items():
-        if skip("rwkv6_scan"):
-            break
+    def check_rwkv(name):
+        prof = RWKV_PROFILES[name]
         h, n = rwkv_dims(prof)[2:]
         out["rwkv6_scan"][name] = check_profile(
             torch, "rwkv6_scan", name,
@@ -782,7 +814,13 @@ def phase_kernel_check(torch, only=None) -> dict:
             else (lambda c: rwkv6_scan.rwkv6_scan_cuda(**c)),
             lambda c: ref.rwkv6_reference(**c),
             work_rwkv(prof, 2), timed=name in RWKV_TIMED, scaled=True,
-            **{"h": h, "n": n, **prof})
+            module=rwkv6_scan, **{"h": h, "n": n, **prof})
+
+    for name in RWKV_PROFILES:
+        if skip("rwkv6_scan"):
+            break
+        if name not in RWKV_EDGES:
+            check_rwkv(name)
     for name, prof in DENSE_DECODE_PROFILES.items():
         if skip("decode_attention"):
             break
@@ -797,6 +835,10 @@ def phase_kernel_check(torch, only=None) -> dict:
             work_dense_decode(prof, 2), library=sdpa_decode_call,
             timed=name in DENSE_DECODE_TIMED, module=decode_attention,
             **{"lengths": DECODE_LENGTHS, "t": DENSE_DECODE_T, **prof})
+    for name in RWKV_EDGES:
+        if skip("rwkv6_scan"):
+            break
+        check_rwkv(name)
     return out
 
 

@@ -1,7 +1,8 @@
 // The PTX wrappers of the tensor-core kernels (expert_gemm.cu and the tile
 // walk of attention_tc.cuh): ldmatrix, mma.sync m16n8k16 in bf16 with f32
-// accumulators, and 16-byte cp.async copies.  sm_80 instructions, which
-// Hopper (sm_90a) runs as they are.
+// accumulators, and 16-byte cp.async copies (which the WKV scan's chunk
+// ring, rwkv6_scan.cu, uses too).  sm_80 instructions, which Hopper
+// (sm_90a) runs as they are.
 
 #pragma once
 

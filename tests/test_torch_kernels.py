@@ -3,8 +3,9 @@ paged attention, paged decode attention, attention over dense K/V with a
 window, dense decode attention) against the JAX oracles and the Pallas
 kernels in interpret mode, on the cases of ``tests/test_kernels.py`` and
 at the edges of the Hopper kernels' tensor-core tiles; and the launch
-plans of the four attention wrappers (route, row blocks, key split),
-which are pure Python.
+plans of the four attention wrappers (route, row blocks, key split) and of
+the WKV scan (column split, row groups, chunk ring), which are pure
+Python.
 
 Inputs are made from numpy seeds and handed to both frameworks; everything
 runs in float32 on the CPU.  Rows in packing gaps are unspecified on both
@@ -26,7 +27,7 @@ from repro.kernels.decode_attention import pallas_decode_attention
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro_torch.kernels import (attention_tc, decode_attention,
                                  flash_attention, paged_decode_attention,
-                                 ragged_attention)
+                                 ragged_attention, rwkv6_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -504,11 +505,13 @@ def test_decode_plan_long_cache_stays_within_the_combine(b, hkv, t):
 
 
 def test_plans_read_no_tensor():
-    """Both plans are functions of plain ints and a dtype: they never see
-    kv_len, q_offset or lengths, which lie on the card."""
+    """The plans are functions of plain ints and a dtype: they never see
+    kv_len, q_offset or lengths, which lie on the card (nor, for the WKV
+    scan, any tensor)."""
     import inspect
     for fn in (flash_attention._plan, decode_attention._plan,
-               ragged_attention._plan, paged_decode_attention._plan):
+               ragged_attention._plan, paged_decode_attention._plan,
+               rwkv6_scan._plan):
         params = inspect.signature(fn).parameters
         assert "kv_len" not in params and "lengths" not in params
         assert "q_len" not in params
@@ -682,3 +685,73 @@ def test_plain_decode_attention_length_zero_row():
                                   lengths=torch.from_numpy(lengths),
                                   impl="plain")
     assert torch.equal(got, plain)
+
+
+# ---------------------------------------------------------------------------
+# the WKV scan's launch plan (pure Python: the CUDA side takes what it
+# returns and refuses a combination it does not build)
+# ---------------------------------------------------------------------------
+
+# rwkv6-3b's 40 heads of 64 at the two-dispatch engine's calls: (B, T)
+WKV_MAIN = {"prefill": (2, 128), "prefill_partial": (2, 37),
+            "decode": (8, 1)}
+
+
+@pytest.mark.parametrize("name", list(WKV_MAIN))
+def test_wkv_plan_at_the_main_path_shapes(name):
+    """At the main path's shapes the grid gives every one of the 132 SMs
+    a block, 4 columns a thread over 8 row groups; a prefill call stages
+    32-step chunks through both ring slots, a decode step one step in
+    one slot."""
+    b, t = WKV_MAIN[name]
+    plan = rwkv6_scan._plan(b, t, 40, 64, torch.bfloat16, H100_SMS)
+    assert plan.grid >= H100_SMS
+    assert plan.grid == b * 40 * (64 // plan.cols)
+    assert (plan.cpt, plan.row_groups) == (4, 8)
+    assert plan.threads == plan.row_groups * plan.cols // plan.cpt
+    if t == 1:
+        assert (plan.chunk, plan.ring) == (1, 1)
+    else:
+        assert (plan.chunk, plan.ring) == (32, 2)
+
+
+H100_SMEM_PER_BLOCK = 232_448  # dynamic shared memory a block may ask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", rwkv6_scan.HEAD_SIZES)
+def test_wkv_plan_fits_the_card(n, dtype):
+    """For every head size, both dtypes and shapes from an idle row to
+    long prompts: the block the source builds for the head size, at most
+    1024 threads in whole warps, row groups that divide the head into
+    groups of a multiple of 4 rows, shared memory within an H100 block's
+    232,448 bytes, and a second ring slot exactly when T spans more than
+    one chunk."""
+    for b in (1, 2, 8, 64):
+        for t in (0, 1, 2, 31, 32, 33, 37, 128, 161, 2048):
+            for h in (4, 40):
+                plan = rwkv6_scan._plan(b, t, h, n, dtype, H100_SMS)
+                assert (plan.cols, plan.cpt, plan.row_groups) == \
+                    rwkv6_scan.SHAPES[n]
+                assert plan.threads <= 1024 and plan.threads % 32 == 0
+                assert n % plan.row_groups == 0
+                assert (n // plan.row_groups) % 4 == 0
+                assert plan.smem <= H100_SMEM_PER_BLOCK
+                assert plan.smem % 16 == 0
+                assert 1 <= plan.chunk <= max(t, 1)
+                assert plan.ring == (2 if t > plan.chunk else 1)
+                assert plan.grid == b * h * (n // plan.cols)
+
+
+@pytest.mark.parametrize("b", [2, 5, 64])
+def test_wkv_plan_chunk_depends_on_t_alone(b):
+    """The chunk is min(32, T) whatever the grid: a prefill of many rows
+    queues its blocks at the chunk a 2-row prefill takes, and the SM count
+    changes nothing."""
+    for t in (1, 7, 32, 37, 128, 2048):
+        plans = {rwkv6_scan._plan(b, t, 40, 64, torch.bfloat16, sms)
+                 for sms in (1, H100_SMS, 1024)}
+        assert len(plans) == 1
+        (plan,) = plans
+        assert plan.chunk == min(rwkv6_scan.CHUNK, t)

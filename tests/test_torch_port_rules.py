@@ -225,12 +225,13 @@ def test_cuda_headers_are_hashed_and_jax_free(tmp_path, monkeypatch):
 
 def test_tensor_core_ptx_helpers_live_in_one_header():
     """The ldmatrix, mma.sync and cp.async wrappers are defined once, in
-    csrc/mma_ptx.cuh, and both tensor-core sources include it."""
+    csrc/mma_ptx.cuh, and both tensor-core sources and the WKV scan's
+    cp.async ring include it."""
     asm = ('"ldmatrix.sync', '"mma.sync', '"cp.async')  # inline PTX
     owners = sorted(src.name for src in build.CSRC.glob("*.cu*")
                     if any(op in src.read_text() for op in asm))
     assert owners == ["mma_ptx.cuh"]
-    for name in ("attention_tc.cuh", "expert_gemm.cu"):
+    for name in ("attention_tc.cuh", "expert_gemm.cu", "rwkv6_scan.cu"):
         assert '#include "mma_ptx.cuh"' in (build.CSRC / name).read_text()
 
 
