@@ -76,46 +76,71 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 weights drawn on the card from a seed) served through
                 ServeEngine(EngineConfig(cache_layout="paged", unified=True)):
                 8 greedy requests of 100-1500 prompt tokens, 32 new tokens
-                each; the ragged kernel's launch count must equal
+                each, first on the eager engine (graphs=False), then on the
+                replay engine (the main path: each step one CUDA-graph
+                replay), each engine warmed by one short request that binds
+                (on the replay engine: captures) both step profiles; in
+                each run the ragged kernel's launch count must equal
                 n_layers x (2 x mixed steps + decode-only steps), every
-                launch on the tensor-core route
-  serve_profile the same model and engine under torch.profiler for a
-                short serve: device time by kernel class, the device's
+                launch on the tensor-core route, and dispatches == d2h
+                copies == steps; each line gives TTFT, TPOT, tokens/s, host
+                ms per step, the device ms of each step's profile run (CUDA
+                events around it), the captures per profile (exactly 1),
+                capture seconds and graph-pool MB; an eager_vs_replay line
+                holds the two runs' greedy outputs token-identical (or
+                parting only at a genuine tie, top-2 logit gap < 1e-4)
+  serve_profile the same model and replay engine under torch.profiler for a
+                short serve: device time by kernel class (a replay's
+                kernels keep their names), graph launches, the device's
                 busy share of the wall clock
   serve_two_dispatch
                 the same model and requests through the two-dispatch
                 engine, EngineConfig(cache_layout="paged", unified=False)
-                and EngineConfig(cache_layout="dense"); launch counts exact:
-                paged decode n_layers x decode steps and flash n_layers x
-                prefill calls (paged); flash n_layers x (prefill calls +
-                decode steps) (dense), every flash and paged decode call
-                on the tensor-core route (each line prints the calls of
-                each route); then
-                serve_profile of the dense engine, where flash launches
-                most
+                and EngineConfig(cache_layout="dense"), eager then replay
+                (each decode step one replay; the prefill chunks eager);
+                launch counts exact in each run: paged decode n_layers x
+                decode steps and flash n_layers x prefill calls (paged);
+                flash n_layers x (prefill calls + decode steps) (dense),
+                every flash and paged decode call on the tensor-core route
+                (each line prints the calls of each route); eager_vs_replay
+                lines as above; then serve_profile of the dense replay
+                engine, where flash launches most
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
-                served through the kernels and with the plain versions
-                selected explicitly: greedy outputs token-identical between
-                the two and across the three modes, or diverging only at a
-                genuine tie (top-2 logit gap < 1e-4)
+                served on the replay engine through the kernels and with
+                the plain versions selected explicitly, and on the eager
+                engine through the kernels: greedy outputs token-identical
+                between kernel and plain, replay and eager, and across the
+                three modes, or diverging only at a genuine tie (top-2
+                logit gap < 1e-4)
+  debug_guards  minitron-8b widths at 2 layers in bf16, the unified and the
+                paged two-dispatch replay engines with
+                EngineConfig(debug_guards=True): token-identical to the
+                unguarded engines; a .item() inside the step guard raises
+                (torch.cuda.set_sync_debug_mode("error")); binding a
+                profile again, or a foreign key, raises "recapture"
   serve_moe     deepseek-moe-16b at its published width (28 layers, 64
                 routed experts top-6 + 2 shared, random bf16 weights drawn
-                on the card from a seed) through the unified engine, after
-                minitron-8b's weights are freed: the same 8 requests; the
-                expert GEMM's launches must equal n_layers x 3 x
-                dispatches and the ragged kernel's n_layers x (2 x mixed
-                steps + decode-only steps); then serve_profile of it
+                on the card from a seed) through the unified engine, eager
+                then replay, after minitron-8b's weights are freed: the same
+                8 requests; the expert GEMM's launches must equal n_layers
+                x 3 x dispatches and the ragged kernel's n_layers x (2 x
+                mixed steps + decode-only steps); then serve_profile of the
+                replay engine
   serve_parity  again at deepseek-moe-16b widths, 2 layers, float32
   serve_rwkv    rwkv6-3b at its published width (32 RWKV-6 layers, random
                 bf16 weights drawn on the card from a seed, the token-shift
                 mixes and the bonus drawn non-zero) through the dense and
-                the paged two-dispatch engines, after deepseek's weights
-                are freed: the same 8 requests; the WKV scan's launches
-                must equal n_layers x (prefill calls + decode steps) and
-                every other kernel's 0; then serve_profile of the dense
-                engine
+                the paged two-dispatch engines, eager then replay, after
+                deepseek's weights are freed: the same 8 requests; the WKV
+                scan's launches must equal n_layers x (prefill calls +
+                decode steps) and every other kernel's 0; then
+                serve_profile of the dense replay engine
   serve_parity  again at rwkv6-3b widths, 2 layers, float32, mixes and
                 bonus drawn non-zero, in the two two-dispatch layouts
+
+A replay does not run the kernel wrappers: the step graph adds each
+capture's launch counts on every replay, so the counts above hold on both
+engines with the same formulas.
 
 After the phases: the card's name and power limit (nvidia-smi), one JSON
 line listing every kernel (launches summed over its main-path runs,
@@ -905,13 +930,50 @@ def make_requests(spec, n, max_new, seed):
                     max_new_tokens=max_new) for _ in range(n)]
 
 
-def serve_counted(torch, model, spec, mode):
-    """Serve the 8 main-path requests through ``mode`` with every kernel
-    count set to 0 just before and read just after; every request must
-    finish with MAX_NEW tokens in the vocabulary."""
-    from repro_torch.serving import EngineConfig, ServeEngine
+def time_steps(torch, eng):
+    """Time each step of ``eng`` on the host clock (ms), and the device work
+    of its step profile (replayed, or eager with ``graphs=False``) with
+    CUDA events around the engine's ``StepGraph.run``; returns the list of
+    host times and the list of event pairs, filled as the engine steps."""
+    host, spans = [], []
+    step, run = eng.step, eng._graphs.run
+
+    def timed_step():
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_run(key):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = run(key)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+    eng.step = timed_step
+    eng._graphs.run = timed_run
+    return host, spans
+
+
+def serve_counted(torch, model, spec, mode, *, graphs=True):
+    """Serve the 8 main-path requests through ``mode`` on an engine that one
+    short request has warmed (on a replay engine it captured every step
+    profile then), with every kernel count set to 0 just before and read
+    just after; every request must finish with MAX_NEW tokens in the
+    vocabulary, and no profile may be captured during the serve.  Returns
+    the engine, its stats and the outputs."""
+    from repro_torch.serving import (EngineConfig, EngineMetrics, Request,
+                                     ServeEngine)
     cfg = EngineConfig(**GEOMETRY, **MODES[mode])
-    eng = ServeEngine(model, cfg, device=DEV)
+    eng = ServeEngine(model, cfg, device=DEV, graphs=graphs)
+    eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    eng.metrics = EngineMetrics()
+    captures = dict(eng._graphs.captures)
+    if captures != dict.fromkeys(eng._graphs.profiles, 1):
+        raise AssertionError(f"{mode}: profiles bound {captures}, expected "
+                             f"each of {sorted(eng._graphs.profiles)} once")
+    host, spans = time_steps(torch, eng)
     reqs = make_requests(spec, 8, MAX_NEW, seed=0)
     torch.cuda.synchronize()
     gc.collect()
@@ -923,6 +985,9 @@ def serve_counted(torch, model, spec, mode):
     wall = time.perf_counter() - t0
     counts = read_launches()
     routes = read_routes()
+    if eng._graphs.captures != captures:
+        raise AssertionError(f"{mode}: a profile was bound during the "
+                             f"serve: {eng._graphs.captures}")
     for r in reqs:
         if r.state != "done":
             raise AssertionError(f"{mode}: request {r.rid} not done "
@@ -934,8 +999,13 @@ def serve_counted(torch, model, spec, mode):
             raise AssertionError(f"{mode}: request {r.rid}: token out of "
                                  "range")
     m = eng.metrics
+    runs = m.dispatches if cfg.unified else m.decode_steps
+    if len(spans) != runs:
+        raise AssertionError(f"{mode}: {len(spans)} step-profile runs, "
+                             f"expected {runs}")
+    device_ms = [a.elapsed_time(b) for a, b in spans]
     s = m.summary(reqs)
-    stats = dict(mode=mode, requests=len(reqs),
+    stats = dict(mode=mode, graphs=graphs, requests=len(reqs),
                  prompt_tokens=sum(len(r.prompt) for r in reqs),
                  generated_tokens=m.generated_tokens, steps=m.steps,
                  decode_steps=m.decode_steps, prefill_calls=m.prefill_calls,
@@ -943,9 +1013,46 @@ def serve_counted(torch, model, spec, mode):
                  preemptions=m.preemptions, wall_s=wall,
                  tokens_per_s=m.generated_tokens / wall,
                  ttft_s_mean=s["ttft_s_mean"], tpot_s_mean=s["tpot_s_mean"],
+                 host_ms_per_step=statistics.mean(host),
+                 profile_runs=len(spans),
+                 device_ms_per_run=statistics.mean(device_ms),
+                 captures=captures, capture_s=eng._graphs.capture_s,
+                 graph_pool_mb=eng._graphs.pool_bytes / 2 ** 20,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches=counts, routes=routes)
-    return eng, stats
+    return eng, stats, [r.output for r in reqs]
+
+
+def serve_eager_and_replay(torch, model, spec, mode, phase, expect, **info):
+    """``mode`` on the eager engine, then on the replay engine (the main
+    path) with the same requests: each run's launch counts as ``expect(m,
+    stats)`` asserts them, each run's line, then one line holding the two
+    against each other: greedy outputs token-identical, or parting only at
+    a genuine tie.  Returns the replay run's launch counts."""
+    outs, lines = {}, {}
+    for graphs in (False, True):
+        eng, stats, outs[graphs] = serve_counted(torch, model, spec, mode,
+                                                 graphs=graphs)
+        expect(eng.metrics, stats)
+        emit(phase, model=spec.name, **info, **stats, kv=eng.kv_stats())
+        lines[graphs] = stats
+        del eng
+        free(torch)
+    prompts = [r.prompt for r in make_requests(spec, 8, MAX_NEW, seed=0)]
+    what = f"{spec.name} {mode} eager vs replay"
+    ties = _ties(torch, model, prompts, outs[False], outs[True], what)
+    keys = ("tokens_per_s", "ttft_s_mean", "tpot_s_mean", "host_ms_per_step",
+            "device_ms_per_run", "steps", "profile_runs", "dispatches")
+    emit("eager_vs_replay", model=spec.name, mode=mode,
+         identical=sum(a == b for a, b in zip(outs[False], outs[True])),
+         ties=ties, eager={k: lines[False][k] for k in keys},
+         replay={k: lines[True][k] for k in keys},
+         launches_eager=lines[False]["launches"],
+         launches_replay=lines[True]["launches"],
+         captures=lines[True]["captures"],
+         capture_s=lines[True]["capture_s"],
+         graph_pool_mb=lines[True]["graph_pool_mb"])
+    return lines[True]["launches"]
 
 
 def _expect(mode, counts, nonzero):
@@ -966,34 +1073,33 @@ def _expect_tensor_cores(mode, routes, kernel, n):
 
 
 def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
-    """The unified engine, then its profile (``phase`` names the serve's
-    line); returns the serve's kernel launch counts."""
-    from repro_torch.serving import EngineConfig, Request, ServeEngine
+    """The unified engine, eager and replayed, then the replay engine's
+    profile (``phase`` names the serves' lines); returns the replay
+    serve's kernel launch counts."""
+    from repro_torch.serving import EngineConfig
 
-    cfg = EngineConfig(**GEOMETRY, **MODES["unified"])
-    # warm-up on a throwaway engine (cuBLAS handles, first launches)
-    ServeEngine(model, cfg, device=DEV).serve(
-        [Request(prompt=list(range(1, 40)), max_new_tokens=2)])
-    eng, stats = serve_counted(torch, model, spec, "unified")
-    m = eng.metrics
-    if m.transfers_d2h != m.dispatches:
-        raise AssertionError(f"{m.transfers_d2h} transfers != "
-                             f"{m.dispatches} dispatches")
-    mixed = m.prefill_calls
-    decode_only = m.dispatches - mixed
-    n_ragged = spec.n_layers * (2 * mixed + decode_only)
-    _expect("unified", stats["launches"], {
-        "ragged_paged_attention": n_ragged,
-        "expert_gemm": expert_launches_per_forward(spec) * m.dispatches})
-    _expect_tensor_cores("unified", stats["routes"], "ragged_paged_attention",
-                         n_ragged)
+    def expect(m, stats):
+        if not m.dispatches == m.transfers_d2h == m.steps:
+            raise AssertionError(f"unified: {m.dispatches} dispatches, "
+                                 f"{m.transfers_d2h} transfers, {m.steps} "
+                                 "steps")
+        mixed = m.prefill_calls
+        decode_only = m.dispatches - mixed
+        n_ragged = spec.n_layers * (2 * mixed + decode_only)
+        _expect("unified", stats["launches"], {
+            "ragged_paged_attention": n_ragged,
+            "expert_gemm": expert_launches_per_forward(spec) * m.dispatches})
+        _expect_tensor_cores("unified", stats["routes"],
+                             "ragged_paged_attention", n_ragged)
+        stats.update(mixed_steps=mixed, decode_only_steps=decode_only)
+
     n_params = sum(p.numel() for p in model.parameters())
-    emit(phase, model=spec.name, params=n_params,
-         weight_gb=n_params * 2 / 1e9, init_s=init_s, mixed_steps=mixed,
-         decode_only_steps=decode_only, **stats)
-    del eng
-    phase_serve_profile(torch, model, spec, cfg)
-    return stats["launches"]
+    counts = serve_eager_and_replay(
+        torch, model, spec, "unified", phase, expect, params=n_params,
+        weight_gb=n_params * 2 / 1e9, init_s=init_s)
+    phase_serve_profile(torch, model, spec,
+                        EngineConfig(**GEOMETRY, **MODES["unified"]))
+    return counts
 
 
 def build_full(torch, arch):
@@ -1032,31 +1138,29 @@ def free(torch):
 
 
 def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
-    """The two-dispatch engine in both layouts, then the dense engine's
-    profile; returns each serve's kernel launch counts.  Every flash call
-    of the bf16 model must take the tensor-core route."""
+    """The two-dispatch engine in both layouts, eager and replayed, then the
+    dense replay engine's profile; returns each replay serve's kernel
+    launch counts.  Every flash call of the bf16 model must take the
+    tensor-core route."""
     from repro_torch.serving import EngineConfig
     out = []
     for mode in ("paged", "dense"):
-        eng, stats = serve_counted(torch, model, spec, mode)
-        m = eng.metrics
-        n = spec.n_layers
-        want = {"paged_decode_attention": n * m.decode_steps,
-                "flash_attention": n * m.prefill_calls,
-                "expert_gemm": expert_launches_per_forward(spec)
-                * (m.decode_steps + m.prefill_calls)}
-        if mode == "dense":
-            want.update(paged_decode_attention=0,
-                        flash_attention=n * (m.prefill_calls
-                                             + m.decode_steps))
-        _expect(mode, stats["launches"], want)
-        for kernel in ("flash_attention", "paged_decode_attention"):
-            _expect_tensor_cores(mode, stats["routes"], kernel, want[kernel])
-        emit("serve_two_dispatch", model=spec.name, **stats,
-             kv=eng.kv_stats())
-        out.append(stats["launches"])
-        del eng
-        free(torch)
+        def expect(m, stats, mode=mode):
+            n = spec.n_layers
+            want = {"paged_decode_attention": n * m.decode_steps,
+                    "flash_attention": n * m.prefill_calls,
+                    "expert_gemm": expert_launches_per_forward(spec)
+                    * (m.decode_steps + m.prefill_calls)}
+            if mode == "dense":
+                want.update(paged_decode_attention=0,
+                            flash_attention=n * (m.prefill_calls
+                                                 + m.decode_steps))
+            _expect(mode, stats["launches"], want)
+            for kernel in ("flash_attention", "paged_decode_attention"):
+                _expect_tensor_cores(mode, stats["routes"], kernel,
+                                     want[kernel])
+        out.append(serve_eager_and_replay(torch, model, spec, mode,
+                                          "serve_two_dispatch", expect))
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
@@ -1099,31 +1203,24 @@ def phase_decode_op(torch) -> dict:
 
 def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
     """The attention-free stack through the two-dispatch engine in both
-    layouts, then the dense engine's profile; returns each serve's kernel
-    launch counts."""
-    from repro_torch.serving import EngineConfig, Request, ServeEngine
+    layouts, eager and replayed, then the dense replay engine's profile;
+    returns each replay serve's kernel launch counts."""
+    from repro_torch.serving import EngineConfig
 
-    dense = EngineConfig(**GEOMETRY, **MODES["dense"])
-    # warm-up on a throwaway engine (cuBLAS handles, first launches)
-    ServeEngine(model, dense, device=DEV).serve(
-        [Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    def expect(m, stats):
+        _expect("rwkv", stats["launches"], {
+            "rwkv6_scan": spec.n_layers * (m.prefill_calls
+                                           + m.decode_steps)})
+
     n_params = sum(p.numel() for p in model.parameters())
     weight_gb = sum(p.numel() * p.element_size()
                     for p in model.parameters()) / 1e9
-    out = []
-    for mode in ("dense", "paged"):
-        eng, stats = serve_counted(torch, model, spec, mode)
-        m = eng.metrics
-        _expect(mode, stats["launches"], {
-            "rwkv6_scan": spec.n_layers * (m.prefill_calls
-                                           + m.decode_steps)})
-        emit("serve_rwkv", model=spec.name, params=n_params,
-             weight_gb=weight_gb, init_s=init_s, **stats,
-             kv=eng.kv_stats())
-        out.append(stats["launches"])
-        del eng
-        free(torch)
-    phase_serve_profile(torch, model, spec, dense)
+    out = [serve_eager_and_replay(torch, model, spec, mode, "serve_rwkv",
+                                  expect, params=n_params,
+                                  weight_gb=weight_gb, init_s=init_s)
+           for mode in ("dense", "paged")]
+    phase_serve_profile(torch, model, spec,
+                        EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
 
 
@@ -1159,13 +1256,16 @@ def _kernel_class(name: str) -> str:
 def phase_serve_profile(torch, model, spec, cfg) -> None:
     """Where a step's time goes: torch.profiler over a short serve (8
     requests of 100-1500 prompt tokens, 8 new tokens each) through the
-    engine ``cfg`` names, device time summed by kernel class, against the
-    wall clock of the same steps."""
+    replay engine ``cfg`` names, its profiles captured before by one short
+    request; device time summed by kernel class (a replay's kernels keep
+    their names), against the wall clock of the same steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import ServeEngine
+    from repro_torch.serving import EngineMetrics, Request, ServeEngine
 
     eng = ServeEngine(model, cfg, device=DEV)
+    eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    eng.metrics = EngineMetrics()
     reqs = make_requests(spec, 8, 8, seed=2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1175,8 +1275,10 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_class: dict[str, float] = {}
-    launches = 0
+    launches = graph_launches = 0
     for ev in prof.key_averages():
+        if ev.key == "cudaGraphLaunch":
+            graph_launches += ev.count
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue  # host-side ops and runtime calls
         dev_us = getattr(ev, "self_device_time_total",
@@ -1186,6 +1288,9 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
         launches += ev.count
     busy = sum(by_class.values())
     m = eng.metrics
+    if graph_launches < (m.dispatches if cfg.unified else m.decode_steps):
+        raise AssertionError(f"serve_profile: {graph_launches} graph "
+                             "launches under the profiler")
     steps = (dict(mixed_steps=m.prefill_calls,
                   decode_only_steps=m.dispatches - m.prefill_calls)
              if cfg.unified else dict(decode_steps=m.decode_steps,
@@ -1194,7 +1299,7 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
          unified=cfg.unified, steps=m.steps, **steps,
          wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3),
-         kernel_launches=launches,
+         kernel_launches=launches, graph_launches=graph_launches,
          device_ms_by_class=dict(sorted(by_class.items(),
                                         key=lambda kv: -kv[1])))
 
@@ -1252,7 +1357,8 @@ def _ties(torch, model, prompts, a, b, what):
 
 def phase_serve_parity(torch, arch) -> None:
     """``arch``'s widths at 2 layers in float32, every engine mode that
-    serves it through the kernels and through the plain versions (an
+    serves it on the replay engine through the kernels and through the
+    plain versions, and on the eager engine through the kernels (an
     attention-free stack: the two two-dispatch layouts, its RWKV mixes and
     bonus drawn non-zero)."""
     from repro_torch.configs import get_spec
@@ -1267,15 +1373,18 @@ def phase_serve_parity(torch, arch) -> None:
         modes = ("dense", "paged")
     outs = {}
     for mode in modes:
-        for impl in ("kernel", "plain"):
+        for run, impl, graphs in (("kernel", "kernel", True),
+                                  ("plain", "plain", True),
+                                  ("eager", "kernel", False)):
             model.kernel_impl = impl
             reqs = make_requests(spec, 8, 16, seed=1)
             ServeEngine(model, EngineConfig(**GEOMETRY, **MODES[mode]),
-                        device=DEV).serve(reqs)
-            outs[mode, impl] = [r.output for r in reqs]
+                        device=DEV, graphs=graphs).serve(reqs)
+            outs[mode, run] = [r.output for r in reqs]
             prompts = [r.prompt for r in reqs]
     model.kernel_impl = "plain"
-    pairs = [((mode, "kernel"), (mode, "plain")) for mode in modes] + [
+    pairs = [((mode, "kernel"), (mode, other)) for mode in modes
+             for other in ("plain", "eager")] + [
         ((modes[0], "kernel"), (mode, "kernel")) for mode in modes[1:]]
     comparisons = {}
     for a, b in pairs:
@@ -1287,6 +1396,58 @@ def phase_serve_parity(torch, arch) -> None:
          requests=len(prompts),
          tokens=sum(len(o) for o in outs[modes[0], "kernel"]),
          comparisons=comparisons)
+    del model
+    free(torch)
+
+
+def phase_debug_guards(torch) -> None:
+    """``debug_guards`` on the card, at minitron-8b's widths and 2 layers in
+    bf16, in the unified and the paged two-dispatch replay engines: a
+    guarded serve is token-identical to an unguarded one, a ``.item()`` on
+    a card tensor inside ``_step_guard()`` raises, and binding a profile
+    again, or a key of no profile, raises "recapture"."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    spec = get_spec("minitron-8b").scaled(name="minitron-8b-2l",
+                                          n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=1)
+    for mode in ("unified", "paged"):
+        outs = {}
+        for guards in (False, True):
+            eng = ServeEngine(model, EngineConfig(
+                **GEOMETRY, **MODES[mode], debug_guards=guards), device=DEV)
+            reqs = make_requests(spec, 8, 16, seed=3)
+            eng.serve(reqs)
+            outs[guards] = [r.output for r in reqs]
+        if outs[True] != outs[False]:
+            raise AssertionError(f"debug_guards {mode}: guarded outputs "
+                                 "differ from unguarded ones")
+        try:
+            with eng._step_guard():
+                eng.cache.lengths.sum().item()
+        except RuntimeError as e:
+            armed = str(e).splitlines()[0]
+        else:
+            raise AssertionError(f"debug_guards {mode}: .item() inside the "
+                                 "step guard did not raise")
+        recapture = []
+        for key in (sorted(eng._graphs.profiles)[0], "decode/foreign"):
+            try:
+                eng._graphs.capture(key)
+            except AssertionError as e:
+                if "recapture" not in str(e):
+                    raise
+                recapture.append(key)
+        if len(recapture) != 2:
+            raise AssertionError(f"debug_guards {mode}: binding again did "
+                                 f"not raise for {recapture}")
+        emit("debug_guards", model=spec.name, mode=mode,
+             requests=len(reqs), identical=True, steps=eng.steps,
+             captures=eng._graphs.captures, item_raised=armed,
+             recapture_raised=recapture)
+        del eng
     del model
     free(torch)
 
@@ -1366,6 +1527,7 @@ def main(argv: list[str]) -> int:
     del model
     free(torch)
     phase_serve_parity(torch, "minitron-8b")
+    phase_debug_guards(torch)
 
     spec, model, init_s = build_full(torch, "deepseek-moe-16b")
     serves.append(phase_serve_unified(torch, model, spec, init_s,

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -36,13 +37,24 @@ def rope_freqs(d_head: int, theta: float) -> np.ndarray:
                             / d_head))
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freqs(d_head: int, theta: float, device: torch.device
+               ) -> torch.Tensor:
+    """The (D/2,) f32 rotary frequencies on ``device``, uploaded once (from
+    pinned memory on the card: a step that reads them copies nothing from
+    the host, so it can be captured in a CUDA graph)."""
+    inv = torch.from_numpy(rope_freqs(d_head, theta).astype(np.float32))
+    if device.type == "cuda":
+        inv = inv.pin_memory()
+    return inv.to(device, non_blocking=True)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, D) rotated by half-split pairs in f32; positions:
     broadcastable to x.shape[:-2] ending in S."""
     d = x.shape[-1]
-    inv = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
-                          device=x.device)
+    inv = _inv_freqs(d, theta, x.device)
     ang = positions[..., None].float() * inv  # (..., S, D/2)
     sin = ang.sin()[..., None, :]  # broadcast over heads
     cos = ang.cos()[..., None, :]

@@ -9,8 +9,10 @@ steps (the port of ``repro.models.model``'s serving half).
     logits, cache = model.decode_step(cache, tokens)
 
 Every step writes K/V (or an RWKV layer's state) into the cache's tensors
-in place and returns a ``ModelCache`` holding the same layers and new
-lengths.
+in place.  ``unified_step`` and ``decode_step``, the steps the serving
+engine captures in CUDA graphs, also advance the cache's own ``lengths``
+tensor and return the cache they were given; the prefills return a
+``ModelCache`` holding the same layers and new lengths.
 """
 
 from __future__ import annotations
@@ -178,8 +180,8 @@ class Model(nn.Module):
         """Token-packed unified serving step.  ``tokens``/``positions``:
         (T,) packed; ``packed``: the segment table.  K/V of every packed
         token go straight into their pages.  Returns per-segment
-        last-position logits (S, V) and the cache (pools updated in place;
-        slot lengths advanced for the decode segments that ran)."""
+        last-position logits (S, V) and ``cache`` itself (pools updated in
+        place; slot lengths written in place for the slots that ran)."""
         x = self.embed[tokens.long()]
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
                           packed=packed, impl=self.kernel_impl)
@@ -188,25 +190,24 @@ class Model(nn.Module):
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
         logits = self._logits(x[last])
         b = cache.lengths.shape[0]
-        lengths = torch.where(packed.q_len[:b] > 0, packed.kv_len[:b],
-                              cache.lengths)
-        return logits, ModelCache(layers=cache.layers, lengths=lengths,
-                                  page_table=cache.page_table)
+        cache.lengths.copy_(torch.where(packed.q_len[:b] > 0,
+                                        packed.kv_len[:b], cache.lengths))
+        return logits, cache
 
     @torch.no_grad()
     def decode_step(self, cache: ModelCache, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, ModelCache]:
         """One autoregressive step for every slot: (B, 1) tokens at each
-        slot's ``cache.lengths`` -> (B, V) logits.  Every slot's length
-        advances, idle ones too, as in the reference (their writes clamp
-        inside their own row, or land on the null page)."""
+        slot's ``cache.lengths`` -> (B, V) logits and ``cache`` itself.
+        Every slot's length advances in place, idle ones too, as in the
+        reference (their writes clamp inside their own row, or land on the
+        null page)."""
         x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
                           cache.lengths[:, None], cache.layers,
                           lengths=cache.lengths, page_table=cache.page_table,
                           impl=self.kernel_impl)
-        return self._logits(x)[:, 0], ModelCache(
-            layers=cache.layers, lengths=cache.lengths + 1,
-            page_table=cache.page_table)
+        cache.lengths.add_(1)
+        return self._logits(x)[:, 0], cache
 
 
 def build_model(spec: ModelSpec, device: str | torch.device | None = None,

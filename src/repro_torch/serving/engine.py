@@ -35,12 +35,26 @@ The scheduler is pure Python over host mirrors (numpy), identical to the
 reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
 exactly where the reference counts them, so the port's step, preemption
 and dispatch counts equal the reference engine's for the same requests.
-Here a "dispatch" is one eager call (a forward, a sample, an insert or a
-row reset), not one compiled program.
+
+The steps whose shapes the geometry alone fixes run through
+:class:`~repro_torch.serving.step_graph.StepGraph`, as the reference jits
+them: the unified engine's two packed profiles and the two-dispatch
+decode.  On the card each is one CUDA-graph replay (captured at its first
+use), so there a "dispatch" of those steps is one replay; the two-dispatch
+prefill chunks (one width each), inserts and row resets stay eager, as
+the reference's ``_jit_prefill`` retraces per width.  Every tensor such a
+step reads or writes keeps one address for the engine's lifetime: the
+engine's one ``ModelCache``, the profiles' static inputs (uploaded with one
+non-blocking copy from pinned memory) and their static samples.  With
+``debug_guards`` the step runs under ``torch.cuda.set_sync_debug_mode(
+"error")`` (the engine's one device->host copy per dispatch exempt), a
+profile captured twice raises, and the paged layout's allocator is audited
+after every step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from collections import deque
@@ -52,9 +66,10 @@ import torch
 from ..device import resolve_device
 from ..models.attention import (AttnCache, PackedSegs, PagedAttnCache,
                                 paged_insert_rows)
-from ..models.model import Model, ModelCache
+from ..models.model import Model
 from .paging import PageAllocator
 from .sampling import SamplingConfig, sample_slots
+from .step_graph import Staged, StepGraph, sync_mode
 
 
 @dataclass
@@ -201,10 +216,13 @@ def _refuse(what: str, item: str) -> None:
 class ServeEngine:
     """The serving engine.  ``device`` defaults to the card (raises without
     one) and must be where ``model`` lives; ``seed`` seeds the engine's
-    generator for stochastic sampling."""
+    generator for stochastic sampling.  ``graphs=False`` runs the captured
+    steps eagerly on the same static tensors (the counterpart of
+    ``jax.disable_jit``; the CPU always does)."""
 
     def __init__(self, model: Model, config: EngineConfig, *,
-                 device: str | torch.device | None = None, seed: int = 0):
+                 device: str | torch.device | None = None, seed: int = 0,
+                 graphs: bool = True):
         if config.max_slots < 1:
             raise ValueError("EngineConfig.max_slots must be >= 1")
         if config.prefill_rows < 1:
@@ -234,8 +252,6 @@ class ServeEngine:
                     "item 7")
         if config.tp * config.pp > 1:
             _refuse(f"tp={config.tp} pp={config.pp}", "item 12")
-        if config.debug_guards:
-            _refuse("debug_guards=True", "item 5")
         self.unified = config.unified
         self.paged = config.cache_layout == "paged"
         if spec.attn.kind == "swa" and self.unified:
@@ -258,6 +274,7 @@ class ServeEngine:
                              f"{self.device}")
         self.model = model
         self.cfg = config
+        self.debug_guards = config.debug_guards
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._ids = itertools.count()
         self.queue: deque[Request] = deque()
@@ -314,16 +331,64 @@ class ServeEngine:
         self._topks = np.zeros((config.max_slots,), np.int32)
         self._topps = np.ones((config.max_slots,), np.float32)
         self._lengths = np.zeros((config.max_slots,), np.int64)
-        # two-dispatch device mirrors: the sampling parameters (change only
-        # on slot churn) and the next-token feed (the previous decode's
-        # samples, kept on the device); None = stale, upload from the host
-        self._dev_sampling = None
-        self._dev_tokens = None
+        # two-dispatch: the decode profile's feed and sampling parameters
+        # change on the host only on slot churn; between churns the feed is
+        # the previous decode's samples, which the step writes on the device
+        self._feed_stale = True
+
+        # the static-shape steps, one profile per key
+        self._graphs = StepGraph(self.device, self.generator, graphs=graphs)
+        nslots, mp = config.max_slots, self.max_pages
+        i32, f32 = torch.int32, torch.float32
+        if self.unified:
+            for key, t, s, max_q, n_dec, starts in (
+                    ("unified/mixed", self.t_pack, self.n_segs,
+                     config.chunk_size, nslots, self._seg_start_dev),
+                    ("unified/decode", nslots, nslots, 1, 0,
+                     self._seg_start_decode_dev)):
+                inputs = Staged({
+                    "tokens": ((t,), i32), "positions": ((t,), i32),
+                    "q_len": ((s,), i32), "kv_len": ((s,), i32),
+                    "seg_ptab": ((s, mp), i32), "temps": ((s,), f32),
+                    "topks": ((s,), i32), "topps": ((s,), f32)},
+                    self.device)
+                self._graphs.add(key, inputs, s, self._unified_fn(
+                    inputs.dev, starts, max_q=max_q, n_decode=n_dec))
+        else:
+            inputs = Staged({"feed": ((nslots, 1), i32),
+                             "temps": ((nslots,), f32),
+                             "topks": ((nslots,), i32),
+                             "topps": ((nslots,), f32)}, self.device)
+            self._decode_key = f"decode/{config.cache_layout}"
+            self._graphs.add(self._decode_key, inputs, nslots,
+                             self._decode_fn(inputs.dev))
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
-        """Host -> device copy of a packed-step input (always a copy: the
-        host mirrors keep changing after the upload)."""
-        return torch.tensor(x, device=self.device)
+        """Host -> device copy of an eager step's input (always a copy: the
+        host mirrors keep changing after the upload); on the card from
+        pinned memory, non-blocking, so that it never synchronises."""
+        if self.device.type == "cuda":
+            return torch.from_numpy(np.ascontiguousarray(x)).pin_memory().to(
+                self.device, non_blocking=True)
+        return torch.tensor(x)
+
+    def _pull(self, sampled: torch.Tensor) -> np.ndarray:
+        """The dispatch's one device->host copy: its sampled tokens.  The
+        debug guard exempts it, as the reference's transfer guard exempts
+        its explicit ``device_get``."""
+        with sync_mode(self.device, 0):
+            return sampled.to("cpu", copy=True).numpy()
+
+    # -- debug guards -----------------------------------------------------
+    def _step_guard(self):
+        """With ``debug_guards`` on a card engine, the step runs under
+        ``torch.cuda.set_sync_debug_mode("error")``: any synchronising call
+        (a ``.item()``, a pageable upload, a blocking copy) raises, except
+        :meth:`_pull` and a capture's own synchronisation.  A no-op on the
+        CPU."""
+        if self.debug_guards:
+            return sync_mode(self.device, "error")
+        return contextlib.nullcontext()
 
     # -- public API -------------------------------------------------------
     def submit(self, req: Request) -> int:
@@ -486,9 +551,7 @@ class ServeEngine:
         self._temps[slot] = req.sampling.temperature
         self._topks[slot] = req.sampling.top_k
         self._topps[slot] = req.sampling.top_p
-        # slot churn: the two-dispatch device mirrors are stale
-        self._dev_sampling = None
-        self._dev_tokens = None
+        self._feed_stale = True  # slot churn
 
     # -- two-dispatch device work -----------------------------------------
     def _reset_row(self, row: int) -> None:
@@ -497,7 +560,7 @@ class ServeEngine:
         for layer in self.scratch.layers:
             for t in _tensors(layer):
                 t[row].zero_()
-        self.scratch.lengths[row] = 0
+        self.scratch.lengths[row].zero_()
 
     def _prefill_masked(self, tokens: np.ndarray, rows: list[int]
                         ) -> torch.Tensor:
@@ -534,10 +597,9 @@ class ServeEngine:
         self.cache.page_table[slot] = pages_dev
 
     def _sync_page_table(self) -> None:
+        """Copy the host page table into the cache's one table tensor."""
         if self._ptab_dirty:
-            self.cache = ModelCache(layers=self.cache.layers,
-                                    lengths=self.cache.lengths,
-                                    page_table=self._up(self._ptab))
+            self.cache.page_table.copy_(self._up(self._ptab))
             self._ptab_dirty = False
 
     # -- two-dispatch prefill ---------------------------------------------
@@ -586,8 +648,9 @@ class ServeEngine:
             temps[row] = s.temperature
             topks[row] = s.top_k
             topps[row] = s.top_p
-        first = sample_slots(logits, self._up(temps), self._up(topks),
-                             self._up(topps), self.generator).cpu().numpy()
+        first = self._pull(sample_slots(logits, self._up(temps),
+                                        self._up(topks), self._up(topps),
+                                        self.generator))
         self.metrics.dispatches += 1
         self.metrics.transfers_d2h += 1
         now = time.perf_counter()
@@ -608,10 +671,23 @@ class ServeEngine:
             self._promote_prefill(row, int(first[row]), now, install)
 
     # -- two-dispatch decode ----------------------------------------------
+    def _decode_fn(self, inp: dict[str, torch.Tensor]):
+        """The decode profile's step: every slot's decode (lengths advance
+        in the cache's own tensor) and per-slot sampling; the samples are
+        written into the feed as the next step's tokens."""
+        def step() -> torch.Tensor:
+            logits, _ = self.model.decode_step(self.cache, inp["feed"])
+            sampled = sample_slots(logits, inp["temps"], inp["topks"],
+                                   inp["topps"], self.generator)
+            inp["feed"].copy_(sampled[:, None])
+            return sampled
+        return step
+
     def _decode_step(self) -> None:
-        """All slots: one decode step + per-slot sampling, one device->host
-        copy of the sampled tokens.  The samples stay on the device as the
-        next step's feed; only slot churn re-uploads the host mirror."""
+        """All slots: one decode step + per-slot sampling (one replay on the
+        card), one device->host copy of the sampled tokens.  The samples
+        stay on the device as the next step's feed; only slot churn
+        uploads the host mirrors."""
         if not self.active:
             return
         if self.paged:
@@ -619,17 +695,15 @@ class ServeEngine:
             self._sync_page_table()
             if not self.active:
                 return
-        if self._dev_sampling is None:
-            self._dev_sampling = (self._up(self._temps),
-                                  self._up(self._topks),
-                                  self._up(self._topps))
-        feed = self._dev_tokens
-        if feed is None:
-            feed = self._up(self._tokens)
-        logits, self.cache = self.model.decode_step(self.cache, feed)
-        sampled = sample_slots(logits, *self._dev_sampling, self.generator)
-        self._dev_tokens = sampled[:, None]
-        toks = sampled.cpu().numpy()
+        if self._feed_stale:
+            inputs = self._graphs.profiles[self._decode_key].inputs
+            inputs.host["feed"][:] = self._tokens
+            inputs.host["temps"][:] = self._temps
+            inputs.host["topks"][:] = self._topks
+            inputs.host["topps"][:] = self._topps
+            inputs.upload()
+            self._feed_stale = False
+        toks = self._pull(self._graphs.run(self._decode_key))
         self.metrics.decode_steps += 1
         self.metrics.dispatches += 1
         self.metrics.transfers_d2h += 1
@@ -645,47 +719,46 @@ class ServeEngine:
                 f"(max_pages={self.max_pages} x page_size="
                 f"{self.cfg.page_size})")
 
-    def _unified_and_sample(self, tokens, positions, q_start, q_len, kv_len,
-                            seg_ptab, temps, topks, topps, *, max_q: int,
-                            n_decode: int) -> torch.Tensor:
-        """The step's device work: packed forward (K/V straight to pages)
-        + per-segment sampling.  Returns the (S,) sampled tokens, still on
-        the device."""
-        packed = PackedSegs(q_start=q_start, q_len=q_len, kv_len=kv_len,
-                            page_table=seg_ptab, max_q=max_q,
-                            n_decode=n_decode)
-        logits, self.cache = self.model.unified_step(self.cache, tokens,
-                                                     positions, packed)
-        return sample_slots(logits, temps, topks, topps, self.generator)
+    def _unified_fn(self, inp: dict[str, torch.Tensor],
+                    seg_start: torch.Tensor, *, max_q: int, n_decode: int):
+        """A packed profile's step: the packed forward (K/V straight to
+        pages, slot lengths written in the cache's own tensor) and
+        per-segment sampling.  Returns the (S,) sampled tokens."""
+        packed = PackedSegs(q_start=seg_start, q_len=inp["q_len"],
+                            kv_len=inp["kv_len"], page_table=inp["seg_ptab"],
+                            max_q=max_q, n_decode=n_decode)
+
+        def step() -> torch.Tensor:
+            logits, _ = self.model.unified_step(self.cache, inp["tokens"],
+                                                inp["positions"], packed)
+            return sample_slots(logits, inp["temps"], inp["topks"],
+                                inp["topps"], self.generator)
+        return step
 
     def _unified_step(self) -> None:
         """One step: all active slots' decode tokens and all in-flight
         prompts' current chunks in the fixed ragged layout, one forward +
-        sample, one device->host copy of the sampled tokens."""
+        sample (one replay on the card), one device->host copy of the
+        sampled tokens."""
         self._grow_pages()
         if not (self.active or self._prefills):
             return
         nslots, csize = self.cfg.max_slots, self.cfg.chunk_size
-        mixed = bool(self._prefills)
-        n_segs, t_pack = (self.n_segs, self.t_pack) if mixed \
-            else (nslots, nslots)
-        tokens = np.zeros((t_pack,), np.int32)
-        tokens[:nslots] = self._tokens[:, 0]
-        positions = np.zeros((t_pack,), np.int32)
-        q_len = np.zeros((n_segs,), np.int32)
-        kv_len = np.zeros((n_segs,), np.int32)
-        seg_ptab = np.zeros((n_segs, self.max_pages), np.int32)
-        seg_ptab[:nslots] = self._ptab
-        temps = np.zeros((n_segs,), np.float32)
-        topks = np.zeros((n_segs,), np.int32)
-        topps = np.ones((n_segs,), np.float32)
-        temps[:nslots] = self._temps
-        topks[:nslots] = self._topks
-        topps[:nslots] = self._topps
+        key = "unified/mixed" if self._prefills else "unified/decode"
+        inputs = self._graphs.profiles[key].inputs
+        h = inputs.host
+        for a in h.values():
+            a.fill(0)
+        h["topps"].fill(1.0)
+        h["tokens"][:nslots] = self._tokens[:, 0]
+        h["seg_ptab"][:nslots] = self._ptab
+        h["temps"][:nslots] = self._temps
+        h["topks"][:nslots] = self._topks
+        h["topps"][:nslots] = self._topps
         for slot in self.active:
-            positions[slot] = self._lengths[slot]
-            q_len[slot] = 1
-            kv_len[slot] = self._lengths[slot] + 1
+            h["positions"][slot] = self._lengths[slot]
+            h["q_len"][slot] = 1
+            h["kv_len"][slot] = self._lengths[slot] + 1
         widths: dict[int, int] = {}
         for row, req in self._prefills.items():
             src = self._src(req)
@@ -693,26 +766,20 @@ class ServeEngine:
             lo = self._prefill_pos[row]
             w = min(csize, len(src) - lo)
             seg, qs = nslots + row, nslots + row * csize
-            tokens[qs:qs + w] = src[lo:lo + w]
-            positions[qs:qs + w] = np.arange(lo, lo + w)
-            q_len[seg] = w
-            kv_len[seg] = lo + w
-            seg_ptab[seg] = self._ptab_row(req.rid)
+            h["tokens"][qs:qs + w] = src[lo:lo + w]
+            h["positions"][qs:qs + w] = np.arange(lo, lo + w)
+            h["q_len"][seg] = w
+            h["kv_len"][seg] = lo + w
+            h["seg_ptab"][seg] = self._ptab_row(req.rid)
             widths[row] = w
             if lo + w >= len(src):  # completes: sample with its config
                 s = req.sampling
-                temps[seg] = s.temperature
-                topks[seg] = s.top_k
-                topps[seg] = s.top_p
-        seg_start = self._seg_start_dev if mixed \
-            else self._seg_start_decode_dev
-        sampled = self._unified_and_sample(
-            self._up(tokens), self._up(positions), seg_start,
-            self._up(q_len), self._up(kv_len), self._up(seg_ptab),
-            self._up(temps), self._up(topks), self._up(topps),
-            max_q=csize if mixed else 1, n_decode=nslots if mixed else 0)
+                h["temps"][seg] = s.temperature
+                h["topks"][seg] = s.top_k
+                h["topps"][seg] = s.top_p
+        inputs.upload()
         # the step's only device->host copy: the (S,) sampled tokens
-        toks = sampled.cpu().numpy()
+        toks = self._pull(self._graphs.run(key))
         self.metrics.dispatches += 1
         self.metrics.transfers_d2h += 1
         now = time.perf_counter()
@@ -744,14 +811,17 @@ class ServeEngine:
         self.steps += 1
         self.metrics.steps += 1
         self._admit()
-        if self.unified:
-            self._unified_step()
-        elif self.cfg.decode_priority:
-            self._decode_step()
-            self._prefill_step()
-        else:
-            self._prefill_step()
-            self._decode_step()
+        with self._step_guard():
+            if self.unified:
+                self._unified_step()
+            elif self.cfg.decode_priority:
+                self._decode_step()
+                self._prefill_step()
+            else:
+                self._prefill_step()
+                self._decode_step()
+        if self.debug_guards and self.paged:
+            self.pager.check()  # refcount / free-list invariant audit
         m = self.metrics
         m.end_t = time.perf_counter()
         m.occupancy_sum += len(self.active) / self.cfg.max_slots

@@ -58,18 +58,17 @@ def sample_slots(logits: torch.Tensor, temperature: torch.Tensor,
     greedy = logits.argmax(dim=-1).to(torch.int32)
 
     lf = logits.float() / temperature.float().clamp(min=1e-8)[:, None]
-    neg = torch.tensor(float("-inf"), device=lf.device)
     # top-k: kth-largest threshold per row (rows with top_k <= 0 keep all)
     desc = lf.sort(dim=-1, descending=True).values
     k_idx = (top_k.long() - 1).clamp(0, v - 1)
     kth = desc.gather(-1, k_idx[:, None])
-    lf = torch.where((top_k[:, None] > 0) & (lf < kth), neg, lf)
+    lf = lf.masked_fill((top_k[:, None] > 0) & (lf < kth), float("-inf"))
     # top-p (nucleus) over the top-k-filtered distribution
     desc = lf.sort(dim=-1, descending=True).values
     cum = torch.softmax(desc, dim=-1).cumsum(dim=-1)
     cutoff_idx = (cum < top_p[:, None]).sum(dim=-1).clamp(max=v - 1)
     cutoff = desc.gather(-1, cutoff_idx[:, None])
-    lf = torch.where((top_p[:, None] < 1.0) & (lf < cutoff), neg, lf)
+    lf = lf.masked_fill((top_p[:, None] < 1.0) & (lf < cutoff), float("-inf"))
 
     stochastic = _categorical(lf, generator)
     return torch.where(temperature <= 0.0, greedy, stochastic)

@@ -249,8 +249,7 @@ def _refusal(case: str) -> None:
     spec = get_reduced("mistral-7b-swa") if case == "swa-paged" else base
     cfg = {"swa-paged": _paged(unified=False),
            "prefix": _paged(prefix_cache=True), "spec": _paged(n_spec=2),
-           "tp": _paged(tp=2), "pp": _paged(pp=2),
-           "guards": _paged(debug_guards=True)}[case]
+           "tp": _paged(tp=2), "pp": _paged(pp=2)}[case]
     ServeEngine(build_model(spec, device="cpu", dtype=torch.float32), cfg,
                 device="cpu")
 
@@ -262,8 +261,7 @@ def _refusal(case: str) -> None:
     ("spec", "ROADMAP: queue 1, item 7"),
     ("tp", "ROADMAP: queue 1, item 12"),
     ("pp", "ROADMAP: queue 1, item 12"),
-    ("guards", "ROADMAP: queue 1, item 5"),
-], ids=["swa-paged", "kv-quant", "prefix", "spec", "tp", "pp", "guards"])
+], ids=["swa-paged", "kv-quant", "prefix", "spec", "tp", "pp"])
 def test_engine_refuses_unported_modes(case, match):
     with pytest.raises(NotImplementedError, match=match):
         _refusal(case)
