@@ -93,6 +93,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 short serve: device time by kernel class (a replay's
                 kernels keep their names), graph launches, the device's
                 busy share of the wall clock
+  serve_prefix  the same model on the unified replay engine, a seeded
+                multi-tenant, multi-turn trace (24 root requests of 3
+                tenants x 2 system prompts of 512-1024 tokens, 16-128
+                fresh tokens each, 16-32 new tokens, follow-up turns that
+                carry their whole history: 38 requests) replayed at its own
+                clock (time_scale 1) with the prefix cache off, on, and off
+                again, each engine warmed by one short request; in each replay
+                every request finishes, no profile is captured (a hit only
+                changes staged lengths and page-table rows), the ragged
+                launches equal n_layers x (2 x mixed + decode-only
+                forwards), d2h copies == steps and dispatches == steps +
+                copy-on-write forks, and the allocator and the radix tree
+                pass their audits; with the cache on it must hit and prefill
+                fewer tokens; a prefix_vs_off line gives prefill tokens,
+                TTFT, TPOT, tokens/s and host and device ms per step side
+                by side, and how many requests' outputs match token for
+                token, cache on against off and off against off, with each
+                divergence's position and, where the prompts were the same,
+                its top-2 logit gap (reported, not asserted: a replay
+                follows the trace's clock, so the batches a token shares
+                differ from run to run, and in bf16 at full width that can
+                move a near-tie)
   serve_two_dispatch
                 the same model and requests through the two-dispatch
                 engine, EngineConfig(cache_layout="paged", unified=False)
@@ -111,7 +133,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 engine through the kernels: greedy outputs token-identical
                 between kernel and plain, replay and eager, and across the
                 three modes, or diverging only at a genuine tie (top-2
-                logit gap < 1e-4)
+                logit gap < 1e-4); then, with the same exactness, the
+                prefix cache: page-aligned two-tenant requests submitted
+                together (two of them full hits that fork their tail page)
+                cache on against off, through the kernels and the plain
+                versions; a full hit's fork against its shared tail page
+                set to 1e9 in every layer after the fork; a 48-page pool
+                that must evict cached pages against the cache-off engine;
+                and the cache-on serve under debug_guards
   debug_guards  minitron-8b widths at 2 layers in bf16, the unified and the
                 paged two-dispatch replay engines with
                 EngineConfig(debug_guards=True): token-identical to the
@@ -956,6 +985,22 @@ def time_steps(torch, eng):
     return host, spans
 
 
+def warmed_engine(model, cfg, what, *, graphs=True):
+    """A ServeEngine for ``cfg`` that one short request has warmed (on a
+    replay engine it captured every step profile then), its metrics reset;
+    every profile must have been bound exactly once.  Returns the engine
+    and its capture counts."""
+    from repro_torch.serving import EngineMetrics, Request, ServeEngine
+    eng = ServeEngine(model, cfg, device=DEV, graphs=graphs)
+    eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    eng.metrics = EngineMetrics()
+    captures = dict(eng._graphs.captures)
+    if captures != dict.fromkeys(eng._graphs.profiles, 1):
+        raise AssertionError(f"{what}: profiles bound {captures}, expected "
+                             f"each of {sorted(eng._graphs.profiles)} once")
+    return eng, captures
+
+
 def serve_counted(torch, model, spec, mode, *, graphs=True):
     """Serve the 8 main-path requests through ``mode`` on an engine that one
     short request has warmed (on a replay engine it captured every step
@@ -963,16 +1008,9 @@ def serve_counted(torch, model, spec, mode, *, graphs=True):
     just after; every request must finish with MAX_NEW tokens in the
     vocabulary, and no profile may be captured during the serve.  Returns
     the engine, its stats and the outputs."""
-    from repro_torch.serving import (EngineConfig, EngineMetrics, Request,
-                                     ServeEngine)
+    from repro_torch.serving import EngineConfig
     cfg = EngineConfig(**GEOMETRY, **MODES[mode])
-    eng = ServeEngine(model, cfg, device=DEV, graphs=graphs)
-    eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
-    eng.metrics = EngineMetrics()
-    captures = dict(eng._graphs.captures)
-    if captures != dict.fromkeys(eng._graphs.profiles, 1):
-        raise AssertionError(f"{mode}: profiles bound {captures}, expected "
-                             f"each of {sorted(eng._graphs.profiles)} once")
+    eng, captures = warmed_engine(model, cfg, mode, graphs=graphs)
     host, spans = time_steps(torch, eng)
     reqs = make_requests(spec, 8, MAX_NEW, seed=0)
     torch.cuda.synchronize()
@@ -1135,6 +1173,153 @@ def draw_rwkv_mixes(torch, model, seed) -> None:
 def free(torch):
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# the multi-tenant, multi-turn trace serve_prefix replays (the generator's
+# defaults scaled to full-width prompts: system prompts of 512-1024 tokens,
+# follow-up turns carrying their whole history; the longest request stays
+# under max_seq)
+PREFIX_TRACE = dict(n_requests=24, seed=0, n_tenants=3,
+                    templates_per_tenant=2, template_tokens=(512, 1025),
+                    suffix_tokens=(16, 129), max_new_tokens=(16, 33),
+                    multi_turn_p=0.4, max_turns=3, rate_req_s=6.0,
+                    burst_factor=4.0, on_s=0.4, off_s=0.4, think_s=0.05)
+
+
+def replay_counted(torch, model, spec, trace, prefix_cache):
+    """Replay ``trace`` at time_scale 1 through the unified replay engine,
+    the prefix cache on or off, on an engine that one short request has
+    warmed (its profiles captured then), every kernel count set to 0 just
+    before and read just after.  Every request must finish with its
+    max_new_tokens in the vocabulary, no profile may be captured during the
+    replay, the ragged launches must equal n_layers x (2 x mixed + decode-
+    only forwards), all on the tensor-core route, and the accounting must be
+    the reference's: d2h copies == steps, dispatches == steps + copy-on-write
+    forks (0 with the cache off); the allocator and the tree pass their
+    audits.  Returns the engine, its stats and the requests."""
+    from repro_torch.serving import EngineConfig, replay
+    what = f"serve_prefix cache {'on' if prefix_cache else 'off'}"
+    eng, captures = warmed_engine(model, EngineConfig(
+        **GEOMETRY, **MODES["unified"], prefix_cache=prefix_cache), what)
+    host, spans = time_steps(torch, eng)
+    torch.cuda.synchronize()
+    gc.collect()
+    reset_launches()
+    summary, reqs = replay(eng, trace, time_scale=1.0)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    routes = read_routes()
+    if eng._graphs.captures != captures:
+        raise AssertionError(f"{what}: a profile was bound during the "
+                             f"replay: {eng._graphs.captures}")
+    for i, (r, t) in enumerate(zip(reqs, trace)):
+        if r.state != "done" or len(r.output) != t.max_new_tokens:
+            raise AssertionError(f"{what}: trace request {i} {r.state}, "
+                                 f"{len(r.output)} tokens")
+        if any(not 0 <= tok < spec.vocab for tok in r.output):
+            raise AssertionError(f"{what}: trace request {i}: token out of "
+                                 "range")
+    m = eng.metrics
+    if not (m.transfers_d2h == m.steps
+            and m.dispatches == m.steps + m.prefix_cow_forks):
+        raise AssertionError(f"{what}: {m.dispatches} dispatches, "
+                             f"{m.transfers_d2h} transfers, {m.steps} steps, "
+                             f"{m.prefix_cow_forks} forks")
+    mixed = m.prefill_calls
+    decode_only = m.transfers_d2h - mixed
+    n_ragged = spec.n_layers * (2 * mixed + decode_only)
+    _expect(what, counts, {"ragged_paged_attention": n_ragged})
+    _expect_tensor_cores(what, routes, "ragged_paged_attention", n_ragged)
+    if len(spans) != m.transfers_d2h:
+        raise AssertionError(f"{what}: {len(spans)} step-profile runs, "
+                             f"expected {m.transfers_d2h}")
+    eng.pager.check()
+    if prefix_cache:
+        eng.prefix.check()
+    e = summary.engine
+    stats = dict(prefix_cache=prefix_cache, requests=summary.n_requests,
+                 prompt_tokens=sum(len(r.prompt) for r in reqs),
+                 prefill_tokens=m.prefill_tokens,
+                 generated_tokens=m.generated_tokens, steps=m.steps,
+                 mixed_steps=mixed, decode_only_steps=decode_only,
+                 dispatches=m.dispatches, transfers_d2h=m.transfers_d2h,
+                 preemptions=m.preemptions, wall_s=summary.wall_s,
+                 tokens_per_s=summary.throughput_tok_s,
+                 ttft_s_mean=summary.ttft_mean_s,
+                 tpot_s_mean=summary.tpot_mean_s,
+                 ttft_s_p95=e["ttft_s_p95"], by_tenant=summary.by_tenant,
+                 host_ms_per_step=statistics.mean(host),
+                 device_ms_per_run=statistics.mean(a.elapsed_time(b)
+                                                   for a, b in spans),
+                 captures=captures, pages_in_use_peak=m.pages_in_use_peak,
+                 launches=counts, routes=routes,
+                 prefix={k: v for k, v in e.items()
+                         if k.startswith("prefix_")})
+    return eng, stats, reqs
+
+
+def _divergences(torch, model, a, b):
+    """Where the replays ``a`` and ``b`` (lists of requests) part: each
+    differing request's first differing position, whether its resolved
+    prompt was the same (a follow-up turn's prompt carries its parent's
+    output), and where it was, the top-2 logit gap there."""
+    out = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.output == y.output:
+            continue
+        j = next((k for k, (s, t) in enumerate(zip(x.output, y.output))
+                  if s != t), min(len(x.output), len(y.output)))
+        d = {"request": i, "position": j, "same_prompt": x.prompt == y.prompt}
+        if d["same_prompt"]:
+            top2 = _last_logits(torch, model,
+                                x.prompt + x.output[:j]).topk(2).values
+            d["top2_gap"] = float(top2[0] - top2[1])
+        out.append(d)
+    return out
+
+
+def phase_serve_prefix(torch, model, spec) -> list[dict]:
+    """The prefix cache on the main path: the multi-tenant trace replayed
+    through the unified replay engine with the cache off, on, and off again
+    (see ``replay_counted``); the cache must hit, skip prefill tokens and
+    cause no capture.  One line per replay, then one holding them against
+    each other: prefill tokens, TTFT, TPOT, tokens/s, host and device ms
+    per step, and how many requests' outputs match token for token, cache
+    on against off and off against off (the replays follow the trace's
+    clock, so the batches a token shares differ from run to run, and at
+    full width in bf16 that can move a near-tie; reported, not asserted:
+    the exact checks are serve_parity's, in f32).  Returns each replay's
+    kernel launch counts."""
+    from repro_torch.serving import TraceConfig, generate_trace
+    trace = generate_trace(TraceConfig(vocab=spec.vocab, **PREFIX_TRACE))
+    lines, reqs = [], []
+    for on in (False, True, False):
+        eng, stats, served = replay_counted(torch, model, spec, trace, on)
+        emit("serve_prefix", model=spec.name, trace=len(trace), **stats)
+        lines.append(stats)
+        reqs.append(served)
+        del eng
+        free(torch)
+    off, on = lines[0], lines[1]
+    p = on["prefix"]
+    if not (p["prefix_hits"] > 0 and p["prefix_cached_tokens"] > 0
+            and on["prefill_tokens"] < off["prefill_tokens"]):
+        raise AssertionError(f"serve_prefix: no saving: {p}, prefill tokens "
+                             f"{on['prefill_tokens']} on, "
+                             f"{off['prefill_tokens']} off")
+    keys = ("prefill_tokens", "tokens_per_s", "ttft_s_mean", "ttft_s_p95",
+            "tpot_s_mean", "host_ms_per_step", "device_ms_per_run", "steps",
+            "mixed_steps", "decode_only_steps")
+    on_off = _divergences(torch, model, reqs[1], reqs[0])
+    off_off = _divergences(torch, model, reqs[2], reqs[0])
+    emit("prefix_vs_off", model=spec.name, requests=len(trace),
+         identical=len(trace) - len(on_off), diverged=on_off,
+         identical_off_vs_off=len(trace) - len(off_off),
+         diverged_off_vs_off=off_off,
+         prefill_saved=1 - on["prefill_tokens"] / off["prefill_tokens"],
+         on={k: on[k] for k in keys}, off={k: off[k] for k in keys},
+         off_again={k: lines[2][k] for k in keys})
+    return [line["launches"] for line in lines]
 
 
 def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
@@ -1400,6 +1585,130 @@ def phase_serve_parity(torch, arch) -> None:
     free(torch)
 
 
+def _serve_prefix_engine(torch, model, reqs, **cfg):
+    """Serve ``reqs`` (submitted together) on a fresh unified replay engine
+    with ``cfg`` over GEOMETRY; returns the engine."""
+    from repro_torch.serving import EngineConfig, ServeEngine
+    eng = ServeEngine(model, EngineConfig(**{**GEOMETRY, **MODES["unified"],
+                                             **cfg}), device=DEV)
+    eng.serve(reqs)
+    if any(r.state != "done" for r in reqs):
+        raise AssertionError(f"prefix parity {cfg}: a request not done")
+    return eng
+
+
+def _prefix_requests(spec, seed):
+    """Page-aligned multi-tenant requests: two tenants, each a 256-token
+    template (16 pages) plus a fresh suffix of 20-100 tokens, alternating,
+    then each template alone (a full hit: its tail page forks)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    tmpl = [rng.integers(1, spec.vocab, size=256).tolist() for _ in range(2)]
+    prompts = [tmpl[i % 2] + rng.integers(
+        1, spec.vocab, size=int(rng.integers(20, 101))).tolist()
+        for i in range(8)] + tmpl
+    return [Request(prompt=list(p), max_new_tokens=16, tenant=f"t{i % 2}")
+            for i, p in enumerate(prompts)]
+
+
+def phase_prefix_parity(torch) -> None:
+    """The prefix cache at minitron-8b's widths, 2 layers, float32, on the
+    replay engine, exactly (only genuine ties, TIE_GAP, allowed): cache on
+    against cache off through the kernels and through the plain versions;
+    a full hit's forked tail page against its shared original poisoned with
+    1e9 in every layer after the fork; a pool too small to cache every
+    prompt (evictions) against the cache-off engine; and the cache-on serve
+    under debug_guards against the unguarded one."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+
+    spec = get_spec("minitron-8b").scaled(name="minitron-8b-2l", n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+    prompts = [r.prompt for r in _prefix_requests(spec, seed=4)]
+    outs, runs = {}, {}
+    for impl in ("kernel", "plain"):
+        model.kernel_impl = impl
+        for on in (False, True):
+            reqs = _prefix_requests(spec, seed=4)
+            m = _serve_prefix_engine(torch, model, reqs,
+                                     prefix_cache=on).metrics
+            outs[impl, on] = [r.output for r in reqs]
+            runs[f"{impl}/{'on' if on else 'off'}"] = dict(
+                prefill_tokens=m.prefill_tokens, hits=m.prefix_hits,
+                cached_tokens=m.prefix_cached_tokens,
+                cow_forks=m.prefix_cow_forks, dispatches=m.dispatches,
+                steps=m.steps)
+            if on and not (m.prefix_hits > 0 and m.prefix_cow_forks == 2
+                           and m.dispatches == m.steps + 2):
+                raise AssertionError(f"prefix parity {impl}: {runs}")
+    model.kernel_impl = "kernel"
+    pairs = [(f"{a[0]}/{'on' if a[1] else 'off'} vs "
+              f"{b[0]}/{'on' if b[1] else 'off'}", prompts, outs[a], outs[b])
+             for a, b in ((("kernel", True), ("kernel", False)),
+                          (("kernel", True), ("plain", True)),
+                          (("plain", True), ("plain", False)))]
+
+    # copy-on-write: the shared tail page poisoned after the fork
+    prompt = prompts[-1]  # a 16-page template alone
+    r1 = Request(prompt=list(prompt), max_new_tokens=16)
+    eng = _serve_prefix_engine(torch, model, [r1], prefix_cache=True)
+    shared, n_cached = eng.prefix.lookup(prompt)
+    r2 = Request(prompt=list(prompt), max_new_tokens=16)
+    eng.submit(r2)
+    eng.step()  # admission: the hit and the fork, then r2's one query
+    if not (n_cached == len(prompt) and eng.metrics.prefix_cow_forks == 1
+            and r2.n_cached == len(prompt) - 1
+            and shared[-1] not in eng.pager.owned(r2.rid)):
+        raise AssertionError(f"prefix parity: no fork ({n_cached} cached, "
+                             f"{eng.metrics.prefix_cow_forks} forks)")
+    for layer in eng.cache.layers:
+        layer.k[shared[-1]] = 1e9
+        layer.v[shared[-1]] = 1e9
+    while r2.state != "done":
+        eng.step()
+    pairs.append(("poisoned tail fork vs first", [prompt], [r2.output],
+                  [r1.output]))
+    del eng
+
+    # eviction under pressure: 48 pages of 16 cannot cache every prompt
+    tight_reqs = _prefix_requests(spec, seed=5)[:8]
+    tight = _serve_prefix_engine(torch, model, tight_reqs, prefix_cache=True,
+                                 n_pages=1 + 48)
+    tm = tight.metrics
+    if tm.prefix_evicted_pages <= 0:
+        raise AssertionError("prefix parity: no eviction under pressure")
+    tight.pager.check()
+    tight.prefix.check()
+    del tight
+    roomy = _prefix_requests(spec, seed=5)[:8]
+    _serve_prefix_engine(torch, model, roomy, prefix_cache=False)
+    pairs.append(("evicting on vs off", [r.prompt for r in roomy],
+                  [r.output for r in tight_reqs], [r.output for r in roomy]))
+
+    # debug_guards with the cache on: the same outputs, every audit passing
+    reqs = _prefix_requests(spec, seed=4)
+    guarded = _serve_prefix_engine(torch, model, reqs, prefix_cache=True,
+                                   debug_guards=True)
+    if [r.output for r in reqs] != outs["kernel", True]:
+        raise AssertionError("prefix parity: guarded outputs differ")
+    captures = guarded._graphs.captures
+    del guarded
+
+    model.kernel_impl = "plain"
+    comparisons = {what: {"identical": sum(x == y for x, y in zip(a, b)),
+                          "ties": _ties(torch, model, ps, a, b, what)}
+                   for what, ps, a, b in pairs}
+    emit("serve_parity", model=spec.name, dtype="float32",
+         prefix_cache=True, requests=len(prompts), runs=runs,
+         evicted_pages=tm.prefix_evicted_pages,
+         preemptions_tight=tm.preemptions, guarded_identical=True,
+         guarded_captures=captures, comparisons=comparisons)
+    del model
+    free(torch)
+
+
 def phase_debug_guards(torch) -> None:
     """``debug_guards`` on the card, at minitron-8b's widths and 2 layers in
     bf16, in the unified and the paged two-dispatch replay engines: a
@@ -1523,10 +1832,12 @@ def main(argv: list[str]) -> int:
     spec, model, init_s = build_full(torch, "minitron-8b")
     serves.append(phase_serve_unified(torch, model, spec, init_s,
                                       "serve_full"))
+    serves += phase_serve_prefix(torch, model, spec)
     serves += phase_serve_two_dispatch(torch, model, spec)
     del model
     free(torch)
     phase_serve_parity(torch, "minitron-8b")
+    phase_prefix_parity(torch)
     phase_debug_guards(torch)
 
     spec, model, init_s = build_full(torch, "deepseek-moe-16b")

@@ -5,6 +5,8 @@
         --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --layout dense --two-dispatch
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch rwkv6-3b --layout paged --two-dispatch
@@ -15,7 +17,11 @@ unified=True)``; ``--two-dispatch`` selects the two-dispatch engine in the
 ``--layout`` given (``dense`` is the only layout that serves
 sliding-window models; the attention-free rwkv6-3b needs
 ``--two-dispatch``: the engine refuses it in the unified step, as the
-reference does).  The reduced config by default; ``--full`` serves the
+reference does).  ``--prefix-cache`` turns on the radix-tree prefix cache
+(unified engine only; with ``--two-dispatch`` the engine raises
+``ValueError``, as the reference's does) and gives every request one
+shared 64-token system prompt ahead of its own tokens, so that later
+requests hit the cache.  The reduced config by default; ``--full`` serves the
 published width.  Runs on the card unless ``--device cpu`` is given
 (the CPU serves in float32).  Prints per-request outputs and the engine's
 metrics.
@@ -53,6 +59,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--two-dispatch", action="store_true",
                     help="separate prefill and decode dispatches (default: "
                          "the unified token-packed step)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share KV pages of common prompt prefixes "
+                         "(unified engine only)")
     ap.add_argument("--temperature", type=float, default=0.0)
     args = ap.parse_args(argv)
 
@@ -63,13 +72,15 @@ def main(argv: list[str] | None = None) -> None:
     model = build_model(spec, device=dev, dtype=dtype, seed=0)
     eng = ServeEngine(model, EngineConfig(
         max_slots=args.slots, chunk_size=args.chunk, max_seq=args.max_seq,
-        cache_layout=args.layout, unified=not args.two_dispatch),
-        device=dev, seed=0)
+        cache_layout=args.layout, unified=not args.two_dispatch,
+        prefix_cache=args.prefix_cache), device=dev, seed=0)
 
     rng = np.random.default_rng(0)
-    reqs = [Request(prompt=rng.integers(0, spec.vocab,
-                                        size=int(rng.integers(16, 257))
-                                        ).tolist(),
+    system = (rng.integers(0, spec.vocab, size=64).tolist()
+              if args.prefix_cache else [])
+    reqs = [Request(prompt=system + rng.integers(
+                        0, spec.vocab, size=int(rng.integers(16, 257))
+                        ).tolist(),
                     max_new_tokens=args.max_new,
                     sampling=SamplingConfig(temperature=args.temperature,
                                             top_k=40))

@@ -1,10 +1,17 @@
-"""Serving substrate of the port: the unified paged engine, its page
-allocator and sampling."""
+"""Serving substrate of the port: the continuous-batching engine, its page
+allocator, the radix-tree prefix cache, the trace-replay workload
+generator and sampling."""
 
 from .engine import EngineConfig, EngineMetrics, Request, ServeEngine
 from .paging import PageAllocator, pages_for
+from .prefix_cache import PrefixCache, PrefixCacheStats
 from .sampling import SamplingConfig, sample, sample_slots
+from .workload import (ReplaySummary, TraceConfig, TraceRequest,
+                       generate_trace, replay, smoke_config, trace_from_json,
+                       trace_to_json)
 
 __all__ = ["EngineConfig", "EngineMetrics", "Request", "ServeEngine",
-           "PageAllocator", "pages_for", "SamplingConfig", "sample",
-           "sample_slots"]
+           "PageAllocator", "pages_for", "PrefixCache", "PrefixCacheStats",
+           "SamplingConfig", "sample", "sample_slots",
+           "TraceConfig", "TraceRequest", "ReplaySummary", "generate_trace",
+           "replay", "smoke_config", "trace_from_json", "trace_to_json"]

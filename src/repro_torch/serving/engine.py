@@ -31,6 +31,16 @@ In the paged layout pages are allocated on append and freed on finish;
 when the pool runs dry the youngest active request is preempted back to
 the queue (recompute-style, so greedy outputs are unchanged).
 
+With ``prefix_cache=True`` (unified only, as the reference) the unified
+engine shares KV pages across requests through the radix tree of
+:mod:`.prefix_cache`: an admitted request maps its longest cached
+page-prefix read-only and prefills only the rest; a full hit forks its
+tail page copy-on-write (one eager page copy, outside the captured step);
+finished prefills and released requests insert their full pages; the
+pool evicts cold cached pages before it preempts.  A hit changes only the
+host-side lengths, positions and page-table rows the step stages, so it
+never causes a capture.
+
 The scheduler is pure Python over host mirrors (numpy), identical to the
 reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
 exactly where the reference counts them, so the port's step, preemption
@@ -68,6 +78,7 @@ from ..models.attention import (AttnCache, PackedSegs, PagedAttnCache,
                                 paged_insert_rows)
 from ..models.model import Model
 from .paging import PageAllocator
+from .prefix_cache import PrefixCache
 from .sampling import SamplingConfig, sample_slots
 from .step_graph import Staged, StepGraph, sync_mode
 
@@ -85,7 +96,7 @@ class Request:
     output: list[int] = field(default_factory=list)
     state: str = "queued"  # queued | prefill | decode | done
     slot: int = -1
-    n_cached: int = 0  # prompt tokens served from shared pages (always 0)
+    n_cached: int = 0  # prompt tokens served from shared prefix-cache pages
     ttft_steps: int = 0
     tpot_steps: int = 0
     submit_t: float = 0.0  # wall-clock timestamps (perf_counter)
@@ -148,6 +159,24 @@ class EngineMetrics:
     preemptions: int = 0
     capacity_stops: int = 0
     pages_in_use_peak: int = 0
+    # -- prefix-cache counters (mirrors of PrefixCacheStats + engine-side) --
+    prefix_lookups: int = 0
+    prefix_hits: int = 0  # admissions whose source matched >= 1 cached page
+    prefix_lookup_tokens: int = 0
+    prefix_hit_tokens: int = 0  # tokens matched at admission
+    prefix_cached_tokens: int = 0  # prefill tokens actually skipped
+    prefix_cow_forks: int = 0  # full-hit tail pages forked copy-on-write
+    prefix_inserted_pages: int = 0
+    prefix_evicted_pages: int = 0
+    prefix_shared_pages_peak: int = 0  # peak pages mapped by > 1 holder
+    #: tenant -> [hit_tokens, lookup_tokens] (per-tenant hit attribution)
+    prefix_by_tenant: dict = field(default_factory=dict)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Token-weighted admission-time hit rate."""
+        return (self.prefix_hit_tokens / self.prefix_lookup_tokens
+                if self.prefix_lookup_tokens else 0.0)
 
     @property
     def wall_s(self) -> float:
@@ -189,6 +218,22 @@ class EngineMetrics:
             "pages_in_use_peak": self.pages_in_use_peak,
             "kv_used_tokens_peak": self.kv_used_tokens_peak,
         }
+        if self.prefix_lookups:  # keep cache-off summaries unchanged
+            out.update(
+                prefix_hit_rate=self.prefix_hit_rate,
+                prefix_lookups=self.prefix_lookups,
+                prefix_hits=self.prefix_hits,
+                prefix_hit_tokens=self.prefix_hit_tokens,
+                prefix_lookup_tokens=self.prefix_lookup_tokens,
+                prefix_cached_tokens=self.prefix_cached_tokens,
+                prefix_cow_forks=self.prefix_cow_forks,
+                prefix_inserted_pages=self.prefix_inserted_pages,
+                prefix_evicted_pages=self.prefix_evicted_pages,
+                prefix_shared_pages_peak=self.prefix_shared_pages_peak,
+                prefix_by_tenant={t: {"hit_tokens": h, "lookup_tokens": n,
+                                      "hit_rate": h / n if n else 0.0}
+                                  for t, (h, n)
+                                  in sorted(self.prefix_by_tenant.items())})
         done = [r for r in (requests or []) if r.state == "done"]
         if done:
             ttfts = sorted(r.ttft_s for r in done)
@@ -245,8 +290,11 @@ class ServeEngine:
                 "unified=True supports attention-only stacks; "
                 f"{spec.name!r} has SSM layers whose sequential state has "
                 "no packed-segment forward")
-        if config.prefix_cache:
-            _refuse("prefix_cache=True", "item 6")
+        if config.prefix_cache and not config.unified:
+            raise ValueError(
+                "prefix_cache=True requires unified=True: shared pages are "
+                "read in place by the packed step's ragged attention; the "
+                "dense-scratch prefill path cannot map them")
         if config.n_spec:
             _refuse(f"speculative decoding (n_spec={config.n_spec})",
                     "item 7")
@@ -303,6 +351,12 @@ class ServeEngine:
         else:
             self.cache = model.init_cache(config.max_slots, config.max_seq,
                                           layout="dense")
+        # radix-tree prefix cache: shares pages across requests through the
+        # refcounted allocator; `_attached` tracks which queued/admitted
+        # rids already hold their shared-prefix references
+        self.prefix = PrefixCache(self.pager) if config.prefix_cache \
+            else None
+        self._attached: set[int] = set()
         # two-dispatch prefill runs on dense scratch rows (the unified step
         # writes prefill K/V straight into pages and has none)
         self.scratch = None if self.unified else model.init_cache(
@@ -404,6 +458,11 @@ class ServeEngine:
                     f"{limit} pages = {cap} tokens (max_pages="
                     f"{self.max_pages} x page_size={self.cfg.page_size}, "
                     f"usable pool={self.pager.usable_pages})")
+        if self.prefix is not None:
+            # submit-time lookup: a read-only peek recorded in the cache's
+            # own stats (what was cached at arrival); the engine counts its
+            # hits at admission, where shared pages are actually mapped
+            self.prefix.lookup(req.prompt)
         req.state = "queued"
         req.submit_t = time.perf_counter()
         self.queue.append(req)
@@ -425,9 +484,12 @@ class ServeEngine:
                and len(self.active) + len(self._prefills)
                < self.cfg.max_slots):
             req = self.queue[0]
-            if self.paged and not self.pager.ensure(req.rid,
-                                                    len(self._src(req)) + 1):
-                break  # pool dry: wait for frees (decode keeps running)
+            if self.paged:
+                if self.prefix is not None and req.rid not in self._attached:
+                    self._prefix_attach(req)
+                if not self._ensure_or_evict(req.rid,
+                                             len(self._src(req)) + 1):
+                    break  # pool dry: wait for frees (decode keeps running)
             self.queue.popleft()
             row = self._free_rows.pop()
             self._prefills[row] = req
@@ -436,6 +498,77 @@ class ServeEngine:
             if not self.unified:
                 self._reset_row(row)
                 self.metrics.dispatches += 1
+
+    # -- prefix cache -----------------------------------------------------
+    def _prefix_attach(self, req: Request) -> None:
+        """Map the longest cached page-prefix of the request's source tokens
+        read-only into its page list (one refcount per page, charged nothing
+        else).  On a full hit the tail page would be written by the
+        recomputed last token (its logits are needed to sample), so that
+        page is forked copy-on-write: a fresh page, charged to the request,
+        gets a device copy of the shared one and replaces it in the
+        request's list; the shared original is never written."""
+        src = self._src(req)
+        self._attached.add(req.rid)
+        pages = self.prefix.acquire(req.rid, src)
+        n_cached = len(pages) * self.cfg.page_size
+        m = self.metrics
+        m.prefix_lookups += 1
+        m.prefix_hits += bool(pages)
+        m.prefix_lookup_tokens += len(src)
+        m.prefix_hit_tokens += min(n_cached, len(src))
+        tally = m.prefix_by_tenant.setdefault(req.tenant or "-", [0, 0])
+        tally[0] += min(n_cached, len(src))
+        tally[1] += len(src)
+        if pages and n_cached >= len(src):
+            shared_tail = pages[-1]
+            self.pager.release_one(req.rid, shared_tail)
+            if self.pager.ensure(req.rid, n_cached):  # one fresh fork page
+                self._copy_page(shared_tail, self.pager.owned(req.rid)[-1])
+                m.dispatches += 1
+                m.prefix_cow_forks += 1
+                n_cached = len(src) - 1
+            else:  # pool too tight to fork: cache one page less instead
+                n_cached -= self.cfg.page_size
+        req.n_cached = min(n_cached, max(len(src) - 1, 0))
+        m.prefix_cached_tokens += req.n_cached
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write fork: page ``src`` into page ``dst`` in every
+        layer's pools (page axis first).  Python-int ids: an eager
+        device-to-device copy on the current stream, which orders it before
+        the next step's reads and never synchronises."""
+        for layer in self.cache.layers:
+            for t in _tensors(layer):
+                t[dst].copy_(t[src])
+
+    def _prefix_insert(self, req: Request, processed: int) -> None:
+        """Register every full page of the request's ``processed`` tokens in
+        the radix tree (pages matched at attach time are already there:
+        first writer wins).  Called on prefill completion and again when
+        the request leaves its slot (finish or preemption), so decoded turns
+        become hittable history for multi-turn continuations."""
+        ps = self.cfg.page_size
+        n_full = (processed // ps) * ps
+        if n_full:
+            self.metrics.prefix_inserted_pages += self.prefix.insert(
+                self._src(req)[:n_full], self.pager.owned(req.rid))
+
+    def _ensure_or_evict(self, rid: int, n_tokens: int) -> bool:
+        """``pager.ensure`` that evicts cold prefix-cache entries (LRU
+        refcount-1 leaves) before reporting shortage: clean frees beat
+        preempting a live request."""
+        if self.pager.ensure(rid, n_tokens):
+            return True
+        if self.prefix is not None:
+            short = (self.pager.pages_for(n_tokens)
+                     - len(self.pager.owned(rid)) - self.pager.free_pages)
+            if short > 0:
+                freed = self.prefix.evict(short)
+                self.metrics.prefix_evicted_pages += freed
+                if freed >= short:
+                    return self.pager.ensure(rid, n_tokens)
+        return False
 
     def _ptab_row(self, rid: int) -> np.ndarray:
         """One (max_pages,) page-table row of ``rid``'s pages, in token
@@ -451,6 +584,12 @@ class ServeEngine:
         now idle decode row writes somewhere harmless."""
         self.free_slots.append(slot)
         if self.paged:
+            if self.prefix is not None:
+                # full pages of what the request processed stay hittable
+                # (multi-turn history, cheap resumption after preemption):
+                # the cache's refcounts keep them alive past the release
+                self._prefix_insert(req, int(self._lengths[slot]))
+                self._attached.discard(req.rid)
             self.pager.release(req.rid)
             self._ptab[slot] = 0
             self._ptab_dirty = True
@@ -476,7 +615,7 @@ class ServeEngine:
             if req is None:
                 continue
             need = int(self._lengths[slot]) + 1
-            while not self.pager.ensure(req.rid, need):
+            while not self._ensure_or_evict(req.rid, need):
                 victims = [s for s, r in self.active.items()
                            if r.rid != req.rid]
                 if not victims:
@@ -538,6 +677,10 @@ class ServeEngine:
         install(req, slot, row)
         self._free_rows.append(row)
         self._lengths[slot] = src_len
+        if self.prefix is not None:
+            # every full page of the prompt becomes hittable while this
+            # request is still decoding
+            self._prefix_insert(req, src_len)
         if (len(req.output) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id)):
             req.state = "done"
@@ -822,6 +965,8 @@ class ServeEngine:
                 self._decode_step()
         if self.debug_guards and self.paged:
             self.pager.check()  # refcount / free-list invariant audit
+            if self.prefix is not None:
+                self.prefix.check()
         m = self.metrics
         m.end_t = time.perf_counter()
         m.occupancy_sum += len(self.active) / self.cfg.max_slots
@@ -835,6 +980,9 @@ class ServeEngine:
             cap_tokens = self.pager.usable_pages * self.cfg.page_size
             m.pages_in_use_peak = max(m.pages_in_use_peak,
                                       self.pager.pages_in_use)
+            if self.prefix is not None:
+                m.prefix_shared_pages_peak = max(m.prefix_shared_pages_peak,
+                                                 self.pager.shared_pages)
         else:
             cap_tokens = self.cfg.max_slots * self.cfg.max_seq
         m.kv_util_sum += used / cap_tokens

@@ -22,9 +22,8 @@ Page id 0 is the **null page**: never allocated, it backs every unused
 page-table entry so freed/garbage decode slots write their junk somewhere
 harmless and gathers never index out of bounds.
 
-Pages are **refcounted** so a prefix cache (the reference's
-``repro.serving.prefix_cache``; not ported yet) can map
-one physical page into many requests' page tables: ``ensure`` allocates
+Pages are **refcounted** so the prefix cache (:mod:`.prefix_cache`) can
+map one physical page into many requests' page tables: ``ensure`` allocates
 fresh pages at refcount 1, ``acquire`` adds a holder to live pages, and
 ``release`` drops one holder per page — a page returns to the free list
 only when its last holder lets go.  Engines that never share pages see the

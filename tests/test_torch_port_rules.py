@@ -241,29 +241,33 @@ def _paged(**kw):
 
 
 def _refusal(case: str) -> None:
-    """Construct what ``case`` names; each must raise NotImplementedError."""
+    """Construct what ``case`` names; each must raise."""
     base = get_reduced("minitron-8b")
     if case == "kv-quant":
         build_model(base, device="cpu", dtype=torch.float32, kv_quant=True)
         return
     spec = get_reduced("mistral-7b-swa") if case == "swa-paged" else base
     cfg = {"swa-paged": _paged(unified=False),
-           "prefix": _paged(prefix_cache=True), "spec": _paged(n_spec=2),
+           "prefix": _paged(prefix_cache=True, unified=False),
+           "spec": _paged(n_spec=2),
            "tp": _paged(tp=2), "pp": _paged(pp=2)}[case]
     ServeEngine(build_model(spec, device="cpu", dtype=torch.float32), cfg,
                 device="cpu")
 
 
-@pytest.mark.parametrize("case,match", [
-    ("swa-paged", "ROADMAP: section 3"),
-    ("kv-quant", "ROADMAP: queue 1, item 3"),
-    ("prefix", "ROADMAP: queue 1, item 6"),
-    ("spec", "ROADMAP: queue 1, item 7"),
-    ("tp", "ROADMAP: queue 1, item 12"),
-    ("pp", "ROADMAP: queue 1, item 12"),
+# an unported mode raises NotImplementedError naming its roadmap item; the
+# prefix cache, ported, is refused on the two-dispatch engine with the
+# reference's ValueError
+@pytest.mark.parametrize("case,exc,match", [
+    ("swa-paged", NotImplementedError, "ROADMAP: section 3"),
+    ("kv-quant", NotImplementedError, "ROADMAP: queue 1, item 3"),
+    ("prefix", ValueError, "prefix_cache=True requires unified=True"),
+    ("spec", NotImplementedError, "ROADMAP: queue 1, item 7"),
+    ("tp", NotImplementedError, "ROADMAP: queue 1, item 12"),
+    ("pp", NotImplementedError, "ROADMAP: queue 1, item 12"),
 ], ids=["swa-paged", "kv-quant", "prefix", "spec", "tp", "pp"])
-def test_engine_refuses_unported_modes(case, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_engine_refuses_unported_modes(case, exc, match):
+    with pytest.raises(exc, match=match):
         _refusal(case)
 
 
