@@ -23,7 +23,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 scaled_dot_product_attention; expert GEMM: torch.bmm):
                   ragged       decode (8 slots, kv_len 1..2048), prefill
                                (max_q=128), idle rows; decode and prefill
-                               again at deepseek's G=1; untimed, the edges
+                               again at deepseek's G=1; the speculative
+                               verify's windows, 8 of K+1 queries at G=4
+                               (verify_k3, verify_k4; kv_len 100..2048);
+                               untimed, the draft catch-up's 8 segments of
+                               1 or 2 queries, and the edges
                                of the paged tensor-core walk: page sizes 8
                                and 128, prefill segments packed back to
                                back, D=64 at G=3, D=16, kv_len off the
@@ -115,6 +119,31 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 follows the trace's clock, so the batches a token shares
                 differ from run to run, and in bf16 at full width that can
                 move a near-tie)
+  serve_spec    the same model and the 8 requests of serve_full through the
+                unified engine with speculative decoding, K = 4 (the
+                reference bench's default): spec off (replay), a self-draft
+                (draft_model=model, its own mirrored KV pool; eager, then
+                replay, and an eager_vs_replay line), and a perturbed
+                full-width draft, the target's weights times (1 + 0.04
+                N(0, 1)) from a seed (replay); each round (draft catch-up,
+                K-1 proposals, target verify, accept/reject, first-token
+                samples) one replay and one d2h copy; in each run every
+                request finishes, dispatches == d2h copies == steps, one
+                capture per profile, the ragged launches exactly L_t (2 m +
+                d) + L_d ((K+1) m + K d) for m mixed and d decode-only
+                rounds, all on the tensor-core route, every other kernel 0;
+                each line gives tokens/s, TTFT, TPOT, host and device ms per
+                step, the acceptance rate, tokens per round, bonus windows,
+                captures, capture seconds, graph-pool MB and peak memory;
+                a spec_rejections line gives, for each window a draft
+                rejected, the target's top-2 logit gap where the window
+                committed the target's token: every self-draft one must be
+                under SPEC_BF16_TIE_GAP (bf16 noise between the draft's and
+                the verify's batch shapes; the perturbed draft's are
+                recorded); a spec_vs_off line per draft gives outputs
+                identical to spec off, each parting's position and top-2 gap
+                (recorded, not required, in bf16) and the peak memory over
+                spec off
   serve_two_dispatch
                 the same model and requests through the two-dispatch
                 engine, EngineConfig(cache_layout="paged", unified=False)
@@ -141,6 +170,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 set to 1e9 in every layer after the fork; a 48-page pool
                 that must evict cached pages against the cache-off engine;
                 and the cache-on serve under debug_guards
+  spec_parity   speculative decoding at minitron-8b widths, 2 layers,
+                float32, K = 4, exact up to TIE_GAP: self-draft and
+                perturbed draft against spec off, through the kernels and
+                the plain versions; the self-draft's acceptance 1.0 (each
+                rejected window must sit at a tie, reported); the perturbed
+                draft's strictly between 0 and 1; a 32-page pool that
+                preempts (8 requests of 64-192 prompt tokens and 48 new
+                ones) against spec off in the default pool; a prefix-cache
+                full hit's fork with the shared original set to 1e9 in both
+                pools, against cache off; the batch-1 SpeculativeDecoder
+                at temperature 0 (flash on its dense caches; its
+                temperature floor of 1e-4 makes it greedy beyond a top-2
+                gap of 2e-3) against the engine's greedy outputs; the spec
+                engine under debug_guards
   debug_guards  minitron-8b widths at 2 layers in bf16, the unified and the
                 paged two-dispatch replay engines with
                 EngineConfig(debug_guards=True): token-identical to the
@@ -156,6 +199,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 mixed steps + decode-only steps); then serve_profile of the
                 replay engine
   serve_parity  again at deepseek-moe-16b widths, 2 layers, float32
+  spec_parity   again at deepseek-moe-16b widths, 2 layers, float32
   serve_rwkv    rwkv6-3b at its published width (32 RWKV-6 layers, random
                 bf16 weights drawn on the card from a seed, the token-shift
                 mixes and the bonus drawn non-zero) through the dense and
@@ -197,6 +241,17 @@ F32_ATOL = 1e-4  # kernel vs plain, float32: f32 sums in different orders
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL = 2e-2
 TIE_GAP = 1e-4  # serve_parity: a divergence is a tie below this gap
+# the batch-1 SpeculativeDecoder samples at a temperature of at least 1e-4
+# (as the reference's does): there a runner-up within 20 x 1e-4 of the top
+# logit keeps a probability above e^-20 and may be drawn, so the decoder
+# is greedy only beyond that gap
+DECODER_TIE_GAP = 20 * 1e-4
+# serve_spec, bf16 at full width: the self-draft runs the target's weights
+# at other batch shapes than the verify, so the two round apart by bf16
+# noise; a self-draft rejection must sit where the target's top-2 logit gap
+# is within that noise.  The bound sits above the widest gap at which a
+# full-width bf16 spec round and spec off were seen to part (0.094, H100)
+SPEC_BF16_TIE_GAP = 0.125
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores, published
@@ -262,8 +317,19 @@ PROFILES.update({
     "long_pool": dict(max_q=1, segs=[(1, 4096), (1, 2113)], max_pages=256),
     "d72_cuda_core": dict(max_q=16, segs=_EDGE_SEGS, hq=8, hkv=2, d=72),
 })
-TIMED = ("decode", "prefill", "deepseek_decode",
-         "deepseek_prefill")  # profiles the main paths launch
+# the speculative round's ragged sub-batches at minitron-8b's heads (G = 4),
+# kv_len spread over 100-2048: the target verify's 8 windows of K+1
+# queries (K = 3: 16 rows, one 16-row block; K = 4, serve_spec's: 20 rows,
+# one 64-row block) and, untimed, the draft catch-up's 8 segments of 1 or 2
+SPEC_KV = [100, 257, 511, 777, 1024, 1300, 1700, 2048]
+PROFILES.update({
+    "verify_k3": dict(max_q=4, segs=[(4, kl) for kl in SPEC_KV]),
+    "verify_k4": dict(max_q=5, segs=[(5, kl) for kl in SPEC_KV]),
+    "catch_up": dict(max_q=2, segs=[(1 + i % 2, kl)
+                                    for i, kl in enumerate(SPEC_KV)]),
+})
+TIMED = ("decode", "prefill", "deepseek_decode", "deepseek_prefill",
+         "verify_k3", "verify_k4")  # profiles the main paths launch
 
 # paged decode: the same 8 slots, lengths counting the token just written;
 # untimed, the same edges as the ragged kernel's
@@ -985,13 +1051,34 @@ def time_steps(torch, eng):
     return host, spans
 
 
-def warmed_engine(model, cfg, what, *, graphs=True):
-    """A ServeEngine for ``cfg`` that one short request has warmed (on a
-    replay engine it captured every step profile then), its metrics reset;
-    every profile must have been bound exactly once.  Returns the engine
-    and its capture counts."""
+def record_rejections(eng):
+    """Record, as ``eng`` commits each speculative round, where each
+    rejected window put the target's own token: per request (in the order
+    served), the output index of that token.  A window cut short by the
+    request's max_new_tokens before that index records nothing."""
+    rejected = {}
+    finish = eng._finish_spec_slots
+
+    def recorded(out_toks, n_emit, win, now):
+        for slot, req in eng.active.items():
+            w, e = int(win[slot]), int(n_emit[slot])
+            j = len(req.output) + e - 1
+            if e < w and j < req.max_new_tokens:
+                rejected.setdefault(req.rid, []).append(j)
+        finish(out_toks, n_emit, win, now)
+    eng._finish_spec_slots = recorded
+    return rejected
+
+
+def warmed_engine(model, cfg, what, *, graphs=True, draft=None):
+    """A ServeEngine for ``cfg`` (speculating with ``draft`` when
+    ``cfg.n_spec``) that one short request has warmed (on a replay engine
+    it captured every step profile then), its metrics reset; every profile
+    must have been bound exactly once.  Returns the engine and its capture
+    counts."""
     from repro_torch.serving import EngineMetrics, Request, ServeEngine
-    eng = ServeEngine(model, cfg, device=DEV, graphs=graphs)
+    eng = ServeEngine(model, cfg, device=DEV, graphs=graphs,
+                      draft_model=draft)
     eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
     eng.metrics = EngineMetrics()
     captures = dict(eng._graphs.captures)
@@ -1001,17 +1088,21 @@ def warmed_engine(model, cfg, what, *, graphs=True):
     return eng, captures
 
 
-def serve_counted(torch, model, spec, mode, *, graphs=True):
-    """Serve the 8 main-path requests through ``mode`` on an engine that one
-    short request has warmed (on a replay engine it captured every step
-    profile then), with every kernel count set to 0 just before and read
-    just after; every request must finish with MAX_NEW tokens in the
+def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
+                  draft=None):
+    """Serve the 8 main-path requests through ``mode`` (speculating K =
+    ``n_spec`` tokens a round with ``draft``, when given) on an engine
+    that one short request has warmed (on a replay engine it captured every
+    step profile then), with every kernel count set to 0 just before and
+    read just after; every request must finish with MAX_NEW tokens in the
     vocabulary, and no profile may be captured during the serve.  Returns
     the engine, its stats and the outputs."""
     from repro_torch.serving import EngineConfig
-    cfg = EngineConfig(**GEOMETRY, **MODES[mode])
-    eng, captures = warmed_engine(model, cfg, mode, graphs=graphs)
+    cfg = EngineConfig(**GEOMETRY, **MODES[mode], n_spec=n_spec)
+    eng, captures = warmed_engine(model, cfg, mode, graphs=graphs,
+                                  draft=draft)
     host, spans = time_steps(torch, eng)
+    rejected = record_rejections(eng) if n_spec else {}
     reqs = make_requests(spec, 8, MAX_NEW, seed=0)
     torch.cuda.synchronize()
     gc.collect()
@@ -1058,19 +1149,29 @@ def serve_counted(torch, model, spec, mode, *, graphs=True):
                  graph_pool_mb=eng._graphs.pool_bytes / 2 ** 20,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches=counts, routes=routes)
+    if n_spec:
+        stats.update(n_spec=n_spec, spec_rounds=m.spec_rounds,
+                     spec_slot_rounds=m.spec_slot_rounds,
+                     spec_acceptance_rate=m.spec_acceptance_rate,
+                     spec_tokens_per_round=m.spec_tokens_per_round,
+                     spec_bonus=m.spec_bonus,
+                     rejected_at=[rejected.get(r.rid, []) for r in reqs])
     return eng, stats, [r.output for r in reqs]
 
 
-def serve_eager_and_replay(torch, model, spec, mode, phase, expect, **info):
-    """``mode`` on the eager engine, then on the replay engine (the main
-    path) with the same requests: each run's launch counts as ``expect(m,
-    stats)`` asserts them, each run's line, then one line holding the two
-    against each other: greedy outputs token-identical, or parting only at
-    a genuine tie.  Returns the replay run's launch counts."""
+def serve_eager_and_replay(torch, model, spec, mode, phase, expect, *,
+                           n_spec=0, draft=None, **info):
+    """``mode`` (speculating with ``draft`` when ``n_spec``) on the eager
+    engine, then on the replay engine (the main path) with the same
+    requests: each run's launch counts as ``expect(m, stats)`` asserts
+    them, each run's line, then one line holding the two against each
+    other: greedy outputs token-identical, or parting only at a genuine
+    tie.  Returns the replay run's stats and outputs."""
     outs, lines = {}, {}
     for graphs in (False, True):
         eng, stats, outs[graphs] = serve_counted(torch, model, spec, mode,
-                                                 graphs=graphs)
+                                                 graphs=graphs, n_spec=n_spec,
+                                                 draft=draft)
         expect(eng.metrics, stats)
         emit(phase, model=spec.name, **info, **stats, kv=eng.kv_stats())
         lines[graphs] = stats
@@ -1081,7 +1182,7 @@ def serve_eager_and_replay(torch, model, spec, mode, phase, expect, **info):
     ties = _ties(torch, model, prompts, outs[False], outs[True], what)
     keys = ("tokens_per_s", "ttft_s_mean", "tpot_s_mean", "host_ms_per_step",
             "device_ms_per_run", "steps", "profile_runs", "dispatches")
-    emit("eager_vs_replay", model=spec.name, mode=mode,
+    emit("eager_vs_replay", model=spec.name, mode=mode, n_spec=n_spec,
          identical=sum(a == b for a, b in zip(outs[False], outs[True])),
          ties=ties, eager={k: lines[False][k] for k in keys},
          replay={k: lines[True][k] for k in keys},
@@ -1090,7 +1191,7 @@ def serve_eager_and_replay(torch, model, spec, mode, phase, expect, **info):
          captures=lines[True]["captures"],
          capture_s=lines[True]["capture_s"],
          graph_pool_mb=lines[True]["graph_pool_mb"])
-    return lines[True]["launches"]
+    return lines[True], outs[True]
 
 
 def _expect(mode, counts, nonzero):
@@ -1132,12 +1233,12 @@ def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
         stats.update(mixed_steps=mixed, decode_only_steps=decode_only)
 
     n_params = sum(p.numel() for p in model.parameters())
-    counts = serve_eager_and_replay(
+    replay, _ = serve_eager_and_replay(
         torch, model, spec, "unified", phase, expect, params=n_params,
         weight_gb=n_params * 2 / 1e9, init_s=init_s)
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["unified"]))
-    return counts
+    return replay["launches"]
 
 
 def build_full(torch, arch):
@@ -1322,6 +1423,125 @@ def phase_serve_prefix(torch, model, spec) -> list[dict]:
     return [line["launches"] for line in lines]
 
 
+SPEC_K = 4  # draft tokens a round: the reference bench's default --n-spec
+
+
+def perturbed_draft(torch, target):
+    """A second model of ``target``'s spec and dtype whose weights are the
+    target's times (1 + 0.04 N(0, 1)), the noise drawn on the card from
+    seed 99 (the reference tests' ``drafted`` recipe): its argmax agrees
+    with the target's often but not always, so greedy rounds take both the
+    accept and the reject/rollback path."""
+    from repro_torch.models import build_model
+    draft = build_model(target.spec, device=DEV, dtype=target.dtype, seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(99)
+    with torch.no_grad():
+        for p, q in zip(draft.parameters(), target.parameters()):
+            noise = torch.randn(p.shape, generator=gen, device=DEV,
+                                dtype=p.dtype)
+            p.copy_(q * noise.mul_(0.04).add_(1.0))
+    torch.cuda.synchronize()
+    return draft
+
+
+def _as_requests(prompts, outputs):
+    """Requests holding ``outputs`` for ``prompts`` (what ``_divergences``
+    reads)."""
+    from repro_torch.serving import Request
+    return [Request(prompt=list(p), output=list(o))
+            for p, o in zip(prompts, outputs)]
+
+
+def phase_serve_spec(torch, model, spec) -> list[dict]:
+    """Speculative decoding on the main path: the 8 main-path requests
+    through the unified engine with spec off (replay engine), with a
+    self-draft (K = SPEC_K; eager, then replay, and an eager_vs_replay
+    line), and with a perturbed full-width draft (replay; built here and
+    freed after).  Each run: every request finishes, dispatches == d2h
+    copies == steps, one capture per profile and none in the serve, the
+    ragged launches exactly L_t (2 m + d) + L_d ((K+1) m + K d) (m mixed
+    and d decode-only rounds; the verify and the catch-up split in a mixed
+    round, each of the K-1 proposals is one launch), all on the
+    tensor-core route, every other kernel 0.  Each line gives peak device
+    memory and its increase over spec off (the paper's §IV-B cost); a
+    spec_vs_off line per draft gives the outputs identical to spec off and
+    where the others part, with the top-2 logit gap there (recorded, not
+    required: in bf16 at full width the verify's batches round differently
+    from the plain decode's).  Each self-draft window rejected in the
+    replay run must have committed the target's token where the target's
+    top-2 gap is under SPEC_BF16_TIE_GAP: there the draft, the same weights
+    at other batch shapes, may round to the runner-up; a rejection at a
+    wider gap is a fault of the round.  Returns each replay run's launch
+    counts."""
+    k, n_layers = SPEC_K, spec.n_layers
+
+    def expect_for(l_draft):
+        def expect(m, stats):
+            if not m.dispatches == m.transfers_d2h == m.steps:
+                raise AssertionError(f"serve_spec: {m.dispatches} "
+                                     f"dispatches, {m.transfers_d2h} "
+                                     f"transfers, {m.steps} steps")
+            mixed = m.prefill_calls
+            d = m.dispatches - mixed
+            n = n_layers * (2 * mixed + d) + l_draft * ((k + 1) * mixed
+                                                        + k * d)
+            _expect("serve_spec", stats["launches"],
+                    {"ragged_paged_attention": n})
+            _expect_tensor_cores("serve_spec", stats["routes"],
+                                 "ragged_paged_attention", n)
+            stats.update(mixed_steps=mixed, decode_only_steps=d)
+        return expect
+
+    prompts = [r.prompt for r in make_requests(spec, 8, MAX_NEW, seed=0)]
+    eng, off, off_outs = serve_counted(torch, model, spec, "unified")
+    expect_for(0)(eng.metrics, off)
+    emit("serve_spec", model=spec.name, draft_model="off", **off)
+    del eng
+    free(torch)
+    runs = {"off": off}
+    outs = {}
+    runs["self"], outs["self"] = serve_eager_and_replay(
+        torch, model, spec, "unified", "serve_spec", expect_for(n_layers),
+        n_spec=k, draft=model, draft_model="self")
+    draft = perturbed_draft(torch, model)
+    eng, runs["perturbed"], outs["perturbed"] = serve_counted(
+        torch, model, spec, "unified", n_spec=k, draft=draft)
+    expect_for(draft.spec.n_layers)(eng.metrics, runs["perturbed"])
+    emit("serve_spec", model=spec.name, draft_model="perturbed",
+         **runs["perturbed"])
+    del eng, draft
+    free(torch)
+    gaps = {name: _rejection_gaps(torch, model, prompts, outs[name],
+                                  runs[name]["rejected_at"])
+            for name in ("self", "perturbed")}
+    wide = [g for g in gaps["self"] if not g["top2_gap"] < SPEC_BF16_TIE_GAP]
+    emit("spec_rejections", model=spec.name, n_spec=k,
+         tie_gap=SPEC_BF16_TIE_GAP,
+         self={"rejected_windows": len(gaps["self"]), "at": gaps["self"]},
+         perturbed={"rejected_windows": len(gaps["perturbed"]),
+                    "top2_gaps": sorted(g["top2_gap"]
+                                        for g in gaps["perturbed"])})
+    if wide:
+        raise AssertionError(f"serve_spec: self-draft windows rejected at "
+                             f"top-2 gaps of {SPEC_BF16_TIE_GAP} or more: "
+                             f"{wide}")
+    keys = ("tokens_per_s", "ttft_s_mean", "tpot_s_mean", "host_ms_per_step",
+            "device_ms_per_run", "steps", "mixed_steps", "decode_only_steps",
+            "peak_mem_gb")
+    for name in ("self", "perturbed"):
+        line = runs[name]
+        parted = _divergences(torch, model, _as_requests(prompts, outs[name]),
+                              _as_requests(prompts, off_outs))
+        emit("spec_vs_off", model=spec.name, draft_model=name, n_spec=k,
+             identical=len(prompts) - len(parted), diverged=parted,
+             spec={key: line[key] for key in keys
+                   + ("spec_rounds", "spec_acceptance_rate",
+                      "spec_tokens_per_round", "spec_bonus")},
+             off={key: off[key] for key in keys},
+             peak_mem_increase_gb=line["peak_mem_gb"] - off["peak_mem_gb"])
+    return [runs[name]["launches"] for name in ("off", "self", "perturbed")]
+
+
 def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
     """The two-dispatch engine in both layouts, eager and replayed, then the
     dense replay engine's profile; returns each replay serve's kernel
@@ -1345,7 +1565,8 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
                 _expect_tensor_cores(mode, stats["routes"], kernel,
                                      want[kernel])
         out.append(serve_eager_and_replay(torch, model, spec, mode,
-                                          "serve_two_dispatch", expect))
+                                          "serve_two_dispatch",
+                                          expect)[0]["launches"])
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
@@ -1402,7 +1623,8 @@ def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
                     for p in model.parameters()) / 1e9
     out = [serve_eager_and_replay(torch, model, spec, mode, "serve_rwkv",
                                   expect, params=n_params,
-                                  weight_gb=weight_gb, init_s=init_s)
+                                  weight_gb=weight_gb,
+                                  init_s=init_s)[0]["launches"]
            for mode in ("dense", "paged")]
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["dense"]))
@@ -1521,9 +1743,10 @@ def _last_logits(torch, model, tokens):
     return logits[0].float()
 
 
-def _ties(torch, model, prompts, a, b, what):
+def _ties(torch, model, prompts, a, b, what, tie_gap=TIE_GAP):
     """Where outputs ``a`` and ``b`` part, the top-2 logit gap at the first
-    differing token; raises unless every divergence is a genuine tie."""
+    differing token; raises unless every divergence is a genuine tie (a
+    gap under ``tie_gap``)."""
     ties = []
     for i, (x, y) in enumerate(zip(a, b)):
         if x == y:
@@ -1533,7 +1756,7 @@ def _ties(torch, model, prompts, a, b, what):
         gap = float(top2[0] - top2[1])
         ties.append({"request": i, "position": j, "tokens": [x[j], y[j]],
                      "top2_gap": gap})
-        if not gap < TIE_GAP:
+        if not gap < tie_gap:
             raise AssertionError(f"serve_parity {what}: request {i} "
                                  f"diverges at token {j} with top-2 gap "
                                  f"{gap}")
@@ -1709,6 +1932,235 @@ def phase_prefix_parity(torch) -> None:
     free(torch)
 
 
+def _output_gaps(torch, model, prompt, output):
+    """The top-2 logit gap at each position that chose a token of
+    ``output``: one packed segment walked chunk by chunk on a fresh cache
+    through ``verify_step``, which returns every position's logits."""
+    from repro_torch.models.attention import PackedSegs
+    chunk, ps = GEOMETRY["chunk_size"], GEOMETRY["page_size"]
+    max_pages = GEOMETRY["max_seq"] // ps
+    cache = model.init_cache(1, GEOMETRY["max_seq"], page_size=ps,
+                             n_pages=max_pages + 1)
+    ptab = torch.arange(1, max_pages + 1, dtype=torch.int32,
+                        device=DEV)[None]
+    tokens = list(prompt) + list(output[:-1])
+    gaps = []
+    for lo in range(0, len(tokens), chunk):
+        w = min(chunk, len(tokens) - lo)
+        packed = PackedSegs(
+            q_start=torch.zeros(1, dtype=torch.int32, device=DEV),
+            q_len=torch.tensor([w], dtype=torch.int32, device=DEV),
+            kv_len=torch.tensor([lo + w], dtype=torch.int32, device=DEV),
+            page_table=ptab, max_q=chunk)
+        dec, _, cache = model.verify_step(
+            cache, torch.tensor(tokens[lo:lo + w], device=DEV),
+            torch.arange(lo, lo + w, dtype=torch.int32, device=DEV), packed,
+            n_decode=1, width=w)
+        top2 = dec[0].float().topk(2).values
+        gaps.extend((top2[:, 0] - top2[:, 1]).tolist())
+    return gaps[len(prompt) - 1:]
+
+
+def _rejection_gaps(torch, model, prompts, outputs, rejected_at):
+    """The target's top-2 logit gap at each output position where a
+    rejected window committed the target's own token (``rejected_at``:
+    per request, those output indices, as ``record_rejections`` gives
+    them)."""
+    out = []
+    for i, at in enumerate(rejected_at):
+        if at:
+            gaps = _output_gaps(torch, model, prompts[i], outputs[i])
+            out += [{"request": i, "position": j, "top2_gap": gaps[j]}
+                    for j in at]
+    return out
+
+
+def _self_draft_ties(torch, model, m, prompts, outputs, what):
+    """A self-draft rejects a window only where the draft's rounding and
+    the target's part at a near-tie, and each rejected window commits the
+    target's token at its own such position: with rejected windows, the
+    outputs must hold at least as many positions whose top-2 gap is under
+    TIE_GAP.  Returns the rejected windows and those positions."""
+    rejected = m.spec_slot_rounds - m.spec_bonus
+    if not rejected:
+        return {"rejected_windows": 0, "ties": []}
+    ties = [{"request": i, "position": j, "top2_gap": g}
+            for i, (p, o) in enumerate(zip(prompts, outputs))
+            for j, g in enumerate(_output_gaps(torch, model, p, o))
+            if g < TIE_GAP]
+    if len(ties) < rejected:
+        raise AssertionError(f"spec parity {what}: {rejected} self-draft "
+                             f"windows rejected, {len(ties)} ties: {ties}")
+    return {"rejected_windows": rejected, "ties": ties}
+
+
+# the tight-pool case: 8 requests of 64-192 prompt tokens and 48 new ones
+# in a pool of 1 + 32 pages of 16 (512 tokens), where decodes outgrow the
+# pages their admissions reserved: the engines must preempt
+SPEC_TIGHT_PAGES = 32
+
+
+def _tight_requests(spec):
+    """The tight-pool case's 8 requests (see SPEC_TIGHT_PAGES)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(6)
+    return [Request(prompt=rng.integers(0, spec.vocab, size=int(
+        rng.integers(64, 193))).tolist(), max_new_tokens=48)
+        for _ in range(8)]
+
+
+def phase_spec_parity(torch, arch) -> None:
+    """Speculative decoding at ``arch``'s widths, 2 layers, float32, K =
+    SPEC_K, on the unified replay engine, exactly (only genuine ties,
+    TIE_GAP, allowed): spec on with a self-draft and with a perturbed draft
+    against spec off, through the kernels and through the plain versions;
+    the self-draft accepts every draft, any rejection sitting at a tie; the
+    perturbed draft's acceptance strictly between 0 and 1; a pool tight
+    enough to preempt against spec off; the prefix cache's full-hit fork
+    with the shared original set to 1e9 in both pools after the fork,
+    against cache off; the batch-1 SpeculativeDecoder at temperature 0
+    (flash on its dense caches) against the engine's greedy outputs; and the
+    self-draft engine under debug_guards against the unguarded one."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import (EngineConfig, Request, ServeEngine,
+                                     SpeculativeDecoder)
+
+    spec = get_spec(arch).scaled(name=f"{arch}-2l", n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+    draft = perturbed_draft(torch, model)
+    drafts = {"off": None, "self": model, "perturbed": draft}
+    k = SPEC_K
+
+    def serve(reqs, name, **cfg):
+        d = drafts[name]
+        eng = ServeEngine(model, EngineConfig(**{
+            **GEOMETRY, **MODES["unified"], "n_spec": k if d else 0, **cfg}),
+            device=DEV, draft_model=d)
+        eng.serve(reqs)
+        m = eng.metrics
+        if any(r.state != "done" for r in reqs) or not (
+                m.transfers_d2h == m.steps
+                and m.dispatches == m.steps + m.prefix_cow_forks):
+            raise AssertionError(f"spec parity {arch} {name} {cfg}: "
+                                 f"{[r.state for r in reqs]}, {m.steps} "
+                                 f"steps, {m.dispatches} dispatches")
+        return eng
+
+    def stats(m):
+        return dict(steps=m.steps, mixed_steps=m.prefill_calls,
+                    preemptions=m.preemptions, spec_rounds=m.spec_rounds,
+                    spec_slot_rounds=m.spec_slot_rounds,
+                    acceptance=m.spec_acceptance_rate,
+                    tokens_per_round=m.spec_tokens_per_round,
+                    spec_bonus=m.spec_bonus, cow_forks=m.prefix_cow_forks)
+
+    prompts = [r.prompt for r in make_requests(spec, 8, 16, seed=1)]
+    outs, runs, metrics = {}, {}, {}
+    for impl in ("kernel", "plain"):
+        model.kernel_impl = draft.kernel_impl = impl
+        for name in drafts:
+            reqs = make_requests(spec, 8, 16, seed=1)
+            metrics[impl, name] = m = serve(reqs, name).metrics
+            outs[impl, name] = [r.output for r in reqs]
+            runs[f"{impl}/{name}"] = stats(m)
+        if not 0.0 < metrics[impl, "perturbed"].spec_acceptance_rate < 1.0:
+            raise AssertionError(f"spec parity {arch} {impl}: perturbed "
+                                 f"draft {runs[f'{impl}/perturbed']}")
+    model.kernel_impl = draft.kernel_impl = "kernel"
+    pairs = [(f"{impl}/{name} vs {impl}/off", prompts, outs[impl, name],
+              outs[impl, "off"])
+             for impl in ("kernel", "plain") for name in ("self", "perturbed")]
+    pairs.append(("kernel/perturbed vs plain/perturbed", prompts,
+                  outs["kernel", "perturbed"], outs["plain", "perturbed"]))
+
+    # a pool too small for every request: preemption and recompute,
+    # against spec off in the default pool
+    roomy = _tight_requests(spec)
+    serve(roomy, "off")
+    for name in ("self", "perturbed"):
+        reqs = _tight_requests(spec)
+        m = serve(reqs, name, n_pages=1 + SPEC_TIGHT_PAGES).metrics
+        runs[f"tight/{name}"] = stats(m)
+        if m.preemptions <= 0:
+            raise AssertionError(f"spec parity {arch}: no preemption in a "
+                                 f"{SPEC_TIGHT_PAGES}-page pool")
+        pairs.append((f"tight/{name} vs roomy off",
+                      [r.prompt for r in roomy], [r.output for r in reqs],
+                      [r.output for r in roomy]))
+
+    # the prefix cache: a full hit forks its tail page in both pools; the
+    # shared original is then poisoned in both
+    tmpl = _prefix_requests(spec, seed=4)[-1].prompt  # 16 pages
+    r1 = Request(prompt=list(tmpl), max_new_tokens=16)
+    eng = serve([r1], "self", prefix_cache=True)
+    shared, n_cached = eng.prefix.lookup(tmpl)
+    r2 = Request(prompt=list(tmpl), max_new_tokens=16)
+    eng.submit(r2)
+    eng.step()  # admission: the hit and the fork, then r2's one query
+    if not (n_cached == len(tmpl) and eng.metrics.prefix_cow_forks == 1
+            and shared[-1] not in eng.pager.owned(r2.rid)):
+        raise AssertionError(f"spec parity {arch}: no fork ({n_cached} "
+                             f"cached, {eng.metrics.prefix_cow_forks} forks)")
+    for cache in (eng.cache, eng.speculator.d_cache):
+        for layer in cache.layers:
+            layer.k[shared[-1]] = 1e9
+            layer.v[shared[-1]] = 1e9
+    while r2.state != "done":
+        eng.step()
+    fork_m = eng.metrics
+    runs["prefix_fork/self"] = stats(fork_m)
+    del eng
+    off_req = Request(prompt=list(tmpl), max_new_tokens=16)
+    serve([off_req], "off")
+    pairs += [("poisoned fork vs cache off", [tmpl], [r2.output],
+               [off_req.output]),
+              ("first vs cache off", [tmpl], [r1.output], [off_req.output])]
+
+    # the batch-1 oracle with the perturbed draft, greedy
+    decoded, decoder_stats = [], []
+    for p in prompts[:2]:
+        sd = SpeculativeDecoder(model, draft, n_spec=k,
+                                max_seq=GEOMETRY["max_seq"], temperature=0.0)
+        decoded.append(sd.generate(p, 16))
+        decoder_stats.append(dict(vars(sd.stats),
+                                  acceptance=sd.stats.acceptance_rate))
+
+    # debug_guards: the sync-debug mode "error" for the whole round
+    reqs = make_requests(spec, 8, 16, seed=1)
+    guarded = serve(reqs, "self", debug_guards=True)
+    if [r.output for r in reqs] != outs["kernel", "self"]:
+        raise AssertionError(f"spec parity {arch}: guarded outputs differ")
+    captures = guarded._graphs.captures
+    if captures != {"spec/mixed": 1, "spec/decode": 1}:
+        raise AssertionError(f"spec parity {arch}: captures {captures}")
+    del guarded
+
+    model.kernel_impl = "plain"
+    self_ties = {impl: _self_draft_ties(torch, model, metrics[impl, "self"],
+                                        prompts, outs[impl, "self"],
+                                        f"{arch} {impl}")
+                 for impl in ("kernel", "plain")}
+    self_ties["prefix_fork"] = _self_draft_ties(
+        torch, model, fork_m, [tmpl] * 2, [r1.output, r2.output],
+        f"{arch} prefix fork")
+    comparisons = {what: {"identical": sum(x == y for x, y in zip(a, b)),
+                          "ties": _ties(torch, model, ps, a, b, what)}
+                   for what, ps, a, b in pairs}
+    decoder_ties = _ties(torch, model, prompts[:2], decoded,
+                         outs["kernel", "off"][:2],
+                         "batch-1 decoder vs kernel/off", DECODER_TIE_GAP)
+    emit("spec_parity", model=spec.name, dtype="float32", n_spec=k,
+         requests=len(prompts), runs=runs, self_draft=self_ties,
+         decoder=decoder_stats, decoder_identical=sum(
+             x == y for x, y in zip(decoded, outs["kernel", "off"])),
+         decoder_ties=decoder_ties, guarded_identical=True,
+         guarded_captures=captures, comparisons=comparisons)
+    del model, draft
+    free(torch)
+
+
 def phase_debug_guards(torch) -> None:
     """``debug_guards`` on the card, at minitron-8b's widths and 2 layers in
     bf16, in the unified and the paged two-dispatch replay engines: a
@@ -1833,11 +2285,13 @@ def main(argv: list[str]) -> int:
     serves.append(phase_serve_unified(torch, model, spec, init_s,
                                       "serve_full"))
     serves += phase_serve_prefix(torch, model, spec)
+    serves += phase_serve_spec(torch, model, spec)
     serves += phase_serve_two_dispatch(torch, model, spec)
     del model
     free(torch)
     phase_serve_parity(torch, "minitron-8b")
     phase_prefix_parity(torch)
+    phase_spec_parity(torch, "minitron-8b")
     phase_debug_guards(torch)
 
     spec, model, init_s = build_full(torch, "deepseek-moe-16b")
@@ -1846,6 +2300,7 @@ def main(argv: list[str]) -> int:
     del model
     free(torch)
     phase_serve_parity(torch, "deepseek-moe-16b")
+    phase_spec_parity(torch, "deepseek-moe-16b")
 
     spec, model, init_s = build_full(torch, "rwkv6-3b")
     serves += phase_serve_rwkv(torch, model, spec, init_s)

@@ -6,6 +6,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n-spec 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --layout dense --two-dispatch
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
@@ -21,7 +22,13 @@ reference does).  ``--prefix-cache`` turns on the radix-tree prefix cache
 (unified engine only; with ``--two-dispatch`` the engine raises
 ``ValueError``, as the reference's does) and gives every request one
 shared 64-token system prompt ahead of its own tokens, so that later
-requests hit the cache.  The reduced config by default; ``--full`` serves the
+requests hit the cache.  ``--n-spec K`` serves through the unified engine
+with batched speculative decoding and a self-draft (the target proposes
+and verifies, with its own mirrored KV pool, so greedy outputs are
+unchanged and every counter of the round is exercised), as the
+reference's ``--n-spec``, and prints the acceptance line (unified engine
+only; with ``--two-dispatch`` the engine raises ``ValueError``, as the
+reference's does).  The reduced config by default; ``--full`` serves the
 published width.  Runs on the card unless ``--device cpu`` is given
 (the CPU serves in float32).  Prints per-request outputs and the engine's
 metrics.
@@ -63,6 +70,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="share KV pages of common prompt prefixes "
                          "(unified engine only)")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--n-spec", type=int, default=0,
+                    help="draft window K for batched speculative decoding "
+                         "(self-draft; unified engine only)")
     args = ap.parse_args(argv)
 
     spec = registry.get_spec(args.arch) if args.full \
@@ -70,10 +80,12 @@ def main(argv: list[str] | None = None) -> None:
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     model = build_model(spec, device=dev, dtype=dtype, seed=0)
-    eng = ServeEngine(model, EngineConfig(
-        max_slots=args.slots, chunk_size=args.chunk, max_seq=args.max_seq,
-        cache_layout=args.layout, unified=not args.two_dispatch,
-        prefix_cache=args.prefix_cache), device=dev, seed=0)
+    cfg = EngineConfig(max_slots=args.slots, chunk_size=args.chunk,
+                       max_seq=args.max_seq, cache_layout=args.layout,
+                       unified=not args.two_dispatch,
+                       prefix_cache=args.prefix_cache, n_spec=args.n_spec)
+    eng = ServeEngine(model, cfg, device=dev, seed=0,
+                      draft_model=model if args.n_spec else None)
 
     rng = np.random.default_rng(0)
     system = (rng.integers(0, spec.vocab, size=64).tolist()
@@ -96,6 +108,11 @@ def main(argv: list[str] | None = None) -> None:
     toks = sum(len(r.output) for r in reqs)
     print(f"\n{spec.name} on {dev} ({dtype}): {len(reqs)} requests, {toks} "
           f"tokens, {dt:.2f}s, {eng.steps} engine steps")
+    if args.n_spec:
+        m = eng.metrics
+        print(f"speculative: acceptance {m.spec_acceptance_rate:.2f}, "
+              f"{m.spec_tokens_per_round:.2f} tokens/window over "
+              f"{m.spec_slot_rounds} windows")
     print(json.dumps(eng.metrics.summary(reqs)))
 
 

@@ -4,6 +4,8 @@ steps (the port of ``repro.models.model``'s serving half).
     model = build_model(spec)                          # on the card, bf16
     cache = model.init_cache(batch, max_len, layout="paged", page_size=16)
     logits, cache = model.unified_step(cache, tokens, positions, packed)
+    dec, seg, cache = model.verify_step(cache, tokens, positions, packed,
+                                        n_decode=b, width=k + 1)
     scratch = model.init_cache(rows, max_len, layout="dense")
     logits, scratch = model.prefill_chunk(scratch, tokens)
     logits, cache = model.decode_step(cache, tokens)
@@ -11,8 +13,9 @@ steps (the port of ``repro.models.model``'s serving half).
 Every step writes K/V (or an RWKV layer's state) into the cache's tensors
 in place.  ``unified_step`` and ``decode_step``, the steps the serving
 engine captures in CUDA graphs, also advance the cache's own ``lengths``
-tensor and return the cache they were given; the prefills return a
-``ModelCache`` holding the same layers and new lengths.
+tensor and return the cache they were given; ``verify_step`` leaves the
+lengths to its caller (the speculative round's rollback writes them); the
+prefills return a ``ModelCache`` holding the same layers and new lengths.
 """
 
 from __future__ import annotations
@@ -193,6 +196,31 @@ class Model(nn.Module):
         cache.lengths.copy_(torch.where(packed.q_len[:b] > 0,
                                         packed.kv_len[:b], cache.lengths))
         return logits, cache
+
+    @torch.no_grad()
+    def verify_step(self, cache: ModelCache, tokens: torch.Tensor,
+                    positions: torch.Tensor, packed: PackedSegs, *,
+                    n_decode: int, width: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, ModelCache]:
+        """Token-packed speculative verify step: like :meth:`unified_step`,
+        but the first ``n_decode`` segments are fixed-stride verify windows
+        (``width`` = K+1 tokens at packed offsets [0, n_decode * width):
+        the slot's committed feed token and K draft proposals, causal
+        within the window), and the logits come back at every window
+        position.  Returns ``(dec_logits (n_decode, width, V), seg_logits
+        (S, V), cache)``; ``seg_logits`` are each segment's last-valid-
+        position logits (the engine samples the prefill rows' from them).
+        ``cache.lengths`` is left unchanged: the committed frontier depends
+        on the accept counts, so the caller writes the lengths after
+        rejection sampling."""
+        x = self.embed[tokens.long()]
+        x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
+                          packed=packed, impl=self.kernel_impl)
+        last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
+        # one head product for both, so the head is read once
+        n = n_decode * width
+        logits = self._logits(torch.cat([x[:n], x[last]]))
+        return (logits[:n].reshape(n_decode, width, -1), logits[n:], cache)
 
     @torch.no_grad()
     def decode_step(self, cache: ModelCache, tokens: torch.Tensor

@@ -41,6 +41,14 @@ pool evicts cold cached pages before it preempts.  A hit changes only the
 host-side lengths, positions and page-table rows the step stages, so it
 never causes a capture.
 
+With ``n_spec=K`` (unified only, and a ``draft_model``, as the reference)
+every step is one speculative round of :mod:`.speculative`'s
+``PackedSpeculator``: each decode slot verifies a K+1-token window (its
+committed token and K draft proposals) and commits the accepted prefix
+plus one resampled or bonus token, one at a time under the plain decode's
+stop conditions.  The draft's KV pool mirrors the target's page ids, so a
+copy-on-write fork copies the page in both pools.
+
 The scheduler is pure Python over host mirrors (numpy), identical to the
 reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
 exactly where the reference counts them, so the port's step, preemption
@@ -80,6 +88,7 @@ from ..models.model import Model
 from .paging import PageAllocator
 from .prefix_cache import PrefixCache
 from .sampling import SamplingConfig, sample_slots
+from .speculative import PackedSpeculator
 from .step_graph import Staged, StepGraph, sync_mode
 
 
@@ -171,12 +180,34 @@ class EngineMetrics:
     prefix_shared_pages_peak: int = 0  # peak pages mapped by > 1 holder
     #: tenant -> [hit_tokens, lookup_tokens] (per-tenant hit attribution)
     prefix_by_tenant: dict = field(default_factory=dict)
+    # -- speculative-decoding counters (zero unless n_spec > 0) --------------
+    spec_rounds: int = 0  # engine steps that ran a draft/verify round
+    spec_slot_rounds: int = 0  # per-slot verify windows executed
+    spec_proposed: int = 0  # draft tokens offered for verification
+    spec_accepted: int = 0  # draft tokens the target accepted
+    spec_bonus: int = 0  # fully-accepted windows (earned a bonus token)
+    spec_emitted: int = 0  # tokens committed by speculative rounds
+    #: slot -> [accepted, proposed] (per-slot acceptance attribution)
+    spec_by_slot: dict = field(default_factory=dict)
 
     @property
     def prefix_hit_rate(self) -> float:
         """Token-weighted admission-time hit rate."""
         return (self.prefix_hit_tokens / self.prefix_lookup_tokens
                 if self.prefix_lookup_tokens else 0.0)
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of offered draft tokens the target accepted."""
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
+
+    @property
+    def spec_tokens_per_round(self) -> float:
+        """Tokens committed per per-slot verify window (1.0 is the
+        non-speculative baseline)."""
+        return (self.spec_emitted / self.spec_slot_rounds
+                if self.spec_slot_rounds else 0.0)
 
     @property
     def wall_s(self) -> float:
@@ -218,6 +249,21 @@ class EngineMetrics:
             "pages_in_use_peak": self.pages_in_use_peak,
             "kv_used_tokens_peak": self.kv_used_tokens_peak,
         }
+        if self.spec_rounds:  # only with speculative decoding on
+            out.update(
+                spec_rounds=self.spec_rounds,
+                spec_proposed=self.spec_proposed,
+                spec_accepted=self.spec_accepted,
+                spec_bonus=self.spec_bonus,
+                spec_emitted=self.spec_emitted,
+                spec_acceptance_rate=self.spec_acceptance_rate,
+                spec_tokens_per_round=self.spec_tokens_per_round,
+                tokens_per_dispatch=(self.generated_tokens / self.dispatches
+                                     if self.dispatches else 0.0),
+                spec_by_slot={s: {"accepted": a, "proposed": p,
+                                  "acceptance_rate": a / p if p else 0.0}
+                              for s, (a, p)
+                              in sorted(self.spec_by_slot.items())})
         if self.prefix_lookups:  # keep cache-off summaries unchanged
             out.update(
                 prefix_hit_rate=self.prefix_hit_rate,
@@ -263,11 +309,14 @@ class ServeEngine:
     one) and must be where ``model`` lives; ``seed`` seeds the engine's
     generator for stochastic sampling.  ``graphs=False`` runs the captured
     steps eagerly on the same static tensors (the counterpart of
-    ``jax.disable_jit``; the CPU always does)."""
+    ``jax.disable_jit``; the CPU always does).  ``draft_model`` (with
+    ``n_spec > 0``) proposes the speculative rounds' tokens; it carries its
+    weights, lives on the engine's device, and may be ``model`` itself (a
+    self-draft, with its own mirrored KV pool)."""
 
     def __init__(self, model: Model, config: EngineConfig, *,
                  device: str | torch.device | None = None, seed: int = 0,
-                 graphs: bool = True):
+                 graphs: bool = True, draft_model: Model | None = None):
         if config.max_slots < 1:
             raise ValueError("EngineConfig.max_slots must be >= 1")
         if config.prefill_rows < 1:
@@ -296,8 +345,18 @@ class ServeEngine:
                 "read in place by the packed step's ragged attention; the "
                 "dense-scratch prefill path cannot map them")
         if config.n_spec:
-            _refuse(f"speculative decoding (n_spec={config.n_spec})",
-                    "item 7")
+            if not config.unified:
+                raise ValueError(
+                    "n_spec > 0 requires unified=True: speculative verify "
+                    "segments ride the packed ragged dispatch")
+            if draft_model is None:
+                raise ValueError(
+                    "n_spec > 0 needs draft_model: the draft proposes the K "
+                    "tokens the target verifies")
+        elif draft_model is not None:
+            raise ValueError(
+                "draft_model given but n_spec == 0: set EngineConfig."
+                "n_spec=K to enable speculative decoding")
         if config.tp * config.pp > 1:
             _refuse(f"tp={config.tp} pp={config.pp}", "item 12")
         self.unified = config.unified
@@ -317,9 +376,10 @@ class ServeEngine:
             raise ValueError("paged layout needs max_seq to be a multiple "
                              "of page_size")
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, engine on "
-                             f"{self.device}")
+        for what, m in (("model", model), ("draft_model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise ValueError(f"{what} lives on {m.device}, engine on "
+                                 f"{self.device}")
         self.model = model
         self.cfg = config
         self.debug_guards = config.debug_guards
@@ -357,6 +417,13 @@ class ServeEngine:
         self.prefix = PrefixCache(self.pager) if config.prefix_cache \
             else None
         self._attached: set[int] = set()
+        # speculative decoding: the draft's page-id-mirrored pool (the slot
+        # page-table rows address both), its host frontier and the round
+        self.speculator = None if not config.n_spec else PackedSpeculator(
+            model, draft_model, n_spec=config.n_spec,
+            max_slots=config.max_slots, max_seq=config.max_seq,
+            chunk_size=config.chunk_size, prefill_rows=config.prefill_rows,
+            page_size=config.page_size, n_pages=self.pager.n_pages)
         # two-dispatch prefill runs on dense scratch rows (the unified step
         # writes prefill K/V straight into pages and has none)
         self.scratch = None if self.unified else model.init_cache(
@@ -394,7 +461,15 @@ class ServeEngine:
         self._graphs = StepGraph(self.device, self.generator, graphs=graphs)
         nslots, mp = config.max_slots, self.max_pages
         i32, f32 = torch.int32, torch.float32
-        if self.unified:
+        if self.speculator is not None:
+            for key, mixed in (("spec/mixed", True), ("spec/decode", False)):
+                inputs = Staged(self.speculator.staged_fields(mixed),
+                                self.device)
+                self._graphs.add(key, inputs, self.speculator.n_out(mixed),
+                                 self.speculator.step_fn(
+                                     self.cache, inputs.dev, self.generator,
+                                     mixed=mixed))
+        elif self.unified:
             for key, t, s, max_q, n_dec, starts in (
                     ("unified/mixed", self.t_pack, self.n_segs,
                      config.chunk_size, nslots, self._seg_start_dev),
@@ -535,12 +610,15 @@ class ServeEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write fork: page ``src`` into page ``dst`` in every
-        layer's pools (page axis first).  Python-int ids: an eager
-        device-to-device copy on the current stream, which orders it before
-        the next step's reads and never synchronises."""
-        for layer in self.cache.layers:
-            for t in _tensors(layer):
-                t[dst].copy_(t[src])
+        layer's pools (page axis first), and in the draft's mirrored pools
+        when speculating.  Python-int ids: an eager device-to-device copy
+        on the current stream, which orders it before the next step's reads
+        and never synchronises."""
+        drafts = [self.speculator.d_cache] if self.speculator else []
+        for cache in (self.cache, *drafts):
+            for layer in cache.layers:
+                for t in _tensors(layer):
+                    t[dst].copy_(t[src])
 
     def _prefix_insert(self, req: Request, processed: int) -> None:
         """Register every full page of the request's ``processed`` tokens in
@@ -593,6 +671,8 @@ class ServeEngine:
             self.pager.release(req.rid)
             self._ptab[slot] = 0
             self._ptab_dirty = True
+        if self.speculator is not None:
+            self.speculator.release_slot(slot)
 
     def _preempt(self, slot: int) -> None:
         """Push an active request back to the queue head and free its
@@ -615,6 +695,11 @@ class ServeEngine:
             if req is None:
                 continue
             need = int(self._lengths[slot]) + 1
+            if self.speculator is not None:
+                # a verify window writes up to K positions past the
+                # committed frontier: reserve the whole window up front so
+                # rejected proposals never allocate mid-round
+                need = min(need + self.speculator.k, self.cfg.max_seq)
             while not self._ensure_or_evict(req.rid, need):
                 victims = [s for s, r in self.active.items()
                            if r.rid != req.rid]
@@ -929,6 +1014,19 @@ class ServeEngine:
         if self.active:
             self.metrics.decode_steps += 1
         self._finish_decode_slots(toks, now)
+
+        def install(req, slot, row):
+            """The pages already hold the prompt's KV: "inserting" into a
+            decode slot is host bookkeeping."""
+            self._ptab[slot] = self._ptab_row(req.rid)
+
+        self._advance_prefills(widths, toks[nslots:], now, install)
+
+    def _advance_prefills(self, widths: dict[int, int], first: np.ndarray,
+                          now: float, install) -> None:
+        """After a packed step: count the prefill chunks, advance every
+        in-flight prompt by its chunk ``widths[row]`` and promote the rows
+        whose prompt completed, with ``first[row]`` as the first token."""
         if widths:
             self.metrics.prefill_calls += 1
             self.metrics.prefill_tokens += sum(widths.values())
@@ -937,15 +1035,135 @@ class ServeEngine:
                      >= len(self._src(self._prefills[row]))]
         for row, w in widths.items():
             self._prefill_pos[row] += w
+        for row in finishing:
+            self._promote_prefill(row, int(first[row]), now, install)
+
+    # -- speculative token-packed step -------------------------------------
+    def _spec_step(self) -> None:
+        """The unified step with speculation: every active slot packs a
+        K+1-token verify window (committed feed + the draft's K proposals);
+        the draft catch-up, the K-1 proposal sub-steps, the target verify,
+        device-side accept/reject and the prefill chunks are one profile
+        run (one replay on the card), and the accepted tokens, per-slot
+        counts and first tokens come back in the step's one device->host
+        copy.  Rollback of rejected tokens is length bookkeeping on the
+        host mirrors and, inside the round, on both caches' lengths."""
+        self._grow_pages()
+        if not (self.active or self._prefills):
+            return
+        spec = self.speculator
+        nslots, csize = self.cfg.max_slots, self.cfg.chunk_size
+        key = "spec/mixed" if self._prefills else "spec/decode"
+        inputs = self._graphs.profiles[key].inputs
+        h = inputs.host
+        for a in h.values():
+            a.fill(0)
+        h["topps"].fill(1.0)
+        h["temps"][:nslots] = self._temps
+        h["topks"][:nslots] = self._topks
+        h["topps"][:nslots] = self._topps
+        h["ptab"][:] = self._ptab
+        for slot, req in self.active.items():
+            src = self._src(req)
+            sl = int(self._lengths[slot])
+            g, tail = spec.catch_up(slot, src)
+            if not 1 <= g <= 2:  # the draft frontier invariant
+                raise AssertionError(
+                    f"slot {slot}: draft gap {g} outside {{1, 2}} "
+                    f"(d_len={int(spec.d_lens[slot])}, len={sl})")
+            h["feed"][slot] = src[-1]
+            h["d_feed"][slot, :g] = tail
+            h["lengths"][slot] = sl
+            h["gaps"][slot] = g
+            h["widths"][slot] = min(spec.k + 1, self.cfg.max_seq - sl)
+        win = h["widths"].copy()
+        widths: dict[int, int] = {}
+        for row, req in self._prefills.items():
+            src = self._src(req)
+            self._pack_guard(req, len(src))
+            lo = self._prefill_pos[row]
+            w = min(csize, len(src) - lo)
+            qs = row * csize
+            h["pre_tokens"][qs:qs + w] = src[lo:lo + w]
+            h["pre_positions"][qs:qs + w] = np.arange(lo, lo + w)
+            h["pre_q_len"][row] = w
+            h["pre_kv_len"][row] = lo + w
+            h["pre_ptab"][row] = self._ptab_row(req.rid)
+            widths[row] = w
+            if lo + w >= len(src):  # completes: sample with its config
+                s = req.sampling
+                h["temps"][nslots + row] = s.temperature
+                h["topks"][nslots + row] = s.top_k
+                h["topps"][nslots + row] = s.top_p
+        inputs.upload()
+        # the step's only device->host copy: accepted tokens, per-slot
+        # counts and (mixed) the completing prefills' first tokens
+        out_toks, n_emit, pre_sampled = spec.split(
+            self._pull(self._graphs.run(key)))
+        self.metrics.dispatches += 1
+        self.metrics.transfers_d2h += 1
+        now = time.perf_counter()
+        if self.active:
+            self.metrics.decode_steps += 1
+            self.metrics.spec_rounds += 1
+        self._finish_spec_slots(out_toks, n_emit, win, now)
 
         def install(req, slot, row):
-            """The pages already hold the prompt's KV: "inserting" into a
-            decode slot is host bookkeeping."""
+            """The pages already hold the prompt's KV in both pools (the
+            packed prefill chunks ran through target and draft): promotion
+            is host bookkeeping plus seeding the draft frontier."""
             self._ptab[slot] = self._ptab_row(req.rid)
+            # _src already includes the just-sampled first token; the
+            # pools hold everything before it
+            spec.install_slot(slot, len(self._src(req)) - 1)
 
-        for row in finishing:
-            self._promote_prefill(row, int(toks[nslots + row]), now,
-                                  install)
+        self._advance_prefills(widths, pre_sampled, now, install)
+
+    def _finish_spec_slots(self, out_toks: np.ndarray, n_emit: np.ndarray,
+                           win: np.ndarray, now: float) -> None:
+        """Per-slot commit of a speculative round: append the accepted
+        prefix + the resampled/bonus token one at a time under the plain
+        decode's stop conditions (max_new / eos / max_seq), so greedy
+        outputs truncate as the non-speculative engine's do.  A mid-window
+        stop discards the tail and frees the slot; the device's overshoot
+        in ``cache.lengths`` dies with the slot."""
+        spec = self.speculator
+        m = self.metrics
+        for slot, req in list(self.active.items()):
+            sl = int(self._lengths[slot])
+            w = int(win[slot])
+            emit = int(n_emit[slot])
+            m.spec_slot_rounds += 1
+            m.spec_proposed += w - 1
+            m.spec_accepted += emit - 1
+            m.spec_bonus += emit == w
+            m.spec_emitted += emit
+            tally = m.spec_by_slot.setdefault(slot, [0, 0])
+            tally[0] += emit - 1
+            tally[1] += w - 1
+            req.tpot_steps += 1
+            done = False
+            committed = 0
+            for j in range(emit):
+                tok = int(out_toks[slot, j])
+                req.output.append(tok)
+                self._lengths[slot] += 1
+                committed += 1
+                m.generated_tokens += 1
+                done = (len(req.output) >= req.max_new_tokens
+                        or (req.eos_id is not None and tok == req.eos_id)
+                        or self._lengths[slot] >= self.cfg.max_seq - 1)
+                if done:
+                    break
+            spec.commit_slot(slot, sl, committed, spec.proposal_steps(sl))
+            if done:
+                req.state = "done"
+                req.finish_t = now
+                del self.active[slot]
+                self._release_slot(slot, req)
+                self.finished.append(req)
+            else:
+                self._tokens[slot, 0] = int(out_toks[slot, emit - 1])
 
     # -- main loop --------------------------------------------------------
     def step(self) -> None:
@@ -955,7 +1173,9 @@ class ServeEngine:
         self.metrics.steps += 1
         self._admit()
         with self._step_guard():
-            if self.unified:
+            if self.speculator is not None:
+                self._spec_step()
+            elif self.unified:
                 self._unified_step()
             elif self.cfg.decode_priority:
                 self._decode_step()

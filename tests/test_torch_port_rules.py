@@ -256,13 +256,14 @@ def _refusal(case: str) -> None:
 
 
 # an unported mode raises NotImplementedError naming its roadmap item; the
-# prefix cache, ported, is refused on the two-dispatch engine with the
-# reference's ValueError
+# prefix cache, ported, is refused on the two-dispatch engine, and
+# speculation, ported, without a draft model, each with the reference's
+# ValueError
 @pytest.mark.parametrize("case,exc,match", [
     ("swa-paged", NotImplementedError, "ROADMAP: section 3"),
     ("kv-quant", NotImplementedError, "ROADMAP: queue 1, item 3"),
     ("prefix", ValueError, "prefix_cache=True requires unified=True"),
-    ("spec", NotImplementedError, "ROADMAP: queue 1, item 7"),
+    ("spec", ValueError, "n_spec > 0 needs draft_model"),
     ("tp", NotImplementedError, "ROADMAP: queue 1, item 12"),
     ("pp", NotImplementedError, "ROADMAP: queue 1, item 12"),
 ], ids=["swa-paged", "kv-quant", "prefix", "spec", "tp", "pp"])
