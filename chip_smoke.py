@@ -94,9 +94,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 holds the two runs' greedy outputs token-identical (or
                 parting only at a genuine tie, top-2 logit gap < 1e-4)
   serve_profile the same model and replay engine under torch.profiler for a
-                short serve: device time by kernel class (a replay's
-                kernels keep their names), graph launches, the device's
-                busy share of the wall clock
+                short serve, no capture inside it: device time by kernel
+                class (a replay's kernels keep their names), graph launches
+                (at least one per dispatch), the device's busy share of the
+                wall clock
   serve_prefix  the same model on the unified replay engine, a seeded
                 multi-tenant, multi-turn trace (24 root requests of 3
                 tenants x 2 system prompts of 512-1024 tokens, 16-128
@@ -148,21 +149,35 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 the same model and requests through the two-dispatch
                 engine, EngineConfig(cache_layout="paged", unified=False)
                 and EngineConfig(cache_layout="dense"), eager then replay
-                (each decode step one replay; the prefill chunks eager);
-                launch counts exact in each run: paged decode n_layers x
-                decode steps and flash n_layers x prefill calls (paged);
-                flash n_layers x (prefill calls + decode steps) (dense),
-                every flash and paged decode call on the tensor-core route
-                (each line prints the calls of each route); eager_vs_replay
-                lines as above; then serve_profile of the dense replay
-                engine, where flash launches most
+                (each prefill chunk, row reset, insert, first-token sample
+                and decode step one replay; one prefill profile per chunk
+                width), each engine warmed by the serve's own prompts (2
+                new tokens each), so that every width is captured before
+                the timed serve and none during it; the profile runs
+                counted by class (prefill runs == prefill calls, decode
+                runs == decode steps, all runs == dispatches); launch counts
+                exact in each run: paged decode n_layers x decode steps and
+                flash n_layers x prefill calls (paged); flash n_layers x
+                (prefill calls + decode steps) (dense), every flash and
+                paged decode call on the tensor-core route (each line
+                prints the calls of each route); each line gives the
+                captures per profile and the widths, capture seconds,
+                graph-pool MB, host ms per step, device ms per step and per
+                run of each profile class; eager_vs_replay lines as above;
+                a cold line: the dense replay engine with no warm-up, every
+                capture inside its serve; then serve_profile of the dense
+                replay engine (warmed the same way), where flash launches
+                most
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
                 served on the replay engine through the kernels and with
                 the plain versions selected explicitly, and on the eager
                 engine through the kernels: greedy outputs token-identical
                 between kernel and plain, replay and eager, and across the
                 three modes, or diverging only at a genuine tie (top-2
-                logit gap < 1e-4); then, with the same exactness, the
+                logit gap < 1e-4); both two-dispatch layouts on 8 prompts
+                of 1,500-2,000 tokens (prefill-only steps back to back),
+                eager against replay, all 8 token-identical; then, with the
+                same exactness, the
                 prefix cache: page-aligned two-tenant requests submitted
                 together (two of them full hits that fork their tail page)
                 cache on against off, through the kernels and the plain
@@ -206,10 +221,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 the paged two-dispatch engines, eager then replay, after
                 deepseek's weights are freed: the same 8 requests; the WKV
                 scan's launches must equal n_layers x (prefill calls +
-                decode steps) and every other kernel's 0; then
+                decode steps) and every other kernel's 0; the lines, the
+                warm-up and the cold line as serve_two_dispatch's; then
                 serve_profile of the dense replay engine
   serve_parity  again at rwkv6-3b widths, 2 layers, float32, mixes and
-                bonus drawn non-zero, in the two two-dispatch layouts
+                bonus drawn non-zero, in the two two-dispatch layouts (the
+                long prompts too)
 
 A replay does not run the kernel wrappers: the step graph adds each
 capture's launch counts on every replay, so the counts above hold on both
@@ -1025,11 +1042,25 @@ def make_requests(spec, n, max_new, seed):
                     max_new_tokens=max_new) for _ in range(n)]
 
 
+def long_requests(spec, n, max_new, seed):
+    """``n`` greedy requests of 1,500-2,000 prompt tokens: each prompt takes
+    12-16 chunks, so a two-dispatch engine runs prefill-only steps back to
+    back before its first decode."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, spec.vocab,
+                                        size=int(rng.integers(1500, 2001))
+                                        ).tolist(),
+                    max_new_tokens=max_new) for _ in range(n)]
+
+
 def time_steps(torch, eng):
     """Time each step of ``eng`` on the host clock (ms), and the device work
-    of its step profile (replayed, or eager with ``graphs=False``) with
-    CUDA events around the engine's ``StepGraph.run``; returns the list of
-    host times and the list of event pairs, filled as the engine steps."""
+    of each of its profile runs (replayed, or eager with ``graphs=False``)
+    with CUDA events around the engine's ``StepGraph.run``; returns the
+    list of host times and the list of (profile key, event, event), filled
+    as the engine steps."""
     host, spans = [], []
     step, run = eng.step, eng._graphs.run
 
@@ -1044,11 +1075,29 @@ def time_steps(torch, eng):
         e0.record()
         out = run(key)
         e1.record()
-        spans.append((e0, e1))
+        spans.append((key, e0, e1))
         return out
     eng.step = timed_step
     eng._graphs.run = timed_run
     return host, spans
+
+
+def span_stats(spans, steps):
+    """Profile runs by class (a key's part before its first '/': prefill,
+    decode, reset, insert, sample, unified, spec), the mean device ms of a
+    run of each class, and the device ms per engine step."""
+    by_class: dict[str, list[float]] = {}
+    for key, a, b in spans:
+        by_class.setdefault(key.split("/")[0], []).append(a.elapsed_time(b))
+    return ({c: len(ms) for c, ms in by_class.items()},
+            {c: statistics.mean(ms) for c, ms in by_class.items()},
+            sum(map(sum, by_class.values())) / steps)
+
+
+def prefill_widths(captures):
+    """The chunk widths of the bound ``prefill/<w>`` profiles."""
+    return sorted(int(key.split("/")[1]) for key in captures
+                  if key.startswith("prefill/"))
 
 
 def record_rejections(eng):
@@ -1070,16 +1119,20 @@ def record_rejections(eng):
     return rejected
 
 
-def warmed_engine(model, cfg, what, *, graphs=True, draft=None):
+def warmed_engine(model, cfg, what, *, graphs=True, draft=None,
+                  prompts=None):
     """A ServeEngine for ``cfg`` (speculating with ``draft`` when
-    ``cfg.n_spec``) that one short request has warmed (on a replay engine
-    it captured every step profile then), its metrics reset; every profile
-    must have been bound exactly once.  Returns the engine and its capture
-    counts."""
+    ``cfg.n_spec``) that requests of 2 new tokens have warmed (on a replay
+    engine they captured every step profile then), its metrics reset;
+    every profile must have been bound exactly once.  ``prompts`` are the
+    warm-up's prompts (default one of 39 tokens; a two-dispatch engine is
+    warmed with a serve's own prompts, so that every chunk width it will
+    run is captured).  Returns the engine and its capture counts."""
     from repro_torch.serving import EngineMetrics, Request, ServeEngine
     eng = ServeEngine(model, cfg, device=DEV, graphs=graphs,
                       draft_model=draft)
-    eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
+    eng.serve([Request(prompt=list(p), max_new_tokens=2)
+               for p in prompts or [range(1, 40)]])
     eng.metrics = EngineMetrics()
     captures = dict(eng._graphs.captures)
     if captures != dict.fromkeys(eng._graphs.profiles, 1):
@@ -1089,21 +1142,30 @@ def warmed_engine(model, cfg, what, *, graphs=True, draft=None):
 
 
 def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
-                  draft=None):
+                  draft=None, warm=True):
     """Serve the 8 main-path requests through ``mode`` (speculating K =
-    ``n_spec`` tokens a round with ``draft``, when given) on an engine
-    that one short request has warmed (on a replay engine it captured every
-    step profile then), with every kernel count set to 0 just before and
-    read just after; every request must finish with MAX_NEW tokens in the
-    vocabulary, and no profile may be captured during the serve.  Returns
-    the engine, its stats and the outputs."""
-    from repro_torch.serving import EngineConfig
+    ``n_spec`` tokens a round with ``draft``, when given), with every kernel
+    count set to 0 just before and read just after; every request must
+    finish with MAX_NEW tokens in the vocabulary, and every dispatch must be
+    one profile run (two-dispatch: the prefill runs equal the prefill
+    calls and the decode runs the decode steps).  On an engine warmed first
+    (``warm``; see ``warmed_engine``: the two-dispatch engine with the
+    serve's own prompts) no profile may be captured during the serve; a
+    cold engine (``warm=False``) must bind every profile once inside it,
+    which puts the captures' cost in its numbers.  Returns the engine, its
+    stats and the outputs."""
+    from repro_torch.serving import EngineConfig, ServeEngine
     cfg = EngineConfig(**GEOMETRY, **MODES[mode], n_spec=n_spec)
-    eng, captures = warmed_engine(model, cfg, mode, graphs=graphs,
-                                  draft=draft)
+    reqs = make_requests(spec, 8, MAX_NEW, seed=0)
+    if warm:
+        prompts = None if cfg.unified else [r.prompt for r in reqs]
+        eng, captures = warmed_engine(model, cfg, mode, graphs=graphs,
+                                      draft=draft, prompts=prompts)
+    else:
+        eng, captures = ServeEngine(model, cfg, device=DEV, graphs=graphs,
+                                    draft_model=draft), {}
     host, spans = time_steps(torch, eng)
     rejected = record_rejections(eng) if n_spec else {}
-    reqs = make_requests(spec, 8, MAX_NEW, seed=0)
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -1114,6 +1176,11 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
     wall = time.perf_counter() - t0
     counts = read_launches()
     routes = read_routes()
+    if not warm:
+        captures = dict(eng._graphs.captures)
+        if captures != dict.fromkeys(eng._graphs.profiles, 1):
+            raise AssertionError(f"{mode} cold: profiles bound {captures}, "
+                                 "expected each once")
     if eng._graphs.captures != captures:
         raise AssertionError(f"{mode}: a profile was bound during the "
                              f"serve: {eng._graphs.captures}")
@@ -1128,13 +1195,17 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
             raise AssertionError(f"{mode}: request {r.rid}: token out of "
                                  "range")
     m = eng.metrics
-    runs = m.dispatches if cfg.unified else m.decode_steps
-    if len(spans) != runs:
+    runs, device_ms, device_ms_per_step = span_stats(spans, m.steps)
+    if len(spans) != m.dispatches:
         raise AssertionError(f"{mode}: {len(spans)} step-profile runs, "
-                             f"expected {runs}")
-    device_ms = [a.elapsed_time(b) for a, b in spans]
+                             f"expected {m.dispatches}")
+    if not cfg.unified and (runs.get("prefill", 0), runs.get("decode", 0)) \
+            != (m.prefill_calls, m.decode_steps):
+        raise AssertionError(f"{mode}: profile runs {runs}, expected "
+                             f"{m.prefill_calls} prefill and "
+                             f"{m.decode_steps} decode")
     s = m.summary(reqs)
-    stats = dict(mode=mode, graphs=graphs, requests=len(reqs),
+    stats = dict(mode=mode, graphs=graphs, warm=warm, requests=len(reqs),
                  prompt_tokens=sum(len(r.prompt) for r in reqs),
                  generated_tokens=m.generated_tokens, steps=m.steps,
                  decode_steps=m.decode_steps, prefill_calls=m.prefill_calls,
@@ -1143,9 +1214,14 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
                  tokens_per_s=m.generated_tokens / wall,
                  ttft_s_mean=s["ttft_s_mean"], tpot_s_mean=s["tpot_s_mean"],
                  host_ms_per_step=statistics.mean(host),
+                 device_ms_per_step=device_ms_per_step,
                  profile_runs=len(spans),
-                 device_ms_per_run=statistics.mean(device_ms),
-                 captures=captures, capture_s=eng._graphs.capture_s,
+                 device_ms_per_run=statistics.mean(
+                     a.elapsed_time(b) for _, a, b in spans),
+                 runs_by_class=runs, device_ms_by_class=device_ms,
+                 captures=captures, prefill_widths=prefill_widths(captures),
+                 capture_s=eng._graphs.capture_s,
+                 bind_s=eng._graphs.bind_s,
                  graph_pool_mb=eng._graphs.pool_bytes / 2 ** 20,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  launches=counts, routes=routes)
@@ -1181,7 +1257,8 @@ def serve_eager_and_replay(torch, model, spec, mode, phase, expect, *,
     what = f"{spec.name} {mode} eager vs replay"
     ties = _ties(torch, model, prompts, outs[False], outs[True], what)
     keys = ("tokens_per_s", "ttft_s_mean", "tpot_s_mean", "host_ms_per_step",
-            "device_ms_per_run", "steps", "profile_runs", "dispatches")
+            "device_ms_per_step", "device_ms_per_run", "device_ms_by_class",
+            "steps", "profile_runs", "runs_by_class", "dispatches")
     emit("eager_vs_replay", model=spec.name, mode=mode, n_spec=n_spec,
          identical=sum(a == b for a, b in zip(outs[False], outs[True])),
          ties=ties, eager={k: lines[False][k] for k in keys},
@@ -1189,7 +1266,7 @@ def serve_eager_and_replay(torch, model, spec, mode, phase, expect, *,
          launches_eager=lines[False]["launches"],
          launches_replay=lines[True]["launches"],
          captures=lines[True]["captures"],
-         capture_s=lines[True]["capture_s"],
+         capture_s=lines[True]["capture_s"], bind_s=lines[True]["bind_s"],
          graph_pool_mb=lines[True]["graph_pool_mb"])
     return lines[True], outs[True]
 
@@ -1351,7 +1428,7 @@ def replay_counted(torch, model, spec, trace, prefix_cache):
                  ttft_s_p95=e["ttft_s_p95"], by_tenant=summary.by_tenant,
                  host_ms_per_step=statistics.mean(host),
                  device_ms_per_run=statistics.mean(a.elapsed_time(b)
-                                                   for a, b in spans),
+                                                   for _, a, b in spans),
                  captures=captures, pages_in_use_peak=m.pages_in_use_peak,
                  launches=counts, routes=routes,
                  prefix={k: v for k, v in e.items()
@@ -1542,15 +1619,31 @@ def phase_serve_spec(torch, model, spec) -> list[dict]:
     return [runs[name]["launches"] for name in ("off", "self", "perturbed")]
 
 
+def serve_cold(torch, model, spec, mode, phase, expect, **info) -> None:
+    """``mode`` served once on a fresh replay engine that no warm-up has
+    captured: every profile's capture falls inside the serve (see
+    ``serve_counted``); the launches as ``expect`` asserts them, one line
+    with the captures, their seconds (inside the graph blocks, and
+    ``bind_s`` for the whole first uses) and the graph pool beside the
+    serve's TTFT, TPOT and tokens/s."""
+    eng, stats, _ = serve_counted(torch, model, spec, mode, warm=False)
+    expect(eng.metrics, stats)
+    emit(phase, model=spec.name, cold=True, **info, **stats)
+    del eng
+    free(torch)
+
+
 def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
-    """The two-dispatch engine in both layouts, eager and replayed, then the
-    dense replay engine's profile; returns each replay serve's kernel
+    """The two-dispatch engine in both layouts, eager and replayed (every
+    prefill chunk, row reset, insert, first-token sample and decode one
+    replay), a cold dense serve whose captures fall inside it, then the
+    dense replay engine's profile; returns each warm replay serve's kernel
     launch counts.  Every flash call of the bf16 model must take the
     tensor-core route."""
     from repro_torch.serving import EngineConfig
-    out = []
-    for mode in ("paged", "dense"):
-        def expect(m, stats, mode=mode):
+
+    def expect_for(mode):
+        def expect(m, stats):
             n = spec.n_layers
             want = {"paged_decode_attention": n * m.decode_steps,
                     "flash_attention": n * m.prefill_calls,
@@ -1564,9 +1657,14 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
             for kernel in ("flash_attention", "paged_decode_attention"):
                 _expect_tensor_cores(mode, stats["routes"], kernel,
                                      want[kernel])
-        out.append(serve_eager_and_replay(torch, model, spec, mode,
-                                          "serve_two_dispatch",
-                                          expect)[0]["launches"])
+        return expect
+
+    out = [serve_eager_and_replay(torch, model, spec, mode,
+                                  "serve_two_dispatch",
+                                  expect_for(mode))[0]["launches"]
+           for mode in ("paged", "dense")]
+    serve_cold(torch, model, spec, "dense", "serve_two_dispatch",
+               expect_for("dense"))
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
@@ -1609,8 +1707,9 @@ def phase_decode_op(torch) -> dict:
 
 def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
     """The attention-free stack through the two-dispatch engine in both
-    layouts, eager and replayed, then the dense replay engine's profile;
-    returns each replay serve's kernel launch counts."""
+    layouts, eager and replayed, a cold dense serve whose captures fall
+    inside it, then the dense replay engine's profile; returns each warm
+    replay serve's kernel launch counts."""
     from repro_torch.serving import EngineConfig
 
     def expect(m, stats):
@@ -1626,6 +1725,8 @@ def phase_serve_rwkv(torch, model, spec, init_s) -> list[dict]:
                                   weight_gb=weight_gb,
                                   init_s=init_s)[0]["launches"]
            for mode in ("dense", "paged")]
+    serve_cold(torch, model, spec, "dense", "serve_rwkv", expect,
+               params=n_params, weight_gb=weight_gb, init_s=init_s)
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
@@ -1663,17 +1764,18 @@ def _kernel_class(name: str) -> str:
 def phase_serve_profile(torch, model, spec, cfg) -> None:
     """Where a step's time goes: torch.profiler over a short serve (8
     requests of 100-1500 prompt tokens, 8 new tokens each) through the
-    replay engine ``cfg`` names, its profiles captured before by one short
-    request; device time summed by kernel class (a replay's kernels keep
-    their names), against the wall clock of the same steps."""
+    replay engine ``cfg`` names, its profiles captured before (see
+    ``warmed_engine``; a two-dispatch engine warmed with the serve's own
+    prompts) and none during it; device time summed by kernel class (a
+    replay's kernels keep their names), against the wall clock of the same
+    steps; every dispatch one graph launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import EngineMetrics, Request, ServeEngine
 
-    eng = ServeEngine(model, cfg, device=DEV)
-    eng.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)])
-    eng.metrics = EngineMetrics()
     reqs = make_requests(spec, 8, 8, seed=2)
+    eng, captures = warmed_engine(
+        model, cfg, "serve_profile",
+        prompts=None if cfg.unified else [r.prompt for r in reqs])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1695,15 +1797,20 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
         launches += ev.count
     busy = sum(by_class.values())
     m = eng.metrics
-    if graph_launches < (m.dispatches if cfg.unified else m.decode_steps):
+    if graph_launches < m.dispatches:
         raise AssertionError(f"serve_profile: {graph_launches} graph "
-                             "launches under the profiler")
+                             f"launches under the profiler for "
+                             f"{m.dispatches} dispatches")
+    if eng._graphs.captures != captures:
+        raise AssertionError(f"serve_profile: a profile was bound during "
+                             f"the serve: {eng._graphs.captures}")
     steps = (dict(mixed_steps=m.prefill_calls,
                   decode_only_steps=m.dispatches - m.prefill_calls)
              if cfg.unified else dict(decode_steps=m.decode_steps,
                                       prefill_calls=m.prefill_calls))
     emit("serve_profile", model=spec.name, layout=cfg.cache_layout,
          unified=cfg.unified, steps=m.steps, **steps,
+         dispatches=m.dispatches,
          wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3),
          kernel_launches=launches, graph_launches=graph_launches,
@@ -1768,7 +1875,10 @@ def phase_serve_parity(torch, arch) -> None:
     serves it on the replay engine through the kernels and through the
     plain versions, and on the eager engine through the kernels (an
     attention-free stack: the two two-dispatch layouts, its RWKV mixes and
-    bonus drawn non-zero)."""
+    bonus drawn non-zero); then both two-dispatch layouts on 8 prompts of
+    1,500-2,000 tokens, eager against replay, all 8 token-identical (the
+    prefill-only steps run back to back, so a staged upload that a later
+    host write overtook would show)."""
     from repro_torch.configs import get_spec
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, ServeEngine
@@ -1800,6 +1910,29 @@ def phase_serve_parity(torch, arch) -> None:
         comparisons[what] = {
             "identical": sum(x == y for x, y in zip(outs[a], outs[b])),
             "ties": _ties(torch, model, prompts, outs[a], outs[b], what)}
+    # long prompts: every two-dispatch engine runs prefill-only steps back
+    # to back (no device->host copy between their staged uploads)
+    model.kernel_impl = "kernel"
+    long_reqs = {}
+    for mode in ("dense", "paged"):
+        for graphs in (False, True):
+            long_reqs[mode, graphs] = reqs = long_requests(spec, 8, 8, seed=4)
+            ServeEngine(model, EngineConfig(**GEOMETRY, **MODES[mode]),
+                        device=DEV, graphs=graphs).serve(reqs)
+    model.kernel_impl = "plain"
+    for mode in ("dense", "paged"):
+        eager, replay = long_reqs[mode, False], long_reqs[mode, True]
+        what = f"{mode} long prompts eager vs replay"
+        identical = sum(a.output == b.output for a, b in zip(eager, replay))
+        comparisons[what] = {
+            "identical": identical,
+            "prompt_tokens": [len(r.prompt) for r in eager],
+            "ties": _ties(torch, model, [r.prompt for r in eager],
+                          [r.output for r in eager],
+                          [r.output for r in replay], what)}
+        if identical != len(eager):
+            raise AssertionError(f"serve_parity {what}: {identical} of "
+                                 f"{len(eager)} identical")
     emit("serve_parity", model=spec.name, dtype="float32",
          requests=len(prompts),
          tokens=sum(len(o) for o in outs[modes[0], "kernel"]),

@@ -92,18 +92,19 @@ def init_paged_attn_cache(spec: ModelSpec, n_pages: int, page_size: int,
                           v=torch.zeros(shape, device=device, dtype=dtype))
 
 
-def paged_insert_rows(paged: PagedAttnCache, dense: AttnCache, row: int,
-                      pages: torch.Tensor) -> None:
-    """Scatter dense scratch row ``row`` into the pool pages named by
-    ``pages`` (in place).  ``pages`` is the (max_pages,) page ids covering
-    the request, 0-padded: the row's tail lands on the null page, many
-    times over, which leaves page 0 holding one of those writes and no
-    other request's page touched.  T must equal max_pages * page_size."""
+def paged_insert_rows(paged: PagedAttnCache, dense: AttnCache,
+                      row: torch.Tensor, pages: torch.Tensor) -> None:
+    """Scatter dense scratch row ``row`` (a (1,) device tensor, so that one
+    capture serves every row) into the pool pages named by ``pages`` (in
+    place).  ``pages`` is the (max_pages,) page ids covering the request,
+    0-padded: the row's tail lands on the null page, many times over, which
+    leaves page 0 holding one of those writes and no other request's page
+    touched.  T must equal max_pages * page_size."""
     ps = paged.page_size
     idx = pages.long()
     for pool, scr in ((paged.k, dense.k), (paged.v, dense.v)):
-        col = scr[row]  # (T, Hkv, Dh)
-        chunks = col.reshape((idx.shape[0], ps) + tuple(col.shape[1:]))
+        col = scr[row.long()]  # (1, T, Hkv, Dh)
+        chunks = col.reshape((idx.shape[0], ps) + tuple(scr.shape[2:]))
         # (mp, ps, Hkv, Dh) -> the pool's resident (mp, Hkv, ps, Dh)
         pool[idx] = chunks.transpose(1, 2).to(pool.dtype)
 
@@ -241,27 +242,35 @@ def _paged_attention(spec: ModelSpec, cache: PagedAttnCache,
 def _dense_cached_attention(spec: ModelSpec, cache: AttnCache,
                             q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths: torch.Tensor,
-                            rows: torch.Tensor | None,
+                            mask: torch.Tensor | None,
                             impl: str) -> torch.Tensor:
     """Prefill (lengths == 0), chunked-prefill continuation and decode
     (S == 1) on the dense cache: insert the S new K/V rows at each row's
     ``lengths`` (in place), then attend causally against the valid prefix.
-    ``rows`` (R,) names the batch rows whose K/V are written (None: all);
-    the others keep their cache bit for bit and their outputs are
+    ``mask`` (B,) bool selects the rows whose K/V are written (None: all):
+    every row's (B, S) window at its position is gathered, selected against
+    the new K/V and scattered back, so an unselected row rewrites its own
+    values and every shape is fixed by S.  The unselected rows' outputs are
     unspecified."""
     b, s = q.shape[:2]
     t = cache.k.shape[1]
     dev = q.device
-    sel = torch.arange(b, device=dev) if rows is None else rows.long()
     if s == t:  # fresh full-width prefill: static insert, attend directly
-        cache.k[sel] = k[sel].to(cache.k.dtype)
-        cache.v[sel] = v[sel].to(cache.v.dtype)
+        for dst, new in ((cache.k, k), (cache.v, v)):
+            new = new.to(dst.dtype)
+            if mask is not None:
+                new = torch.where(mask[:, None, None, None], new, dst)
+            dst.copy_(new)
         return _attend(spec, q, k, v, impl=impl)
     # start clamped to T - S, as dynamic_update_slice clamps it
-    start = lengths.long()[sel].clamp(0, t - s)
+    start = lengths.long().clamp(0, t - s)
+    rows = torch.arange(b, device=dev)[:, None]
     pos = start[:, None] + torch.arange(s, device=dev)
-    cache.k[sel[:, None], pos] = k[sel].to(cache.k.dtype)
-    cache.v[sel[:, None], pos] = v[sel].to(cache.v.dtype)
+    for dst, new in ((cache.k, k), (cache.v, v)):
+        new = new.to(dst.dtype)
+        if mask is not None:
+            new = torch.where(mask[:, None, None, None], new, dst[rows, pos])
+        dst[rows, pos] = new
     return _attend(spec, q, cache.k, cache.v, kv_len=lengths + s,
                    q_offset=lengths, impl=impl)
 
@@ -272,7 +281,7 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
                     lengths: torch.Tensor | None = None,
                     page_table: torch.Tensor | None = None,
                     packed: PackedSegs | None = None,
-                    rows: torch.Tensor | None = None,
+                    mask: torch.Tensor | None = None,
                     impl: str = "kernel") -> torch.Tensor:
     """Three cached modes, as the reference's:
 
@@ -282,7 +291,7 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
       * paged decode (PagedAttnCache, x (B, 1, D)): scatter into the slot's
         current page, attend through ``page_table``;
       * dense (AttnCache, x (B, S, D)): prefill, chunked continuation or
-        decode at ``lengths``, writing only ``rows``.
+        decode at ``lengths``, writing only the rows ``mask`` selects.
 
     Returns the attention output (before the residual add)."""
     if packed is not None and spec.attn.kind == "swa":
@@ -295,7 +304,7 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
     elif isinstance(cache, PagedAttnCache):
         o = _paged_attention(spec, cache, q, k, v, lengths, page_table, impl)
     else:
-        o = _dense_cached_attention(spec, cache, q, k, v, lengths, rows,
+        o = _dense_cached_attention(spec, cache, q, k, v, lengths, mask,
                                     impl)
     return o.reshape(tuple(x.shape[:-1]) + (spec.n_heads * spec.d_head,)) \
         @ params.wo

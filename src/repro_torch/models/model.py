@@ -7,15 +7,16 @@ steps (the port of ``repro.models.model``'s serving half).
     dec, seg, cache = model.verify_step(cache, tokens, positions, packed,
                                         n_decode=b, width=k + 1)
     scratch = model.init_cache(rows, max_len, layout="dense")
-    logits, scratch = model.prefill_chunk(scratch, tokens)
+    logits, scratch = model.prefill_chunk(scratch, tokens, mask=mask)
     logits, cache = model.decode_step(cache, tokens)
 
 Every step writes K/V (or an RWKV layer's state) into the cache's tensors
-in place.  ``unified_step`` and ``decode_step``, the steps the serving
-engine captures in CUDA graphs, also advance the cache's own ``lengths``
-tensor and return the cache they were given; ``verify_step`` leaves the
-lengths to its caller (the speculative round's rollback writes them); the
-prefills return a ``ModelCache`` holding the same layers and new lengths.
+in place.  ``unified_step``, ``prefill_chunk`` and ``decode_step``, the
+steps the serving engine captures in CUDA graphs, also advance the cache's
+own ``lengths`` tensor and return the cache they were given;
+``verify_step`` leaves the lengths to its caller (the speculative round's
+rollback writes them); ``prefill`` returns a ``ModelCache`` holding the
+same layers and new lengths.
 """
 
 from __future__ import annotations
@@ -149,32 +150,30 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill_chunk(self, cache: ModelCache, tokens: torch.Tensor, *,
-                      rows: torch.Tensor | None = None
+                      mask: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, ModelCache]:
         """Chunked-prefill continuation on a dense cache: the next (B, S)
-        tokens of each row from its ``cache.lengths``.  ``rows`` (R,) names
-        the rows whose state advances (their K/V or RWKV state written,
-        their lengths moved on by S); the others keep theirs bit for bit,
-        as the
-        reference's masked ``jnp.where`` keeps them (None: every row).
-        Returns the (B, V) logits at each row's last chunk position (rows
-        outside ``rows`` are unspecified) and the cache."""
+        tokens of each row from its ``cache.lengths``.  ``mask`` (B,) bool
+        selects the rows whose state advances (their K/V or RWKV state
+        written, their lengths moved on by S, all in place); the others keep
+        theirs bit for bit, as the reference's masked ``jnp.where`` keeps
+        them (None: every row).  Every shape is fixed by (B, S), so one
+        capture serves every chunk of that width.  Returns the (B, V) logits
+        at each row's last chunk position (unselected rows' are unspecified)
+        and ``cache`` itself."""
         b, s = tokens.shape
         dev = tokens.device
         positions = cache.lengths[:, None].long() + torch.arange(s,
                                                                  device=dev)
         x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
                           positions, cache.layers, lengths=cache.lengths,
-                          page_table=cache.page_table, rows=rows,
+                          page_table=cache.page_table, mask=mask,
                           impl=self.kernel_impl)
-        if rows is None:
-            lengths = cache.lengths + s
+        if mask is None:
+            cache.lengths.add_(s)
         else:
-            lengths = cache.lengths.clone()
-            lengths[rows] += s
-        return self._logits(x[:, -1]), ModelCache(
-            layers=cache.layers, lengths=lengths,
-            page_table=cache.page_table)
+            cache.lengths.add_(mask.to(cache.lengths.dtype) * s)
+        return self._logits(x[:, -1]), cache
 
     @torch.no_grad()
     def unified_step(self, cache: ModelCache, tokens: torch.Tensor,

@@ -92,30 +92,32 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _commit(cache: RWKVCache, rows: torch.Tensor | None,
+def _commit(cache: RWKVCache, mask: torch.Tensor | None,
             tm_shift: torch.Tensor, cm_shift: torch.Tensor,
             wkv: torch.Tensor | None) -> None:
-    """Write the new state into the cache (only ``rows`` when given; the
-    other rows keep theirs bit for bit).  ``wkv`` None: the scan already
-    wrote the WKV state in place."""
+    """Write the new state into the cache's own tensors: every row, or with
+    ``mask`` only the rows it selects (``torch.where``; the other rows keep
+    theirs bit for bit).  ``wkv`` None: the scan already wrote the WKV
+    state in place."""
     pairs = [(cache.tm_shift, tm_shift), (cache.cm_shift, cm_shift)]
     if wkv is not None:
         pairs.append((cache.wkv, wkv))
     for dst, src in pairs:
-        if rows is None:
-            dst.copy_(src)
-        else:
-            sel = rows.long()
-            dst[sel] = src[sel].to(dst.dtype)
+        src = src.to(dst.dtype)
+        if mask is not None:
+            sel = mask.reshape((-1,) + (1,) * (dst.dim() - 1))
+            src = torch.where(sel, src, dst)
+        dst.copy_(src)
 
 
 def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,
-                cache: RWKVCache, *, rows: torch.Tensor | None = None,
+                cache: RWKVCache, *, mask: torch.Tensor | None = None,
                 impl: str = "kernel") -> torch.Tensor:
     """x: (B, T, D) continuing each row from its state in ``cache``.
     Applies BOTH residuals itself (the channel mix is the layer's FFN) and
     returns the layer's output; the new state goes into ``cache`` for the
-    rows named by ``rows`` (None: every row)."""
+    rows the (B,) bool ``mask`` selects (None: every row), as the
+    reference's masked ``jnp.where`` keeps the others."""
     b, t, d = x.shape
     hs = spec.ssm.head_size
     nh = d // hs
@@ -135,10 +137,11 @@ def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,
     w_dyn = torch.tanh(mix(params.maa_w) @ params.w_lora1) @ params.w_lora2
     w = torch.exp(-torch.exp(params.w_bias + w_dyn.float()))
     w = w.reshape(b, t, nh, hs)
-    # every row advances: the scan writes its final state into the cache
+    # unmasked, the scan writes its final state into the cache; masked, it
+    # returns the new state for _commit to select
     wkv, state = kops.rwkv6_scan(
         r, k, v, w, params.u_bonus, cache.wkv,
-        state_out=cache.wkv if rows is None else None, impl=impl)
+        state_out=cache.wkv if mask is None else None, impl=impl)
     # the reference's ln_x: an RMSNorm over the whole width
     wkv = rms_norm(wkv.reshape(b, t, d), params.ln_x)
     x = x + (wkv * F.silu(g)) @ params.wo
@@ -151,6 +154,6 @@ def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,
     kk = F.relu(kx @ params.cm_key).square()
     y_cm = torch.sigmoid(rx @ params.cm_rec) * (kk @ params.cm_value)
 
-    _commit(cache, rows, h[:, -1:], h2[:, -1:],
-            None if rows is None else state)
+    _commit(cache, mask, h[:, -1:], h2[:, -1:],
+            None if mask is None else state)
     return x + y_cm

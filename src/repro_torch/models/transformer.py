@@ -98,7 +98,7 @@ def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
                 "stacks; layer kind 'rwkv6' carries sequential state")
         # both residuals inside the block: the stack adds none
         return rwkv6_block(spec, layer.mixer, x, cache,
-                           rows=attn_kw["rows"], impl=impl)
+                           mask=attn_kw["mask"], impl=impl)
     x = x + attention_block(spec, layer.mixer, x, positions, cache,
                             impl=impl, **attn_kw)
     if layer.cls.is_moe:
@@ -114,17 +114,18 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 lengths: torch.Tensor | None = None,
                 page_table: torch.Tensor | None = None,
                 packed: PackedSegs | None = None,
-                rows: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None,
                 impl: str = "kernel") -> torch.Tensor:
     """Run every layer; each writes its K/V (or its RWKV state) into its own
     cache, in place.  ``impl`` routes every kernel of the stack, attention,
     expert GEMMs and the WKV scan (``kernels.ops.IMPLS``).
     ``lengths``/``page_table`` are the (B,) valid tokens and the shared
     (B, max_pages) page table; ``packed`` the shared segment table when x
-    is a token-packed unified step; ``rows`` the dense rows whose K/V or
-    state a chunk writes (see :func:`attention_block`)."""
+    is a token-packed unified step; ``mask`` the (B,) bool selection of the
+    dense rows whose K/V or state a chunk writes (see
+    :func:`attention_block`)."""
     for layer, cache in zip(layers, caches, strict=True):
         x = _apply_one(spec, layer, x, positions, cache, lengths=lengths,
-                       page_table=page_table, packed=packed, rows=rows,
+                       page_table=page_table, packed=packed, mask=mask,
                        impl=impl)
     return x

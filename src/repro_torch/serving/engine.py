@@ -54,16 +54,19 @@ reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
 exactly where the reference counts them, so the port's step, preemption
 and dispatch counts equal the reference engine's for the same requests.
 
-The steps whose shapes the geometry alone fixes run through
+Every step runs through
 :class:`~repro_torch.serving.step_graph.StepGraph`, as the reference jits
-them: the unified engine's two packed profiles and the two-dispatch
-decode.  On the card each is one CUDA-graph replay (captured at its first
-use), so there a "dispatch" of those steps is one replay; the two-dispatch
-prefill chunks (one width each), inserts and row resets stay eager, as
-the reference's ``_jit_prefill`` retraces per width.  Every tensor such a
-step reads or writes keeps one address for the engine's lifetime: the
-engine's one ``ModelCache``, the profiles' static inputs (uploaded with one
-non-blocking copy from pinned memory) and their static samples.  With
+them: the unified engine's two packed profiles, and the two-dispatch
+engine's decode, row reset, insert, first-token sample and one prefill
+profile per chunk width (registered at the first chunk of that width, as
+the reference's ``_jit_prefill`` traces once per width).  On the card each
+is one CUDA-graph replay (captured at its first use), so there a
+"dispatch" is one replay; only a copy-on-write fork stays an eager copy.
+Every tensor such a step reads or writes keeps one address for the
+engine's lifetime: the engine's one ``ModelCache`` and one prefill
+scratch, the profiles' static inputs (uploaded with one non-blocking copy
+from pinned memory) and their static outputs (samples, and the prefill
+chunks' (prefill_rows, V) logits, which the first-token sample reads).  With
 ``debug_guards`` the step runs under ``torch.cuda.set_sync_debug_mode(
 "error")`` (the engine's one device->host copy per dispatch exempt), a
 profile captured twice raises, and the paged layout's allocator is audited
@@ -491,6 +494,7 @@ class ServeEngine:
             self._decode_key = f"decode/{config.cache_layout}"
             self._graphs.add(self._decode_key, inputs, nslots,
                              self._decode_fn(inputs.dev))
+            self._add_two_dispatch_profiles()
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
         """Host -> device copy of an eager step's input (always a copy: the
@@ -571,7 +575,7 @@ class ServeEngine:
             self._prefill_pos[row] = req.n_cached
             req.state = "prefill"
             if not self.unified:
-                self._reset_row(row)
+                self._stage_and_run("reset", row=row)
                 self.metrics.dispatches += 1
 
     # -- prefix cache -----------------------------------------------------
@@ -782,47 +786,107 @@ class ServeEngine:
         self._feed_stale = True  # slot churn
 
     # -- two-dispatch device work -----------------------------------------
-    def _reset_row(self, row: int) -> None:
-        """Zero one scratch row (claimed by a newly admitted prompt): its
-        K/V, or an RWKV layer's shift caches and WKV state."""
-        for layer in self.scratch.layers:
-            for t in _tensors(layer):
-                t[row].zero_()
-        self.scratch.lengths[row].zero_()
+    def _add_two_dispatch_profiles(self) -> None:
+        """The row reset, the insert of the engine's layout and the
+        first-token sample, each with its staged indices or sampling
+        parameters, and the static (prefill_rows, V) logits that every
+        prefill chunk writes and the sample reads.  The prefill profiles
+        are added per chunk width at first use (:meth:`_prefill_key`)."""
+        nrows, i32, f32 = self.cfg.prefill_rows, torch.int32, torch.float32
+        self._prefill_logits = torch.zeros(
+            (nrows, self.model.spec.vocab), dtype=self.model.dtype,
+            device=self.device)
+        inputs = Staged({"row": ((1,), i32)}, self.device)
+        self._graphs.add("reset", inputs, None, self._reset_fn(inputs.dev))
+        fields = {"slot": ((1,), i32), "row": ((1,), i32)}
+        if self.paged:
+            fields["pages"] = ((self.max_pages,), i32)
+        inputs = Staged(fields, self.device)
+        self._insert_key = f"insert/{self.cfg.cache_layout}"
+        self._graphs.add(self._insert_key, inputs, None,
+                         self._insert_fn(inputs.dev))
+        inputs = Staged({"temps": ((nrows,), f32), "topks": ((nrows,), i32),
+                         "topps": ((nrows,), f32)}, self.device)
+        self._graphs.add("sample/first", inputs, nrows,
+                         self._sample_first_fn(inputs.dev))
 
-    def _prefill_masked(self, tokens: np.ndarray, rows: list[int]
-                        ) -> torch.Tensor:
-        """One batched chunk over all scratch rows; only ``rows`` advance
-        (the others, idle or mid-prefill at another width, keep their K/V
-        and lengths).  Returns the (prefill_rows, V) last-position logits."""
-        logits, self.scratch = self.model.prefill_chunk(
-            self.scratch, self._up(tokens),
-            rows=self._up(np.asarray(rows, np.int64)))
-        return logits
+    def _stage_and_run(self, key: str, **values) -> torch.Tensor | None:
+        """Write ``values`` into profile ``key``'s staged host views (each
+        field whole), upload them and run the profile; returns its static
+        output."""
+        inputs = self._graphs.profiles[key].inputs
+        h = inputs.write()
+        for name, value in values.items():
+            h[name][...] = value
+        inputs.upload()
+        return self._graphs.run(key)
 
-    def _insert(self, slot: int, row: int) -> None:
-        """Copy scratch row ``row`` (K/V or RWKV state, and length) into
-        decode slot ``slot`` of the dense cache."""
-        for big, small in zip(self.cache.layers, self.scratch.layers):
-            for b, s in zip(_tensors(big), _tensors(small)):
-                b[slot].copy_(s[row])
-        self.cache.lengths[slot] = self.scratch.lengths[row]
+    def _reset_fn(self, inp: dict[str, torch.Tensor]):
+        """The reset profile's step: zero scratch row ``row`` (claimed by a
+        newly admitted prompt): its K/V, or an RWKV layer's shift caches and
+        WKV state, and its length."""
+        def step() -> None:
+            row = inp["row"].long()
+            for layer in self.scratch.layers:
+                for t in _tensors(layer):
+                    t.index_fill_(0, row, 0)
+            self.scratch.lengths.index_fill_(0, row, 0)
+        return step
 
-    def _insert_paged(self, slot: int, row: int, pages: np.ndarray) -> None:
-        """Scatter scratch row ``row`` into the pool pages named by
-        ``pages`` (attention layers), copy its RWKV state into slot
-        ``slot`` (paging never applies to state), and install the slot's
-        length and page-table row on the device (so the table needs no
-        separate upload)."""
-        pages_dev = self._up(pages)
-        for big, small in zip(self.cache.layers, self.scratch.layers):
-            if isinstance(big, PagedAttnCache):
-                paged_insert_rows(big, small, row, pages_dev)
-            else:
+    def _prefill_key(self, w: int) -> str:
+        """Profile ``prefill/<w>``, registered at the first chunk of width
+        ``w``: its staged (prefill_rows, w) tokens and (prefill_rows,) row
+        mask; it writes the static logits."""
+        key = f"prefill/{w}"
+        if key not in self._graphs.profiles:
+            inputs = Staged({"tokens": ((self.cfg.prefill_rows, w),
+                                        torch.int32),
+                             "mask": ((self.cfg.prefill_rows,), torch.int32)},
+                            self.device)
+            self._graphs.add(key, inputs, self._prefill_logits,
+                             self._prefill_fn(inputs.dev))
+        return key
+
+    def _prefill_fn(self, inp: dict[str, torch.Tensor]):
+        """A prefill profile's step: one batched chunk over all scratch
+        rows; only the masked rows advance (the others, idle or mid-prefill
+        at another width, keep their K/V and lengths).  Returns the
+        (prefill_rows, V) last-position logits."""
+        def step() -> torch.Tensor:
+            logits, _ = self.model.prefill_chunk(self.scratch, inp["tokens"],
+                                                 mask=inp["mask"] != 0)
+            return logits
+        return step
+
+    def _insert_fn(self, inp: dict[str, torch.Tensor]):
+        """The insert profile's step: copy scratch row ``row`` (K/V or RWKV
+        state, and length) into decode slot ``slot``.  In the paged layout
+        the attention layers' K/V are scattered into the pool pages named by
+        ``pages`` instead (paging never applies to RWKV state), and the
+        slot's page-table row is installed on the device, so the table
+        needs no separate upload."""
+        def step() -> None:
+            slot, row = inp["slot"].long(), inp["row"].long()
+            for big, small in zip(self.cache.layers, self.scratch.layers):
+                if isinstance(big, PagedAttnCache):
+                    paged_insert_rows(big, small, row, inp["pages"])
+                    continue
                 for b, s in zip(_tensors(big), _tensors(small)):
-                    b[slot].copy_(s[row])
-        self.cache.lengths[slot] = self.scratch.lengths[row]
-        self.cache.page_table[slot] = pages_dev
+                    b.index_copy_(0, slot, s.index_select(0, row))
+            self.cache.lengths.index_copy_(
+                0, slot, self.scratch.lengths.index_select(0, row))
+            if self.paged:
+                self.cache.page_table.index_copy_(0, slot,
+                                                  inp["pages"][None])
+        return step
+
+    def _sample_first_fn(self, inp: dict[str, torch.Tensor]):
+        """The first-token sample's step: per-row sampling of the static
+        prefill logits."""
+        def step() -> torch.Tensor:
+            return sample_slots(self._prefill_logits, inp["temps"],
+                                inp["topks"], inp["topps"], self.generator)
+        return step
 
     def _sync_page_table(self) -> None:
         """Copy the host page table into the cache's one table tensor."""
@@ -847,11 +911,14 @@ class ServeEngine:
             self._prefill_chunk_group(w, groups[w])
 
     def _prefill_chunk_group(self, w: int, rows: list[int]) -> None:
+        """One replay of ``prefill/<w>`` with the group's rows masked in."""
         toks = np.zeros((self.cfg.prefill_rows, w), np.int32)
+        mask = np.zeros((self.cfg.prefill_rows,), np.int32)
         for row in rows:
             lo = self._prefill_pos[row]
             toks[row] = self._src(self._prefills[row])[lo:lo + w]
-        logits = self._prefill_masked(toks, rows)
+            mask[row] = 1
+        self._stage_and_run(self._prefill_key(w), tokens=toks, mask=mask)
         self.metrics.prefill_calls += 1
         self.metrics.prefill_tokens += w * len(rows)
         self.metrics.dispatches += 1
@@ -861,12 +928,12 @@ class ServeEngine:
             if self._prefill_pos[row] >= len(self._src(self._prefills[row])):
                 finishing.append(row)
         if finishing:
-            self._finish_prefills(finishing, logits)
+            self._finish_prefills(finishing)
 
-    def _finish_prefills(self, rows: list[int], logits: torch.Tensor
-                         ) -> None:
-        """Sample first tokens for the completing prompts (one batched call,
-        one transfer) and move them into decode slots."""
+    def _finish_prefills(self, rows: list[int]) -> None:
+        """Sample first tokens for the completing prompts from the static
+        prefill logits (one replay, one transfer) and move them into decode
+        slots."""
         nrows = self.cfg.prefill_rows
         temps = np.zeros((nrows,), np.float32)
         topks = np.zeros((nrows,), np.int32)
@@ -876,9 +943,8 @@ class ServeEngine:
             temps[row] = s.temperature
             topks[row] = s.top_k
             topps[row] = s.top_p
-        first = self._pull(sample_slots(logits, self._up(temps),
-                                        self._up(topks), self._up(topps),
-                                        self.generator))
+        first = self._pull(self._stage_and_run(
+            "sample/first", temps=temps, topks=topks, topps=topps))
         self.metrics.dispatches += 1
         self.metrics.transfers_d2h += 1
         now = time.perf_counter()
@@ -886,12 +952,10 @@ class ServeEngine:
         def install(req, slot, row):
             """Device insert: copy the scratch row into the decode cache
             (scattered into the request's pages in the paged layout)."""
+            values = dict(slot=slot, row=row)
             if self.paged:
-                pages = self._ptab_row(req.rid)
-                self._ptab[slot] = pages
-                self._insert_paged(slot, row, pages)
-            else:
-                self._insert(slot, row)
+                values["pages"] = self._ptab[slot] = self._ptab_row(req.rid)
+            self._stage_and_run(self._insert_key, **values)
             self.metrics.dispatches += 1
 
         for row in rows:
@@ -924,14 +988,12 @@ class ServeEngine:
             if not self.active:
                 return
         if self._feed_stale:
-            inputs = self._graphs.profiles[self._decode_key].inputs
-            inputs.host["feed"][:] = self._tokens
-            inputs.host["temps"][:] = self._temps
-            inputs.host["topks"][:] = self._topks
-            inputs.host["topps"][:] = self._topps
-            inputs.upload()
             self._feed_stale = False
-        toks = self._pull(self._graphs.run(self._decode_key))
+            toks = self._pull(self._stage_and_run(
+                self._decode_key, feed=self._tokens, temps=self._temps,
+                topks=self._topks, topps=self._topps))
+        else:
+            toks = self._pull(self._graphs.run(self._decode_key))
         self.metrics.decode_steps += 1
         self.metrics.dispatches += 1
         self.metrics.transfers_d2h += 1
@@ -974,7 +1036,7 @@ class ServeEngine:
         nslots, csize = self.cfg.max_slots, self.cfg.chunk_size
         key = "unified/mixed" if self._prefills else "unified/decode"
         inputs = self._graphs.profiles[key].inputs
-        h = inputs.host
+        h = inputs.write()
         for a in h.values():
             a.fill(0)
         h["topps"].fill(1.0)
@@ -1055,7 +1117,7 @@ class ServeEngine:
         nslots, csize = self.cfg.max_slots, self.cfg.chunk_size
         key = "spec/mixed" if self._prefills else "spec/decode"
         inputs = self._graphs.profiles[key].inputs
-        h = inputs.host
+        h = inputs.write()
         for a in h.values():
             a.fill(0)
         h["topps"].fill(1.0)
@@ -1171,8 +1233,10 @@ class ServeEngine:
             self.metrics.start_t = time.perf_counter()
         self.steps += 1
         self.metrics.steps += 1
-        self._admit()
+        # admission is guarded too: a two-dispatch admission resets its
+        # scratch row with one replay
         with self._step_guard():
+            self._admit()
             if self.speculator is not None:
                 self._spec_step()
             elif self.unified:

@@ -1,13 +1,19 @@
 """CUDA-graph replay of the serving engine's static-shape steps: the port's
-counterpart of the reference's jitted steady-state steps (``_jit_unified``,
-``_jit_unified_decode`` and ``_jit_decode`` in ``repro.serving.engine``).
+counterpart of the reference's jitted steps (``_jit_unified``,
+``_jit_unified_decode``, ``_jit_decode``, ``_jit_prefill``, ``_jit_insert``,
+``_jit_insert_paged``, ``_jit_reset_row`` and ``_jit_sample`` in
+``repro.serving.engine``).
 
 A *profile* is one step whose shapes the engine's geometry alone fixes:
 the unified engine's mixed and decode-only packed steps, and the
-two-dispatch engine's decode.  Each is registered under a key with its
-static inputs (:class:`Staged`) and a function that reads and writes only
-those, the engine's one ``ModelCache`` and its generator, and returns the
-step's sampled tokens.
+two-dispatch engine's decode, row reset, insert, first-token sample and
+prefill chunk (one profile per chunk width, registered at the first chunk
+of that width, as the reference traces ``_jit_prefill`` once per width).
+Each is registered under a key with its static inputs (:class:`Staged`)
+and a function that reads and writes only those, the engine's caches and
+its generator, and returns the step's result, which the profile copies
+into its static output (or returns nothing, where its writes are the
+result).
 
 On a card engine a profile's first use runs the step eagerly on a side
 stream (a warm-up that is this step's real work: libraries load, cuBLAS
@@ -64,19 +70,25 @@ class Staged:
     ``fields`` maps each name to (shape, dtype), every dtype 4 bytes wide
     (int32 or float32).  The fields lie back to back in one device buffer
     (``dev[name]``: the tensors a capture binds) and in one host buffer,
-    pinned on a card engine (``host[name]``: numpy views to write).
-    ``upload()`` is one non-blocking copy on the current stream.  The
-    engine writes the host views only after the step's device-to-host copy
-    of its samples, which orders those writes after the previous upload.
+    pinned on a card engine (``host[name]``: numpy views).  ``upload()`` is
+    one non-blocking copy on the current stream, which reads the pinned
+    buffer only when the stream reaches it; on the card it records an event
+    after the copy.  ``write()`` waits for that event before it hands out
+    the host views, so a write never lands in a buffer whose last upload
+    is still queued (two prefill-only steps in a row copy nothing back to
+    the host between their uploads).
     """
 
     def __init__(self, fields: dict[str, tuple[tuple[int, ...],
                                                torch.dtype]],
                  device: torch.device):
         total = sum(math.prod(shape) for shape, _ in fields.values())
+        self.device = device
         self._host = torch.zeros((total,), dtype=torch.int32,
                                  pin_memory=device.type == "cuda")
         self._dev = torch.zeros((total,), dtype=torch.int32, device=device)
+        self._uploaded = (torch.cuda.Event() if device.type == "cuda"
+                          else None)
         self.host: dict[str, np.ndarray] = {}
         self.dev: dict[str, torch.Tensor] = {}
         lo = 0
@@ -87,17 +99,33 @@ class Staged:
             self.dev[name] = self._dev[lo:hi].view(dtype).view(shape)
             lo = hi
 
+    def write(self) -> dict[str, np.ndarray]:
+        """The host views, once the last upload has read them (an explicit
+        wait on the card, exempt from the debug guard)."""
+        if self._uploaded is not None:
+            with sync_mode(self.device, 0):
+                self._uploaded.synchronize()
+        return self.host
+
     def upload(self) -> None:
         self._dev.copy_(self._host, non_blocking=True)
+        if self._uploaded is not None:
+            self._uploaded.record()
 
 
 @dataclass
 class _Profile:
     inputs: Staged
-    fn: Callable[[], torch.Tensor]
-    out: torch.Tensor  # the step's samples, written by the step's last op
+    fn: Callable[[], torch.Tensor | None]
+    out: torch.Tensor | None  # the step's result, written by its last op
     graph: torch.cuda.CUDAGraph | None = None
     delta: launches.Counts | None = None  # the capture's kernel launches
+
+    def step(self) -> None:
+        """The step's work: ``fn()``, its result copied into ``out``."""
+        result = self.fn()
+        if self.out is not None:
+            self.out.copy_(result)
 
 
 class StepGraph:
@@ -116,20 +144,26 @@ class StepGraph:
         self.profiles: dict[str, _Profile] = {}
         self.captures: dict[str, int] = {}
         self.capture_s = 0.0  # host seconds spent inside the captures
+        # host seconds of the whole binds: each first use's eager run and,
+        # on a graph engine, its GC, cache release and capture
+        self.bind_s = 0.0
         self.pool_bytes = 0  # reserved device memory the captures added
         self._pool = None
 
-    def add(self, key: str, inputs: Staged, n_out: int,
-            fn: Callable[[], torch.Tensor]) -> None:
+    def add(self, key: str, inputs: Staged, out: int | torch.Tensor | None,
+            fn: Callable[[], torch.Tensor | None]) -> None:
         """Register profile ``key``: ``fn()`` runs one step on ``inputs``
-        and returns its (n_out,) int32 samples."""
-        self.profiles[key] = _Profile(
-            inputs, fn, torch.zeros((n_out,), dtype=torch.int32,
-                                    device=self.device))
+        and returns its result, which each use copies into ``out``: a
+        static tensor of the result's shape and dtype, an int n for (n,)
+        int32 samples, or None where ``fn`` returns nothing (its writes
+        into the caches are the step's result)."""
+        if isinstance(out, int):
+            out = torch.zeros((out,), dtype=torch.int32, device=self.device)
+        self.profiles[key] = _Profile(inputs, fn, out)
 
-    def run(self, key: str) -> torch.Tensor:
+    def run(self, key: str) -> torch.Tensor | None:
         """One step of profile ``key`` (its inputs uploaded by the caller);
-        returns the static (n_out,) samples."""
+        returns its static output."""
         p = self.profiles[key]
         if key not in self.captures:
             self.capture(key)
@@ -137,7 +171,7 @@ class StepGraph:
             p.graph.replay()
             launches.add(p.delta)
         else:
-            p.out.copy_(p.fn())
+            p.step()
         return p.out
 
     def capture(self, key: str) -> None:
@@ -150,9 +184,14 @@ class StepGraph:
                 f"are {sorted(self.profiles)}): a profile's shapes depend "
                 "only on the engine geometry, so it is captured once")
         self.captures[key] = 1
-        p = self.profiles[key]
+        t_bind = time.perf_counter()
+        self._bind(self.profiles[key])
+        self.bind_s += time.perf_counter() - t_bind
+
+    def _bind(self, p: _Profile) -> None:
+        """The first use's work: the step, then its capture."""
         if not self.graphs:
-            p.out.copy_(p.fn())
+            p.step()
             return
         # a capture synchronises the device: lift a debug guard around it
         with sync_mode(self.device, 0):
@@ -160,7 +199,7 @@ class StepGraph:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                p.out.copy_(p.fn())
+                p.step()
             cur.wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -179,7 +218,7 @@ class StepGraph:
             gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=self._pool):
-                    p.out.copy_(p.fn())
+                    p.step()
             finally:
                 if gc_on:
                     gc.enable()

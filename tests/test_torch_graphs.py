@@ -76,6 +76,27 @@ def _cfg(cls, mode, **kw):
     return cls(**base)
 
 
+def _record_widths(jeng):
+    """Wrap the JAX engine's ``_jit_prefill``: returns the set of chunk
+    widths it is called with (one trace each), filled as the engine
+    steps."""
+    widths: set[int] = set()
+    jit = jeng._jit_prefill
+
+    def recorded(params, scratch, tokens, mask):
+        widths.add(int(tokens.shape[1]))
+        return jit(params, scratch, tokens, mask)
+    jeng._jit_prefill = recorded
+    return widths
+
+
+def _two_dispatch_keys(layout, widths):
+    """The profiles a two-dispatch engine binds: its decode, row reset,
+    insert and first-token sample, and one prefill per chunk width."""
+    return ({f"decode/{layout}", "reset", f"insert/{layout}",
+             "sample/first"} | {f"prefill/{w}" for w in widths})
+
+
 def _count_runs(eng):
     """Wrap the engine's StepGraph.run: returns {key: uses}, filled as the
     engine steps."""
@@ -112,6 +133,7 @@ def test_static_tensor_steps_match_jax(arch, mode, tight):
     prompts = [rng.integers(0, jspec.vocab, size=n).tolist()
                for n in lengths]
     jeng = JaxServeEngine(jmodel, params, _cfg(JaxEngineConfig, mode, **kw))
+    widths = _record_widths(jeng)
     jreqs = jeng.serve([JaxRequest(prompt=list(p), max_new_tokens=m)
                         for p, m in zip(prompts, max_new)])
     teng = ServeEngine(tmodel, _cfg(EngineConfig, mode, **kw), device="cpu")
@@ -125,14 +147,13 @@ def test_static_tensor_steps_match_jax(arch, mode, tight):
             name
     m = teng.metrics
     assert m.preemptions > 0 if tight else m.peak_active == 2
-    # every profile step went through the step graph, each profile bound
-    # once at its first use
+    # every dispatch went through the step graph, each profile bound once
+    # at its first use, one prefill profile per width the reference traced
     want = ({"unified/mixed", "unified/decode"} if mode == "unified"
-            else {f"decode/{MODES[mode]['cache_layout']}"})
+            else _two_dispatch_keys(MODES[mode]["cache_layout"], widths))
     assert set(runs) == want == set(teng._graphs.captures)
     assert set(teng._graphs.captures.values()) == {1}
-    assert sum(runs.values()) == (m.dispatches if mode == "unified"
-                                  else m.decode_steps)
+    assert sum(runs.values()) == m.dispatches
     if teng.paged:
         teng.pager.check()
         assert teng.pager.pages_in_use == 0
@@ -140,8 +161,9 @@ def test_static_tensor_steps_match_jax(arch, mode, tight):
 
 def _pointers(eng) -> dict[str, int]:
     """The address of every tensor a captured step reads or writes: the
-    cache's lengths, page table and layer tensors, and each profile's
-    static inputs and samples (the two-dispatch feed among them)."""
+    cache's lengths, page table and layer tensors, the two-dispatch
+    scratch's, and each profile's static inputs and output (the
+    two-dispatch feed and prefill logits among them)."""
     c = eng.cache
     out = {"lengths": c.lengths.data_ptr()}
     if c.page_table is not None:
@@ -149,8 +171,14 @@ def _pointers(eng) -> dict[str, int]:
     for i, layer in enumerate(c.layers):
         for name, t in vars(layer).items():
             out[f"layer{i}.{name}"] = t.data_ptr()
+    if eng.scratch is not None:
+        out["scratch.lengths"] = eng.scratch.lengths.data_ptr()
+        for i, layer in enumerate(eng.scratch.layers):
+            for name, t in vars(layer).items():
+                out[f"scratch{i}.{name}"] = t.data_ptr()
     for key, p in eng._graphs.profiles.items():
-        out[f"{key}.out"] = p.out.data_ptr()
+        if p.out is not None:
+            out[f"{key}.out"] = p.out.data_ptr()
         for name, t in p.inputs.dev.items():
             out[f"{key}.{name}"] = t.data_ptr()
     return out
@@ -161,28 +189,46 @@ def _pointers(eng) -> dict[str, int]:
     ("minitron-8b", "dense"), ("rwkv6-3b", "paged"), ("rwkv6-3b", "dense")])
 def test_captured_tensors_keep_their_addresses(arch, mode):
     """Across slot churn and preemption, every tensor a captured step binds
-    keeps its data_ptr() and the engine keeps its one ModelCache."""
+    keeps its data_ptr() from the step its profile is registered on (the
+    prefill profiles at their first chunk), and the engine keeps its one
+    ModelCache and its one scratch."""
     spec = treg.get_reduced(arch)
     model = build_model(spec, device="cpu", dtype=torch.float32, seed=3)
     eng = ServeEngine(model, _cfg(EngineConfig, mode, max_slots=3,
                                   max_seq=32, page_size=4, n_pages=10),
                       device="cpu")
-    cache, start = eng.cache, _pointers(eng)
+    cache, scratch, seen = eng.cache, eng.scratch, _pointers(eng)
     names = {"lengths", "unified/mixed.tokens", "unified/mixed.positions",
              "unified/mixed.q_len", "unified/mixed.kv_len",
              "unified/mixed.seg_ptab", "unified/mixed.temps",
              "unified/mixed.topks", "unified/mixed.topps"} \
-        if mode == "unified" else {"lengths", f"decode/{mode}.feed"}
-    assert names <= set(start)
+        if mode == "unified" else {
+            "lengths", f"decode/{mode}.feed", "scratch.lengths",
+            "scratch0.k" if arch == "minitron-8b" else "scratch0.wkv",
+            "reset.row", f"insert/{mode}.slot", f"insert/{mode}.row",
+            "sample/first.temps", "sample/first.topks", "sample/first.topps",
+            "sample/first.out"} | ({"insert/paged.pages"} if mode == "paged"
+                                   else set())
+    assert names <= set(seen)
     rng = np.random.default_rng(1)
     for n in TIGHT[0] + CHURN[0]:
         eng.submit(Request(prompt=rng.integers(0, spec.vocab, n).tolist(),
                            max_new_tokens=8))
     while eng.busy:
         eng.step()
-        assert eng.cache is cache
-        assert _pointers(eng) == start
+        assert eng.cache is cache and eng.scratch is scratch
+        now = _pointers(eng)
+        assert {key: now.get(key) for key in seen} == seen
+        seen = now
     assert all(r.state == "done" for r in eng.finished)
+    if mode != "unified":
+        # every width's chunk writes the one logits buffer the sample reads
+        prefill = {key for key in seen if key.startswith("prefill/")}
+        assert {key.split(".")[0] for key in prefill} == {
+            key for key in eng._graphs.profiles if key.startswith("prefill/")}
+        assert len(prefill) > 3
+        assert {seen[key] for key in prefill if key.endswith(".out")} == {
+            eng._prefill_logits.data_ptr()}
     if eng.paged:
         assert eng.metrics.preemptions > 0
 
@@ -215,8 +261,9 @@ def test_debug_guards_unified_matches_guard_off():
 
 
 def test_debug_guards_two_dispatch_slot_churn():
-    """Across slot churn the two-dispatch engine binds its one decode
-    profile exactly once."""
+    """Across slot churn the two-dispatch engine binds each of its
+    profiles exactly once: the decode, the row reset, the insert, the
+    first-token sample and the one chunk width (3) of these prompts."""
     eng = ServeEngine(_tiny_model(),
                       EngineConfig(max_slots=2, max_seq=64, chunk_size=8,
                                    debug_guards=True), device="cpu")
@@ -224,7 +271,8 @@ def test_debug_guards_two_dispatch_slot_churn():
             for i in range(5)]  # > max_slots: forces churn
     eng.serve(reqs)
     assert all(r.state == "done" for r in reqs)
-    assert eng._graphs.captures == {"decode/dense": 1}
+    assert eng._graphs.captures == dict.fromkeys(
+        _two_dispatch_keys("dense", {3}), 1)
 
 
 @pytest.mark.parametrize("mode", ["unified", "paged"])

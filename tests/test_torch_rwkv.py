@@ -330,7 +330,7 @@ def test_prefill_chunk_rows_and_decode_match_jax(pair, layout):
         lengths=jnp.where(mask, jnew.lengths, jcache.lengths),
         page_table=jcache.page_table)
     tlogits, tcache = tmodel.prefill_chunk(tcache, torch.from_numpy(toks),
-                                           rows=torch.tensor([1]))
+                                           mask=torch.tensor([False, True]))
     np.testing.assert_allclose(tlogits.numpy()[1], np.asarray(jlogits)[1],
                                atol=LOGITS_ATOL, rtol=0)
     assert tcache.lengths.tolist() == [6, 9]

@@ -122,8 +122,9 @@ def test_dense_prefill_chunk_and_decode_match_jax(arch):
 
 
 def test_prefill_chunk_rows_keep_the_others_bit_for_bit(tiny):
-    """The masked chunk writes only the named rows: the other row's K/V and
-    length are untouched, and the named row equals an unmasked run."""
+    """The masked chunk writes only the selected rows: the other row's K/V
+    and length are untouched, and the selected row equals an unmasked
+    run."""
     _, _, _, tmodel = tiny
     rng = np.random.default_rng(2)
     cache = tmodel.init_cache(2, T, layout="dense")
@@ -133,7 +134,7 @@ def test_prefill_chunk_rows_keep_the_others_bit_for_bit(tiny):
     lengths = cache.lengths.clone()
     toks = torch.from_numpy(rng.integers(0, 256, (2, 3)))
     _, masked = tmodel.prefill_chunk(cache, toks,
-                                     rows=torch.tensor([1]))
+                                     mask=torch.tensor([False, True]))
     assert masked.lengths.tolist() == [lengths[0].item(),
                                        lengths[1].item() + 3]
     for (k0, v0), layer in zip(before, masked.layers):
@@ -179,7 +180,8 @@ def test_paged_insert_and_decode_match_jax(tiny):
         for slot in (0, 1):
             jpaged = jax_paged_insert_rows(jpaged, jdense, slot,
                                            jnp.asarray(ptab[slot]))
-            paged_insert_rows(tl, sl, slot, torch.from_numpy(ptab[slot]))
+            paged_insert_rows(tl, sl, torch.tensor([slot]),
+                              torch.from_numpy(ptab[slot]))
         jk.append(jpaged.k)
         jv.append(jpaged.v)
     live = sorted(int(p) for p in ptab.ravel() if p)
