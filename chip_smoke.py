@@ -168,6 +168,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 capture inside its serve; then serve_profile of the dense
                 replay engine (warmed the same way), where flash launches
                 most
+  serve_kvq     the int8 KV cache (kv_quant) on the same weights and the
+                same 8 requests, the replay engine in all three modes
+                (warmed as above): K/V quantized on every write, and every
+                read through the kernels over the dequantized view (one
+                pass per tensor into buffers the layers share); launch
+                counts exact: ragged n_layers x (2 x mixed + decode-only)
+                (unified), flash n_layers x (prefill calls + decode steps)
+                and paged decode 0 (paged two-dispatch: the quantized
+                decode gathers the slots' pages and runs flash at Sq = 1,
+                the reference's gather route), flash n_layers x (prefill
+                calls + decode steps) (dense), all on the tensor-core
+                route; each line gives kv_reserved_bytes, peak memory and
+                the engine's own memory beside the unquantized serve's,
+                TTFT, TPOT, tokens/s, host and device ms per step; a
+                kvq_vs_full line per mode: how many bf16 outputs equal
+                the unquantized ones, and each parting's top-2 logit gap
+                under the full-precision model (recorded, not required);
+                then serve_profile of each
+                quantized engine (classes kv_dequantize and gather beside
+                the kernels)
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
                 served on the replay engine through the kernels and with
                 the plain versions selected explicitly, and on the eager
@@ -185,6 +205,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 set to 1e9 in every layer after the fork; a 48-page pool
                 that must evict cached pages against the cache-off engine;
                 and the cache-on serve under debug_guards
+  kvq_parity    the int8 KV cache at minitron-8b widths, 2 layers, float32,
+                on the eager engine (the quantized replay engines are held
+                by serve_kvq and debug_guards), each mode through the
+                kernels and the plain versions, and
+                the paged two-dispatch layout against the dense one: exact
+                up to TIE_GAP; the unified step against each two-dispatch
+                layout recorded, beside the first layer's K/V projected in
+                the unified and the two-dispatch batch shapes: the f32
+                values differing in any bit, and the int8 codes that
+                differ (a whole scale step each)
   spec_parity   speculative decoding at minitron-8b widths, 2 layers,
                 float32, K = 4, exact up to TIE_GAP: self-draft and
                 perturbed draft against spec off, through the kernels and
@@ -200,7 +230,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 gap of 2e-3) against the engine's greedy outputs; the spec
                 engine under debug_guards
   debug_guards  minitron-8b widths at 2 layers in bf16, the unified and the
-                paged two-dispatch replay engines with
+                paged two-dispatch replay engines, each in full precision
+                and with the int8 KV cache, with
                 EngineConfig(debug_guards=True): token-identical to the
                 unguarded engines; a .item() inside the step guard raises
                 (torch.cuda.set_sync_debug_mode("error")); binding a
@@ -214,7 +245,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 mixed steps + decode-only steps); then serve_profile of the
                 replay engine
   serve_parity  again at deepseek-moe-16b widths, 2 layers, float32
+  kvq_parity    again at deepseek-moe-16b widths, 2 layers, float32
   spec_parity   again at deepseek-moe-16b widths, 2 layers, float32
+  kvq_parity    again at mistral-7b-swa widths (window 4096), 2 layers,
+                float32, in the dense and paged two-dispatch layouts (the
+                latter serves a window only with the int8 cache)
   serve_rwkv    rwkv6-3b at its published width (32 RWKV-6 layers, random
                 bf16 weights drawn on the card from a seed, the token-shift
                 mixes and the bonus drawn non-zero) through the dense and
@@ -242,6 +277,7 @@ of the JAX package.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -278,8 +314,13 @@ SPIN_CYCLES = 5_000_000  # ~3 ms at H100 clocks: longer than any enqueue
 DEV = "cuda"
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1157,6 +1198,8 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
     from repro_torch.serving import EngineConfig, ServeEngine
     cfg = EngineConfig(**GEOMETRY, **MODES[mode], n_spec=n_spec)
     reqs = make_requests(spec, 8, MAX_NEW, seed=0)
+    gc.collect()
+    mem_before_engine = torch.cuda.memory_allocated()
     if warm:
         prompts = None if cfg.unified else [r.prompt for r in reqs]
         eng, captures = warmed_engine(model, cfg, mode, graphs=graphs,
@@ -1169,6 +1212,7 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated()
     reset_launches()
     t0 = time.perf_counter()
     eng.serve(reqs)
@@ -1224,6 +1268,10 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
                  bind_s=eng._graphs.bind_s,
                  graph_pool_mb=eng._graphs.pool_bytes / 2 ** 20,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 mem_at_start_gb=mem_at_start / 1e9,
+                 engine_mem_gb=(mem_at_start - mem_before_engine) / 1e9,
+                 kv_quant=model.kv_quant,
+                 kv_reserved_bytes=eng.kv_stats()["kv_reserved_bytes"],
                  launches=counts, routes=routes)
     if n_spec:
         stats.update(n_spec=n_spec, spec_rounds=m.spec_rounds,
@@ -1288,10 +1336,10 @@ def _expect_tensor_cores(mode, routes, kernel, n):
                              f"expected all {n} on the tensor cores")
 
 
-def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
+def phase_serve_unified(torch, model, spec, init_s, phase):
     """The unified engine, eager and replayed, then the replay engine's
     profile (``phase`` names the serves' lines); returns the replay
-    serve's kernel launch counts."""
+    serve's stats (its kernel launch counts among them) and outputs."""
     from repro_torch.serving import EngineConfig
 
     def expect(m, stats):
@@ -1310,12 +1358,12 @@ def phase_serve_unified(torch, model, spec, init_s, phase) -> dict:
         stats.update(mixed_steps=mixed, decode_only_steps=decode_only)
 
     n_params = sum(p.numel() for p in model.parameters())
-    replay, _ = serve_eager_and_replay(
+    replay = serve_eager_and_replay(
         torch, model, spec, "unified", phase, expect, params=n_params,
         weight_gb=n_params * 2 / 1e9, init_s=init_s)
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["unified"]))
-    return replay["launches"]
+    return replay
 
 
 def build_full(torch, arch):
@@ -1436,12 +1484,13 @@ def replay_counted(torch, model, spec, trace, prefix_cache):
     return eng, stats, reqs
 
 
-def _divergences(torch, model, a, b):
+def _divergences(torch, model, a, b, gaps=None):
     """Where the replays ``a`` and ``b`` (lists of requests) part: each
     differing request's first differing position, whether its resolved
     prompt was the same (a follow-up turn's prompt carries its parent's
-    output), and where it was, the top-2 logit gap there."""
-    out = []
+    output), and where it was, the top-2 logit gap there (kept in ``gaps``
+    by the tokens before it, when given, for the caller's next call)."""
+    out, gaps = [], {} if gaps is None else gaps
     for i, (x, y) in enumerate(zip(a, b)):
         if x.output == y.output:
             continue
@@ -1449,9 +1498,11 @@ def _divergences(torch, model, a, b):
                   if s != t), min(len(x.output), len(y.output)))
         d = {"request": i, "position": j, "same_prompt": x.prompt == y.prompt}
         if d["same_prompt"]:
-            top2 = _last_logits(torch, model,
-                                x.prompt + x.output[:j]).topk(2).values
-            d["top2_gap"] = float(top2[0] - top2[1])
+            key = tuple(x.prompt + x.output[:j])
+            if key not in gaps:
+                top2 = _last_logits(torch, model, list(key)).topk(2).values
+                gaps[key] = float(top2[0] - top2[1])
+            d["top2_gap"] = gaps[key]
         out.append(d)
     return out
 
@@ -1633,13 +1684,13 @@ def serve_cold(torch, model, spec, mode, phase, expect, **info) -> None:
     free(torch)
 
 
-def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
+def phase_serve_two_dispatch(torch, model, spec) -> dict:
     """The two-dispatch engine in both layouts, eager and replayed (every
     prefill chunk, row reset, insert, first-token sample and decode one
     replay), a cold dense serve whose captures fall inside it, then the
-    dense replay engine's profile; returns each warm replay serve's kernel
-    launch counts.  Every flash call of the bf16 model must take the
-    tensor-core route."""
+    dense replay engine's profile; returns {layout: (stats, outputs)} of
+    each warm replay serve (its kernel launch counts among the stats).
+    Every flash call of the bf16 model must take the tensor-core route."""
     from repro_torch.serving import EngineConfig
 
     def expect_for(mode):
@@ -1659,15 +1710,89 @@ def phase_serve_two_dispatch(torch, model, spec) -> list[dict]:
                                      want[kernel])
         return expect
 
-    out = [serve_eager_and_replay(torch, model, spec, mode,
-                                  "serve_two_dispatch",
-                                  expect_for(mode))[0]["launches"]
-           for mode in ("paged", "dense")]
+    out = {mode: serve_eager_and_replay(torch, model, spec, mode,
+                                        "serve_two_dispatch",
+                                        expect_for(mode))
+           for mode in ("paged", "dense")}
     serve_cold(torch, model, spec, "dense", "serve_two_dispatch",
                expect_for("dense"))
     phase_serve_profile(torch, model, spec,
                         EngineConfig(**GEOMETRY, **MODES["dense"]))
     return out
+
+
+def phase_serve_kvq(torch, model, spec, base) -> list[dict]:
+    """The int8 KV cache on the main paths: the same weights (``model``
+    with ``kv_quant`` set for the phase) and the same 8 requests through
+    the replay engine in all three modes, warmed as the unquantized serves
+    were.  Launch counts exact in each run, each attention call on its
+    kernel's tensor-core route over the dequantized view: ragged n_layers x
+    (2 x mixed + decode-only) (unified); flash n_layers x (prefill calls +
+    decode steps) and paged decode 0 (paged two-dispatch: the quantized
+    decode takes the reference's gather route, flash at Sq = 1); flash
+    n_layers x (prefill calls + decode steps) (dense).  Each mode's line
+    gives kv_reserved_bytes, peak memory and the engine's own memory (what
+    its construction and warm-up left allocated) beside the unquantized
+    serve's
+    (``base[mode]``: its replay stats and outputs), TTFT, TPOT, tokens/s,
+    host and device ms per step; a kvq_vs_full line per mode gives how many
+    of the 8 bf16 outputs equal the unquantized ones and, where they part,
+    the full-precision model's top-2 logit gap there (recorded, not
+    required); then serve_profile of each quantized replay engine (the
+    dequantize, the gather and the attention kernels as classes of their
+    own).  Returns each run's kernel launch counts."""
+    from repro_torch.serving import EngineConfig
+
+    def expect_for(mode):
+        def expect(m, stats):
+            n = spec.n_layers
+            if mode == "unified":
+                mixed = m.prefill_calls
+                kernel, want = "ragged_paged_attention", {
+                    "ragged_paged_attention":
+                        n * (2 * mixed + m.dispatches - mixed)}
+            else:
+                kernel, want = "flash_attention", {
+                    "flash_attention": n * (m.prefill_calls
+                                            + m.decode_steps)}
+            _expect(f"serve_kvq {mode}", stats["launches"], want)
+            _expect_tensor_cores(f"serve_kvq {mode}", stats["routes"],
+                                 kernel, want[kernel])
+        return expect
+
+    prompts = [r.prompt for r in make_requests(spec, 8, MAX_NEW, seed=0)]
+    keys = ("tokens_per_s", "ttft_s_mean", "tpot_s_mean", "host_ms_per_step",
+            "device_ms_per_step", "device_ms_by_class", "peak_mem_gb",
+            "mem_at_start_gb", "engine_mem_gb", "kv_reserved_bytes")
+    launches, outs = [], {}
+    model.kv_quant = True
+    try:
+        for mode in MODES:
+            eng, stats, outs[mode] = serve_counted(torch, model, spec, mode)
+            expect_for(mode)(eng.metrics, stats)
+            full = base[mode][0]
+            emit("serve_kvq", model=spec.name, **stats, full={
+                k: full[k] for k in keys},
+                 kv_bytes_ratio=stats["kv_reserved_bytes"]
+                 / full["kv_reserved_bytes"],
+                 peak_mem_saved_gb=full["peak_mem_gb"] - stats["peak_mem_gb"],
+                 engine_mem_saved_gb=full["engine_mem_gb"]
+                 - stats["engine_mem_gb"])
+            launches.append(stats["launches"])
+            del eng
+            free(torch)
+        for mode in MODES:
+            phase_serve_profile(torch, model, spec,
+                                EngineConfig(**GEOMETRY, **MODES[mode]))
+    finally:
+        model.kv_quant = False
+    gaps = {}  # the layouts part at the same tokens: one forward each
+    for mode in MODES:
+        parted = _divergences(torch, model, _as_requests(prompts, outs[mode]),
+                              _as_requests(prompts, base[mode][1]), gaps)
+        emit("kvq_vs_full", model=spec.name, mode=mode,
+             identical=len(prompts) - len(parted), diverged=parted)
+    return launches
 
 
 def phase_decode_op(torch) -> dict:
@@ -1737,7 +1862,10 @@ def _kernel_class(name: str) -> str:
     walk (attn_tc_*) names its caller's addressing type: the ragged
     kernel's and the paged decode's contain their names, and the dense one
     counts as flash (no serve calls the dense decode, its other user); the
-    CUDA-core split-KV combine belongs to the paged decode."""
+    CUDA-core split-KV combine belongs to the paged decode.  The int8 KV
+    cache's dequantize (an elementwise product that casts) and the gather
+    kernels (the quantized paged decode's page gather among them) are
+    classes of their own."""
     n = name.lower()
     if "ragged_paged" in n:
         return "ragged_attention"
@@ -1754,7 +1882,13 @@ def _kernel_class(name: str) -> str:
         return "matmul"
     if "sort" in n or "radix" in n:
         return "sampling_sort"
-    if "index" in n or "scatter" in n or "gather" in n:
+    if "mulfunctor" in n and "gpu_kernel_impl<" in n:
+        # the one product that casts its operands: int8 codes times f32
+        # scales into the compute dtype (every other product is nocast)
+        return "kv_dequantize"
+    if "gather" in n:
+        return "gather"
+    if "index" in n or "scatter" in n:
         return "index"
     if "memcpy" in n or "memset" in n:
         return "copy"
@@ -1809,45 +1943,93 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
              if cfg.unified else dict(decode_steps=m.decode_steps,
                                       prefill_calls=m.prefill_calls))
     emit("serve_profile", model=spec.name, layout=cfg.cache_layout,
-         unified=cfg.unified, steps=m.steps, **steps,
-         dispatches=m.dispatches,
+         unified=cfg.unified, kv_quant=model.kv_quant, steps=m.steps,
+         **steps, dispatches=m.dispatches,
          wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3),
          kernel_launches=launches, graph_launches=graph_launches,
          device_ms_by_class=dict(sorted(by_class.items(),
-                                        key=lambda kv: -kv[1])))
+                                        key=lambda kv: -kv[1])),
+         device_ms_per_step_by_class={c: ms / m.steps
+                                      for c, ms in by_class.items()})
 
 
-def _last_logits(torch, model, tokens):
-    """Logits after ``tokens`` through the packed step alone: one prefill
-    segment walked chunk by chunk on a fresh cache (plain attention).  An
-    attention-free stack has no packed step: its chunks run through
-    ``prefill_chunk`` on a fresh one-row dense cache."""
+def _prefill_alone(torch, model, tokens, packed=True):
+    """``tokens`` as one request's prompt, walked chunk by chunk on a fresh
+    cache of the model's (int8 when ``model.kv_quant``): through the packed
+    step on a one-request pool (``packed``), or through ``prefill_chunk``
+    on a one-row dense cache (an attention-free stack, or a sliding window,
+    has no packed step).  Returns the last chunk's logits and the cache."""
     from repro_torch.models.attention import PackedSegs
     chunk, ps = GEOMETRY["chunk_size"], GEOMETRY["page_size"]
-    if model.spec.is_attention_free:
+    spec = model.spec
+    if not packed or spec.is_attention_free or spec.attn.kind == "swa":
         cache = model.init_cache(1, GEOMETRY["max_seq"], layout="dense")
         for lo in range(0, len(tokens), chunk):
             toks = torch.tensor([tokens[lo:lo + chunk]], device=DEV)
             logits, cache = model.prefill_chunk(cache, toks)
-        return logits[0].float()
+        return logits, cache
     max_pages = GEOMETRY["max_seq"] // ps
     cache = model.init_cache(1, GEOMETRY["max_seq"], page_size=ps,
                              n_pages=max_pages + 1)
-    ptab = torch.arange(1, max_pages + 1, dtype=torch.int32,
-                        device=DEV)[None]
+    cache.page_table.copy_(torch.arange(1, max_pages + 1, dtype=torch.int32,
+                                        device=DEV)[None])
     logits = None
     for lo in range(0, len(tokens), chunk):
         w = min(chunk, len(tokens) - lo)
-        packed = PackedSegs(
+        segs = PackedSegs(
             q_start=torch.zeros(1, dtype=torch.int32, device=DEV),
             q_len=torch.tensor([w], dtype=torch.int32, device=DEV),
             kv_len=torch.tensor([lo + w], dtype=torch.int32, device=DEV),
-            page_table=ptab, max_q=chunk)
+            page_table=cache.page_table, max_q=chunk)
         toks = torch.tensor(tokens[lo:lo + w], device=DEV)
         pos = torch.arange(lo, lo + w, dtype=torch.int32, device=DEV)
-        logits, cache = model.unified_step(cache, toks, pos, packed)
-    return logits[0].float()
+        logits, cache = model.unified_step(cache, toks, pos, segs)
+    return logits, cache
+
+
+def _last_logits(torch, model, tokens):
+    """Logits after ``tokens`` (see ``_prefill_alone``; plain attention
+    where the caller selected it)."""
+    return _prefill_alone(torch, model, tokens)[0][0].float()
+
+
+def _code_flips(torch, model, prompts):
+    """The first layer's K/V of each prompt's first chunk, projected inside
+    the unified step's packed batch (T = max_slots + prefill_rows x chunk
+    rows, the chunk at prefill row 0's offset) and inside the two-dispatch
+    prefill's (prefill_rows, chunk) batch, then quantized: how many f32
+    values differ in any bit between the two (the same products in GEMMs
+    of other shapes), how many int8 codes differ, and by how much at most
+    (a code flip moves a dequantized value by a whole scale step)."""
+    from repro_torch.models.attention import _project_qkv, _quantize_kv
+    g = GEOMETRY
+    chunk, slots, rows = g["chunk_size"], g["max_slots"], g["prefill_rows"]
+    mixer = model.layers[0].mixer
+    d = dict(values=0, values_differing=0, codes_differing=0,
+             max_code_diff=0)
+    for tokens in prompts:
+        x = model.embed[torch.tensor(tokens[:chunk], device=DEV)]
+        w = x.shape[0]
+        pos = torch.arange(w, device=DEV)
+        packed = x.new_zeros((slots + rows * chunk, x.shape[1]))
+        packed[slots:slots + w] = x
+        ppos = torch.zeros(packed.shape[0], dtype=torch.long, device=DEV)
+        ppos[slots:slots + w] = pos
+        scratch = x.new_zeros((rows, w, x.shape[1]))
+        scratch[0] = x
+        _, ku, vu = _project_qkv(model.spec, mixer, packed, ppos)
+        _, kt, vt = _project_qkv(model.spec, mixer, scratch,
+                                 pos.expand(rows, w))
+        for a, b in ((ku[slots:slots + w], kt[0]), (vu[slots:slots + w],
+                                                     vt[0])):
+            d["values"] += a.numel()
+            d["values_differing"] += int((a != b).sum())
+            diff = (_quantize_kv(a)[0].int()
+                    - _quantize_kv(b)[0].int()).abs()
+            d["codes_differing"] += int((diff > 0).sum())
+            d["max_code_diff"] = max(d["max_code_diff"], int(diff.max()))
+    return d
 
 
 def _ties(torch, model, prompts, a, b, what, tie_gap=TIE_GAP):
@@ -1937,6 +2119,62 @@ def phase_serve_parity(torch, arch) -> None:
          requests=len(prompts),
          tokens=sum(len(o) for o in outs[modes[0], "kernel"]),
          comparisons=comparisons)
+    del model
+    free(torch)
+
+
+def phase_kvq_parity(torch, arch, modes=tuple(MODES)) -> None:
+    """The int8 KV cache at ``arch``'s widths, 2 layers, float32, on the
+    eager engine (serve_kvq and debug_guards hold the quantized replay
+    engines): each of ``modes`` through the kernels and with the plain
+    versions selected explicitly, and the paged two-dispatch layout against
+    the dense one (the same GEMM shapes write the same codes); greedy
+    outputs token-identical, or parting only at a genuine tie (top-2 logit
+    gap under TIE_GAP, of the quantized model).  The unified step against
+    each two-dispatch layout is recorded, not required: its K/V come from
+    GEMMs of other shapes, whose f32 results differ in their last bits, and
+    the int8 rounding turns such a difference into a whole code step
+    wherever a value sits near a rounding boundary; the line gives those
+    comparisons beside the code flips between the two paths' caches for
+    the same prompts."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    spec = get_spec(arch).scaled(name=f"{arch}-2l", n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1,
+                        kv_quant=True)
+    outs = {}
+    for mode in modes:
+        for impl in ("kernel", "plain"):
+            model.kernel_impl = impl
+            reqs = make_requests(spec, 8, 16, seed=5)
+            ServeEngine(model, EngineConfig(**GEOMETRY, **MODES[mode]),
+                        device=DEV, graphs=False).serve(reqs)
+            outs[mode, impl] = [r.output for r in reqs]
+            prompts = [r.prompt for r in reqs]
+    model.kernel_impl = "plain"
+    required = [((mode, "kernel"), (mode, "plain")) for mode in modes]
+    if {"paged", "dense"} <= set(modes):
+        required.append((("paged", "kernel"), ("dense", "kernel")))
+    comparisons, recorded = {}, {}
+    for a, b in required:
+        what = f"kvq {'/'.join(a)} vs {'/'.join(b)}"
+        comparisons[what] = {
+            "identical": sum(x == y for x, y in zip(outs[a], outs[b])),
+            "ties": _ties(torch, model, prompts, outs[a], outs[b], what)}
+    if "unified" in modes:
+        for mode in modes[1:]:
+            a, b = outs["unified", "kernel"], outs[mode, "kernel"]
+            recorded[f"kvq unified/kernel vs {mode}/kernel"] = {
+                "identical": sum(x == y for x, y in zip(a, b)),
+                "diverged": _divergences(torch, model,
+                                         _as_requests(prompts, a),
+                                         _as_requests(prompts, b))}
+        recorded["layer0_unified_vs_two_dispatch"] = _code_flips(
+            torch, model, prompts)
+    emit("kvq_parity", model=spec.name, dtype="float32", kv_quant=True,
+         requests=len(prompts), comparisons=comparisons, recorded=recorded)
     del model
     free(torch)
 
@@ -2296,10 +2534,11 @@ def phase_spec_parity(torch, arch) -> None:
 
 def phase_debug_guards(torch) -> None:
     """``debug_guards`` on the card, at minitron-8b's widths and 2 layers in
-    bf16, in the unified and the paged two-dispatch replay engines: a
-    guarded serve is token-identical to an unguarded one, a ``.item()`` on
-    a card tensor inside ``_step_guard()`` raises, and binding a profile
-    again, or a key of no profile, raises "recapture"."""
+    bf16, in the unified and the paged two-dispatch replay engines, each in
+    full precision and with the int8 KV cache: a guarded serve is
+    token-identical to an unguarded one, a ``.item()`` on a card tensor
+    inside ``_step_guard()`` raises, and binding a profile again, or a key
+    of no profile, raises "recapture"."""
     from repro_torch.configs import get_spec
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, ServeEngine
@@ -2307,7 +2546,9 @@ def phase_debug_guards(torch) -> None:
     spec = get_spec("minitron-8b").scaled(name="minitron-8b-2l",
                                           n_layers=2)
     model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=1)
-    for mode in ("unified", "paged"):
+    for mode, quant in itertools.product(("unified", "paged"),
+                                         (False, True)):
+        model.kv_quant = quant
         outs = {}
         for guards in (False, True):
             eng = ServeEngine(model, EngineConfig(
@@ -2316,8 +2557,9 @@ def phase_debug_guards(torch) -> None:
             eng.serve(reqs)
             outs[guards] = [r.output for r in reqs]
         if outs[True] != outs[False]:
-            raise AssertionError(f"debug_guards {mode}: guarded outputs "
-                                 "differ from unguarded ones")
+            raise AssertionError(f"debug_guards {mode} kv_quant={quant}: "
+                                 "guarded outputs differ from unguarded "
+                                 "ones")
         try:
             with eng._step_guard():
                 eng.cache.lengths.sum().item()
@@ -2337,7 +2579,7 @@ def phase_debug_guards(torch) -> None:
         if len(recapture) != 2:
             raise AssertionError(f"debug_guards {mode}: binding again did "
                                  f"not raise for {recapture}")
-        emit("debug_guards", model=spec.name, mode=mode,
+        emit("debug_guards", model=spec.name, mode=mode, kv_quant=quant,
              requests=len(reqs), identical=True, steps=eng.steps,
              captures=eng._graphs.captures, item_raised=armed,
              recapture_raised=recapture)
@@ -2415,25 +2657,30 @@ def main(argv: list[str]) -> int:
     serves = [phase_decode_op(torch)]
 
     spec, model, init_s = build_full(torch, "minitron-8b")
-    serves.append(phase_serve_unified(torch, model, spec, init_s,
-                                      "serve_full"))
+    full = {"unified": phase_serve_unified(torch, model, spec, init_s,
+                                           "serve_full")}
     serves += phase_serve_prefix(torch, model, spec)
     serves += phase_serve_spec(torch, model, spec)
-    serves += phase_serve_two_dispatch(torch, model, spec)
-    del model
+    full.update(phase_serve_two_dispatch(torch, model, spec))
+    serves += [stats["launches"] for stats, _ in full.values()]
+    serves += phase_serve_kvq(torch, model, spec, full)
+    del model, full
     free(torch)
     phase_serve_parity(torch, "minitron-8b")
+    phase_kvq_parity(torch, "minitron-8b")
     phase_prefix_parity(torch)
     phase_spec_parity(torch, "minitron-8b")
     phase_debug_guards(torch)
 
     spec, model, init_s = build_full(torch, "deepseek-moe-16b")
     serves.append(phase_serve_unified(torch, model, spec, init_s,
-                                      "serve_moe"))
+                                      "serve_moe")[0]["launches"])
     del model
     free(torch)
     phase_serve_parity(torch, "deepseek-moe-16b")
+    phase_kvq_parity(torch, "deepseek-moe-16b")
     phase_spec_parity(torch, "deepseek-moe-16b")
+    phase_kvq_parity(torch, "mistral-7b-swa", modes=("dense", "paged"))
 
     spec, model, init_s = build_full(torch, "rwkv6-3b")
     serves += phase_serve_rwkv(torch, model, spec, init_s)

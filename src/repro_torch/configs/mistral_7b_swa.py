@@ -1,6 +1,7 @@
 """mistral-7b-swa: 32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=32000,
 sliding-window attention W=4096.  The port serves it through the dense
-two-dispatch engine, whose flash attention applies the window.
+two-dispatch engine, whose flash attention applies the window, and, with
+the int8 KV cache, through the paged one too.
 [arXiv:2310.06825]
 """
 

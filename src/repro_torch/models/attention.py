@@ -23,6 +23,15 @@ into the caches in place (no copy of a cache per layer per step).  Writes
 clamp where the reference's ``dynamic_update_slice`` does, so an idle slot
 whose length has run past the cache writes at its last position, never
 outside its own row.
+
+int8 KV cache (``quantized=True``; the reference's ``kv_quant``): ``k``/``v``
+hold int8 codes and ``k_scale``/``v_scale`` the f32 absmax/127 scale of each
+(token, KV head).  Every write quantizes (:func:`_quantize_kv`); every read
+dequantizes (:func:`_dequantize_kv`, one pass per tensor) into buffers that
+all layers of one cache share (``views``, one pair per shape), and the
+attention kernels read that view: the ragged kernel for the packed step,
+the flash kernel for the paged decode's gathered slots and for the dense
+cache.
 """
 
 from __future__ import annotations
@@ -60,25 +69,45 @@ class PackedSegs:
 
 @dataclass
 class AttnCache:
-    """Per-layer dense KV cache: ``k``/``v`` are (B, T, Hkv, Dh)."""
+    """Per-layer dense KV cache: ``k``/``v`` are (B, T, Hkv, Dh); int8
+    with the (B, T, Hkv) f32 ``k_scale``/``v_scale`` when quantized (None
+    for the full-precision cache)."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def _zeros_kv(cls, shape, device, dtype, quantized: bool):
+    """A cache of ``cls`` whose K/V have ``shape``: ``dtype`` zeros, or int8
+    codes and f32 scales of ``shape[:-1]`` (the reference's layout)."""
+    if not quantized:
+        return cls(k=torch.zeros(shape, device=device, dtype=dtype),
+                   v=torch.zeros(shape, device=device, dtype=dtype))
+    codes = [torch.zeros(shape, device=device, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.zeros(shape[:-1], device=device, dtype=torch.float32)
+              for _ in range(2)]
+    return cls(*codes, *scales)
 
 
 def init_attn_cache(spec: ModelSpec, batch: int, max_len: int, device,
-                    dtype) -> AttnCache:
-    shape = (batch, max_len, spec.n_kv_heads, spec.d_head)
-    return AttnCache(k=torch.zeros(shape, device=device, dtype=dtype),
-                     v=torch.zeros(shape, device=device, dtype=dtype))
+                    dtype, quantized: bool = False) -> AttnCache:
+    return _zeros_kv(AttnCache,
+                     (batch, max_len, spec.n_kv_heads, spec.d_head),
+                     device, dtype, quantized)
 
 
 @dataclass
 class PagedAttnCache:
     """Per-layer paged KV pool: ``k``/``v`` are (n_pages, Hkv, page_size,
-    Dh).  Page 0 is the reserved null page (see
-    :mod:`repro_torch.serving.paging`)."""
+    Dh); int8 with the (n_pages, Hkv, page_size) f32 ``k_scale``/
+    ``v_scale`` pools when quantized.  Page 0 is the reserved null page
+    (see :mod:`repro_torch.serving.paging`)."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def page_size(self) -> int:
@@ -86,27 +115,113 @@ class PagedAttnCache:
 
 
 def init_paged_attn_cache(spec: ModelSpec, n_pages: int, page_size: int,
-                          device, dtype) -> PagedAttnCache:
-    shape = (n_pages, spec.n_kv_heads, page_size, spec.d_head)
-    return PagedAttnCache(k=torch.zeros(shape, device=device, dtype=dtype),
-                          v=torch.zeros(shape, device=device, dtype=dtype))
+                          device, dtype, quantized: bool = False
+                          ) -> PagedAttnCache:
+    return _zeros_kv(PagedAttnCache,
+                     (n_pages, spec.n_kv_heads, page_size, spec.d_head),
+                     device, dtype, quantized)
+
+
+def kv_tensors(cache: AttnCache | PagedAttnCache) -> list[torch.Tensor]:
+    """K, V and, when quantized, their scales: every tensor of the cache,
+    each with the batch (or page) axis first."""
+    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+            if t is not None]
 
 
 def paged_insert_rows(paged: PagedAttnCache, dense: AttnCache,
                       row: torch.Tensor, pages: torch.Tensor) -> None:
     """Scatter dense scratch row ``row`` (a (1,) device tensor, so that one
     capture serves every row) into the pool pages named by ``pages`` (in
-    place).  ``pages`` is the (max_pages,) page ids covering the request,
-    0-padded: the row's tail lands on the null page, many times over, which
-    leaves page 0 holding one of those writes and no other request's page
-    touched.  T must equal max_pages * page_size."""
+    place), the scales with the codes when quantized.  ``pages`` is the
+    (max_pages,) page ids covering the request, 0-padded: the row's tail
+    lands on the null page, many times over, which leaves page 0 holding
+    one of those writes and no other request's page touched.  T must equal
+    max_pages * page_size."""
     ps = paged.page_size
     idx = pages.long()
-    for pool, scr in ((paged.k, dense.k), (paged.v, dense.v)):
-        col = scr[row.long()]  # (1, T, Hkv, Dh)
+    for pool, scr in zip(kv_tensors(paged), kv_tensors(dense), strict=True):
+        col = scr[row.long()]  # (1, T, Hkv, ...)
         chunks = col.reshape((idx.shape[0], ps) + tuple(scr.shape[2:]))
-        # (mp, ps, Hkv, Dh) -> the pool's resident (mp, Hkv, ps, Dh)
+        # (mp, ps, Hkv, ...) -> the pool's resident (mp, Hkv, ps, ...)
         pool[idx] = chunks.transpose(1, 2).to(pool.dtype)
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., H, D) -> int8 codes and (..., H) f32 scales, the reference's
+    arithmetic: absmax over D in f32 over 127 (0 maps to 1.0), the values
+    divided by it, rounded half to even and clamped to [-127, 127]."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    scale = torch.where(scale == 0, 1.0, scale)
+    codes = torch.round(xf / scale[..., None]).clamp_(-127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """``(codes.float() * scale[..., None]).to(dtype)`` in one pass: the
+    product in f32, rounded once into ``dtype`` (into ``out`` when
+    given)."""
+    if out is None:
+        out = torch.empty(codes.shape, dtype=dtype, device=codes.device)
+    return torch.mul(codes, scale[..., None], out=out)
+
+
+def _view_pair(views: dict, shape: tuple[int, ...], dtype,
+               device) -> list[torch.Tensor]:
+    """The K and V buffers of ``shape`` in ``views`` that every layer of
+    one cache dequantizes into (made at the first read of that shape, then
+    reused: a step's replays read and write the same memory)."""
+    key = (tuple(shape), dtype)
+    if key not in views:
+        views[key] = [torch.empty(shape, dtype=dtype, device=device)
+                      for _ in range(2)]
+    return views[key]
+
+
+def _stores(cache: AttnCache | PagedAttnCache, k: torch.Tensor,
+            v: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(destination, new values) of one write, in ``kv_tensors`` order: K
+    and V in the cache's dtype or, quantized, their codes and scales."""
+    if cache.k_scale is None:
+        new = [k.to(cache.k.dtype), v.to(cache.v.dtype)]
+    else:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        new = [kq, vq, ks, vs]
+    return list(zip(kv_tensors(cache), new))
+
+
+def _dequantized(cache: AttnCache | PagedAttnCache, views: dict,
+                 dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole cache's K/V as attention reads them: the tensors
+    themselves, or, quantized, dequantized into the shared view buffers."""
+    if cache.k_scale is None:
+        return cache.k, cache.v
+    kb, vb = _view_pair(views, cache.k.shape, dtype, cache.k.device)
+    return (_dequantize_kv(cache.k, cache.k_scale, dtype, out=kb),
+            _dequantize_kv(cache.v, cache.v_scale, dtype, out=vb))
+
+
+def _gathered(cache: PagedAttnCache, page_table: torch.Tensor,
+              views: dict, dtype) -> list[torch.Tensor]:
+    """A quantized pool's K/V of the slots the (B, max_pages) table names,
+    dequantized into the shared (B, max_pages * page_size, Hkv, Dh) view
+    buffers in the reference's ``paged_gather`` linearization: one gather
+    of the codes and scales, then one pass that reads them through the
+    page-to-token transpose and writes the view (out-of-range ids clamp,
+    as the reference's gather does)."""
+    b, mp = page_table.shape
+    p, hkv, ps, dh = cache.k.shape
+    idx = page_table.long().clamp(0, p - 1)
+    bufs = _view_pair(views, (b, mp * ps, hkv, dh), dtype, cache.k.device)
+    for codes, scale, buf in zip((cache.k, cache.v),
+                                 (cache.k_scale, cache.v_scale), bufs):
+        # (B, mp, Hkv, ps, ...) -> (B, mp, ps, Hkv, ...), strided
+        _dequantize_kv(codes[idx].transpose(2, 3),
+                       scale[idx].transpose(2, 3), dtype,
+                       out=buf.view(b, mp, ps, hkv, dh))
+    return bufs
 
 
 class Attention(nn.Module):
@@ -155,11 +270,14 @@ def _project_qkv(spec: ModelSpec, params: Attention, x: torch.Tensor,
 
 def _packed_paged_attention(cache: PagedAttnCache, q: torch.Tensor,
                             k: torch.Tensor, v: torch.Tensor,
-                            packed: PackedSegs, impl: str) -> torch.Tensor:
-    """Write every packed token's K/V into its request's pages (position
-    ``kv_len - q_len + i`` for token i of its segment; tokens outside any
-    live segment land on the null page), then attend each segment against
-    the pages it owns.  Returns (T, Hq, Dh)."""
+                            packed: PackedSegs, impl: str,
+                            views: dict) -> torch.Tensor:
+    """Write every packed token's K/V (quantized: codes and scales) into its
+    request's pages (position ``kv_len - q_len + i`` for token i of its
+    segment; tokens outside any live segment land on the null page), then
+    attend each segment against the pages it owns; a quantized pool is
+    attended through its dequantized view of the whole pool, as the
+    reference reads it.  Returns (T, Hq, Dh)."""
     ps = cache.page_size
     t = q.shape[0]
     s_count, max_pages = packed.page_table.shape
@@ -175,24 +293,25 @@ def _packed_paged_attention(cache: PagedAttnCache, q: torch.Tensor,
     page_ids = torch.where(valid, packed.page_table.long()[seg, pos // ps],
                            0)
     offs = pos % ps
-    cache.k[page_ids, :, offs] = k.to(cache.k.dtype)
-    cache.v[page_ids, :, offs] = v.to(cache.v.dtype)
+    for dst, new in _stores(cache, k, v):
+        dst[page_ids, :, offs] = new
+    ka, va = _dequantized(cache, views, q.dtype)
 
     nd, dq = packed.n_decode, packed.decode_q
     if 0 < nd < s_count and packed.max_q > dq:
         # static decode/prefill split: the nd decode segments run at
         # max_q=decode_q instead of dragging a chunk-wide query tile
         o_dec = kops.ragged_paged_attention(
-            q[:nd * dq], cache.k, cache.v, packed.page_table[:nd],
+            q[:nd * dq], ka, va, packed.page_table[:nd],
             packed.q_start[:nd], packed.q_len[:nd], packed.kv_len[:nd],
             max_q=dq, impl=impl)
         o_pre = kops.ragged_paged_attention(
-            q[nd * dq:], cache.k, cache.v, packed.page_table[nd:],
+            q[nd * dq:], ka, va, packed.page_table[nd:],
             packed.q_start[nd:] - nd * dq, packed.q_len[nd:],
             packed.kv_len[nd:], max_q=packed.max_q, impl=impl)
         return torch.cat([o_dec, o_pre], dim=0)
     return kops.ragged_paged_attention(
-        q, cache.k, cache.v, packed.page_table, packed.q_start,
+        q, ka, va, packed.page_table, packed.q_start,
         packed.q_len, packed.kv_len, max_q=packed.max_q, impl=impl)
 
 
@@ -209,21 +328,26 @@ def _attend(spec: ModelSpec, q: torch.Tensor, k: torch.Tensor,
 def _paged_attention(spec: ModelSpec, cache: PagedAttnCache,
                      q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, page_table: torch.Tensor,
-                     impl: str) -> torch.Tensor:
-    """Paged decode step: scatter the new token's K/V into its page (in
-    place), then attend against the pages the table names.  q: (B, 1, Hq,
-    Dh); k, v: (B, 1, Hkv, Dh)."""
+                     impl: str, views: dict) -> torch.Tensor:
+    """Paged decode step: scatter the new token's K/V (quantized: codes and
+    scales) into its page (in place), then attend against the pages the
+    table names: through the paged decode kernel, or, quantized, through
+    flash at Sq = 1 over the slots' gathered, dequantized view (the
+    reference's gather route, with the spec's window).  q: (B, 1, Hq, Dh);
+    k, v: (B, 1, Hkv, Dh)."""
     if q.shape[1] != 1:
         raise ValueError("the paged layout serves single-token decode; "
                          "prefill runs on a dense scratch cache and is "
                          "paged at insert")
-    if spec.attn.kind == "swa":
+    quant = cache.k_scale is not None
+    if spec.attn.kind == "swa" and not quant:
         # the reference's kernel route here takes no window while its
         # gather route applies one; the two part once a context passes the
-        # window (ROADMAP section 3)
+        # window (ROADMAP section 3).  Quantized, it takes the gather route.
         raise NotImplementedError(
             "sliding-window attention in the paged two-dispatch decode "
-            "(ROADMAP: section 3); serve it with cache_layout='dense'")
+            "(ROADMAP: section 3); serve it with cache_layout='dense' or "
+            "the int8 KV cache")
     ps = cache.page_size
     max_pages = page_table.shape[1]
     b = q.shape[0]
@@ -233,8 +357,12 @@ def _paged_attention(spec: ModelSpec, cache: PagedAttnCache,
     page_idx = (pos // ps).clamp(max=max_pages - 1)
     page_ids = page_table.long()[torch.arange(b, device=q.device), page_idx]
     offs = pos % ps
-    cache.k[page_ids, :, offs] = k[:, 0].to(cache.k.dtype)
-    cache.v[page_ids, :, offs] = v[:, 0].to(cache.v.dtype)
+    for dst, new in _stores(cache, k, v):
+        dst[page_ids, :, offs] = new[:, 0]
+    if quant:
+        ka, va = _gathered(cache, page_table, views, q.dtype)
+        return _attend(spec, q, ka, va, kv_len=lengths + 1, q_offset=lengths,
+                       impl=impl)
     return kops.paged_decode_attention(q, cache.k, cache.v, page_table,
                                        lengths + 1, impl=impl)
 
@@ -242,11 +370,12 @@ def _paged_attention(spec: ModelSpec, cache: PagedAttnCache,
 def _dense_cached_attention(spec: ModelSpec, cache: AttnCache,
                             q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths: torch.Tensor,
-                            mask: torch.Tensor | None,
-                            impl: str) -> torch.Tensor:
+                            mask: torch.Tensor | None, impl: str,
+                            views: dict) -> torch.Tensor:
     """Prefill (lengths == 0), chunked-prefill continuation and decode
-    (S == 1) on the dense cache: insert the S new K/V rows at each row's
-    ``lengths`` (in place), then attend causally against the valid prefix.
+    (S == 1) on the dense cache: insert the S new K/V rows (quantized:
+    codes and scales) at each row's ``lengths`` (in place), then attend
+    causally against the valid prefix (quantized: its dequantized view).
     ``mask`` (B,) bool selects the rows whose K/V are written (None: all):
     every row's (B, S) window at its position is gathered, selected against
     the new K/V and scattered back, so an unselected row rewrites its own
@@ -255,24 +384,27 @@ def _dense_cached_attention(spec: ModelSpec, cache: AttnCache,
     b, s = q.shape[:2]
     t = cache.k.shape[1]
     dev = q.device
+
+    def keep(new, old):  # the unselected rows keep their values
+        if mask is None:
+            return new
+        return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new,
+                           old)
+
     if s == t:  # fresh full-width prefill: static insert, attend directly
-        for dst, new in ((cache.k, k), (cache.v, v)):
-            new = new.to(dst.dtype)
-            if mask is not None:
-                new = torch.where(mask[:, None, None, None], new, dst)
-            dst.copy_(new)
+        # over the new (unquantized) K/V, as the reference does
+        for dst, new in _stores(cache, k, v):
+            dst.copy_(keep(new, dst))
         return _attend(spec, q, k, v, impl=impl)
     # start clamped to T - S, as dynamic_update_slice clamps it
     start = lengths.long().clamp(0, t - s)
     rows = torch.arange(b, device=dev)[:, None]
     pos = start[:, None] + torch.arange(s, device=dev)
-    for dst, new in ((cache.k, k), (cache.v, v)):
-        new = new.to(dst.dtype)
-        if mask is not None:
-            new = torch.where(mask[:, None, None, None], new, dst[rows, pos])
-        dst[rows, pos] = new
-    return _attend(spec, q, cache.k, cache.v, kv_len=lengths + s,
-                   q_offset=lengths, impl=impl)
+    for dst, new in _stores(cache, k, v):
+        dst[rows, pos] = keep(new, dst[rows, pos])
+    ka, va = _dequantized(cache, views, q.dtype)
+    return _attend(spec, q, ka, va, kv_len=lengths + s, q_offset=lengths,
+                   impl=impl)
 
 
 def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
@@ -282,6 +414,7 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
                     page_table: torch.Tensor | None = None,
                     packed: PackedSegs | None = None,
                     mask: torch.Tensor | None = None,
+                    views: dict,
                     impl: str = "kernel") -> torch.Tensor:
     """Three cached modes, as the reference's:
 
@@ -293,18 +426,21 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
       * dense (AttnCache, x (B, S, D)): prefill, chunked continuation or
         decode at ``lengths``, writing only the rows ``mask`` selects.
 
-    Returns the attention output (before the residual add)."""
+    ``views`` holds the buffers a quantized cache is dequantized into,
+    shared by the layers of one cache.  Returns the attention output
+    (before the residual add)."""
     if packed is not None and spec.attn.kind == "swa":
         raise NotImplementedError(
             "the packed unified step has no sliding-window masking, as in "
             "the reference")
     q, k, v = _project_qkv(spec, params, x, positions)
     if packed is not None:
-        o = _packed_paged_attention(cache, q, k, v, packed, impl)
+        o = _packed_paged_attention(cache, q, k, v, packed, impl, views)
     elif isinstance(cache, PagedAttnCache):
-        o = _paged_attention(spec, cache, q, k, v, lengths, page_table, impl)
+        o = _paged_attention(spec, cache, q, k, v, lengths, page_table, impl,
+                             views)
     else:
         o = _dense_cached_attention(spec, cache, q, k, v, lengths, mask,
-                                    impl)
+                                    impl, views)
     return o.reshape(tuple(x.shape[:-1]) + (spec.n_heads * spec.d_head,)) \
         @ params.wo

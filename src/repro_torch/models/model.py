@@ -21,7 +21,7 @@ same layers and new lengths.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
@@ -40,10 +40,13 @@ class ModelCache:
     """Serving cache.  ``page_table`` is the (B, max_pages) int32 slot
     table the paged decode reads (None for the dense layout; the packed
     step reads each segment's pages from its ``PackedSegs.page_table``).
-    An RWKV layer's cache is per-slot state in either layout."""
+    An RWKV layer's cache is per-slot state in either layout.  ``views``
+    holds the buffers an int8 cache is dequantized into, one K/V pair per
+    shape, shared by every layer (empty for a full-precision cache)."""
     layers: list[AttnCache | PagedAttnCache | RWKVCache]  # one per layer
     lengths: torch.Tensor  # (B,) int32 valid tokens per slot
     page_table: torch.Tensor | None = None
+    views: dict = field(default_factory=dict)
 
 
 class Model(nn.Module):
@@ -51,9 +54,12 @@ class Model(nn.Module):
     ``kernel_impl`` picks the route of every kernel call, attention and
     expert GEMMs (``kernels.ops.IMPLS``): ``"kernel"`` (the Hopper kernels
     for tensors on the card, the plain versions on the CPU) or ``"plain"``
-    (the plain versions everywhere)."""
+    (the plain versions everywhere).  ``kv_quant`` (the reference's
+    ``ModelContext.kv_quant``) makes :meth:`init_cache` give attention
+    layers int8 K/V with per-(token, head) scales."""
 
     kernel_impl = "kernel"
+    kv_quant = False
 
     def __init__(self, spec: ModelSpec, device: torch.device,
                  dtype: torch.dtype):
@@ -98,8 +104,9 @@ class Model(nn.Module):
         cache per attention layer.  ``layout="paged"``: one (n_pages, Hkv,
         page_size, Dh) pool per attention layer, sized by default to the
         dense reservation plus the null page, and a zero (batch, max_pages)
-        page table.  An RWKV layer gets its per-slot state in both layouts:
-        paging never applies to state."""
+        page table.  With ``kv_quant`` every attention layer's K/V are int8
+        with f32 scales.  An RWKV layer gets its per-slot state in both
+        layouts: paging and quantization never apply to state."""
         dev, spec = self.device, self.spec
         lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
         if layout not in ("dense", "paged"):
@@ -119,9 +126,10 @@ class Model(nn.Module):
             if cls.kind == "rwkv6":
                 return init_rwkv_cache(spec, batch, dev, self.dtype)
             if layout == "dense":
-                return init_attn_cache(spec, batch, max_len, dev, self.dtype)
+                return init_attn_cache(spec, batch, max_len, dev, self.dtype,
+                                       quantized=self.kv_quant)
             return init_paged_attn_cache(spec, n_pages, page_size, dev,
-                                         self.dtype)
+                                         self.dtype, quantized=self.kv_quant)
 
         return ModelCache(layers=[one(cls) for cls in T.layer_classes(spec)],
                           lengths=lengths, page_table=page_table)
@@ -142,11 +150,12 @@ class Model(nn.Module):
                           positions, cache.layers,
                           lengths=torch.zeros((b,), dtype=torch.int32,
                                               device=dev),
-                          impl=self.kernel_impl)
+                          views=cache.views, impl=self.kernel_impl)
         x = x[torch.arange(b, device=dev), lengths.long() - 1]
         return self._logits(x), ModelCache(layers=cache.layers,
                                            lengths=lengths,
-                                           page_table=cache.page_table)
+                                           page_table=cache.page_table,
+                                           views=cache.views)
 
     @torch.no_grad()
     def prefill_chunk(self, cache: ModelCache, tokens: torch.Tensor, *,
@@ -168,7 +177,7 @@ class Model(nn.Module):
         x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
                           positions, cache.layers, lengths=cache.lengths,
                           page_table=cache.page_table, mask=mask,
-                          impl=self.kernel_impl)
+                          views=cache.views, impl=self.kernel_impl)
         if mask is None:
             cache.lengths.add_(s)
         else:
@@ -186,7 +195,8 @@ class Model(nn.Module):
         place; slot lengths written in place for the slots that ran)."""
         x = self.embed[tokens.long()]
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          packed=packed, impl=self.kernel_impl)
+                          packed=packed, views=cache.views,
+                          impl=self.kernel_impl)
         # each segment's logits come from its last valid packed position
         # (inactive segments produce garbage rows the engine ignores)
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
@@ -214,7 +224,8 @@ class Model(nn.Module):
         rejection sampling."""
         x = self.embed[tokens.long()]
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          packed=packed, impl=self.kernel_impl)
+                          packed=packed, views=cache.views,
+                          impl=self.kernel_impl)
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
         # one head product for both, so the head is read once
         n = n_decode * width
@@ -232,7 +243,7 @@ class Model(nn.Module):
         x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
                           cache.lengths[:, None], cache.layers,
                           lengths=cache.lengths, page_table=cache.page_table,
-                          impl=self.kernel_impl)
+                          views=cache.views, impl=self.kernel_impl)
         cache.lengths.add_(1)
         return self._logits(x)[:, 0], cache
 
@@ -243,11 +254,9 @@ def build_model(spec: ModelSpec, device: str | torch.device | None = None,
     """Build ``spec`` with random weights on ``device`` (default: the card;
     raises without one).  Weights are drawn on the device from a generator
     seeded ``seed``, tensor by tensor, so no f32 copy of the whole model
-    ever exists."""
+    ever exists.  ``kv_quant`` gives the model int8 KV caches."""
     dev = resolve_device(device)
-    if kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP: queue 1, item 3)")
     model = Model(spec, dev, dtype)
+    model.kv_quant = kv_quant
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model

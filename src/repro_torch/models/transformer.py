@@ -115,6 +115,7 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 page_table: torch.Tensor | None = None,
                 packed: PackedSegs | None = None,
                 mask: torch.Tensor | None = None,
+                views: dict | None = None,
                 impl: str = "kernel") -> torch.Tensor:
     """Run every layer; each writes its K/V (or its RWKV state) into its own
     cache, in place.  ``impl`` routes every kernel of the stack, attention,
@@ -123,9 +124,11 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
     (B, max_pages) page table; ``packed`` the shared segment table when x
     is a token-packed unified step; ``mask`` the (B,) bool selection of the
     dense rows whose K/V or state a chunk writes (see
-    :func:`attention_block`)."""
+    :func:`attention_block`); ``views`` the dequantize buffers the layers of
+    a quantized cache share (``ModelCache.views``; None: this call's own)."""
+    views = {} if views is None else views
     for layer, cache in zip(layers, caches, strict=True):
         x = _apply_one(spec, layer, x, positions, cache, lengths=lengths,
                        page_table=page_table, packed=packed, mask=mask,
-                       impl=impl)
+                       views=views, impl=impl)
     return x

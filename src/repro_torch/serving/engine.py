@@ -49,6 +49,13 @@ plus one resampled or bonus token, one at a time under the plain decode's
 stop conditions.  The draft's KV pool mirrors the target's page ids, so a
 copy-on-write fork copies the page in both pools.
 
+A model built with ``kv_quant=True`` serves from int8 K/V with f32 scales
+in every mode (:mod:`repro_torch.models.attention`): the scales ride with
+the codes through every row reset, insert, copy-on-write fork and the
+draft's pool, and ``kv_stats`` counts them.  Quantized, the paged
+two-dispatch decode takes the reference's gather route, which applies the
+sliding window, so that layout serves sliding-window models too.
+
 The scheduler is pure Python over host mirrors (numpy), identical to the
 reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
 exactly where the reference counts them, so the port's step, preemption
@@ -64,9 +71,10 @@ is one CUDA-graph replay (captured at its first use), so there a
 "dispatch" is one replay; only a copy-on-write fork stays an eager copy.
 Every tensor such a step reads or writes keeps one address for the
 engine's lifetime: the engine's one ``ModelCache`` and one prefill
-scratch, the profiles' static inputs (uploaded with one non-blocking copy
-from pinned memory) and their static outputs (samples, and the prefill
-chunks' (prefill_rows, V) logits, which the first-token sample reads).  With
+scratch (with their dequantize buffers), the profiles' static inputs
+(uploaded with one non-blocking copy from pinned memory) and their static
+outputs (samples, and the prefill chunks' (prefill_rows, V) logits, which
+the first-token sample reads).  With
 ``debug_guards`` the step runs under ``torch.cuda.set_sync_debug_mode(
 "error")`` (the engine's one device->host copy per dispatch exempt), a
 profile captured twice raises, and the paged layout's allocator is audited
@@ -86,7 +94,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.attention import (AttnCache, PackedSegs, PagedAttnCache,
-                                paged_insert_rows)
+                                kv_tensors, paged_insert_rows)
 from ..models.model import Model
 from .paging import PageAllocator
 from .prefix_cache import PrefixCache
@@ -297,9 +305,10 @@ class EngineMetrics:
 
 
 def _tensors(layer_cache) -> list[torch.Tensor]:
-    """Every tensor of one layer's cache (K/V, or an RWKV layer's state),
-    each with the batch (or page) axis first."""
-    return [getattr(layer_cache, f.name) for f in fields(layer_cache)]
+    """Every tensor of one layer's cache (K/V and, quantized, their scales,
+    or an RWKV layer's state), each with the batch (or page) axis first."""
+    return [t for f in fields(layer_cache)
+            if (t := getattr(layer_cache, f.name)) is not None]
 
 
 def _refuse(what: str, item: str) -> None:
@@ -369,12 +378,12 @@ class ServeEngine:
                 f"sliding-window attention ({spec.name!r}): the unified "
                 "step has no sliding-window masking, as in the reference; "
                 "serve it with cache_layout='dense'")
-        if spec.attn.kind == "swa" and self.paged:
+        if spec.attn.kind == "swa" and self.paged and not model.kv_quant:
             raise NotImplementedError(
                 f"sliding-window attention ({spec.name!r}) in the paged "
                 "two-dispatch decode (ROADMAP: section 3, the reference's "
                 "kernel and gather routes disagree there); serve it with "
-                "cache_layout='dense'")
+                "cache_layout='dense' or the int8 KV cache (kv_quant)")
         if self.paged and config.max_seq % config.page_size:
             raise ValueError("paged layout needs max_seq to be a multiple "
                              "of page_size")
@@ -1278,12 +1287,13 @@ class ServeEngine:
     def kv_stats(self) -> dict:
         """Static + peak KV-capacity numbers: the decode cache's device
         reservation in bytes and the peak bytes holding live tokens (the
-        dense layout's footprint is its reservation).  Attention K/V only,
-        as the reference counts: RWKV state is not KV."""
+        dense layout's footprint is its reservation).  Attention K/V and,
+        quantized, their scales, as the reference counts: RWKV state is not
+        KV."""
         reserved = sum(t.numel() * t.element_size()
                        for layer in self.cache.layers
                        if isinstance(layer, (AttnCache, PagedAttnCache))
-                       for t in (layer.k, layer.v))
+                       for t in kv_tensors(layer))
         out = {"cache_layout": self.cfg.cache_layout,
                "kv_reserved_bytes": reserved}
         if self.paged:

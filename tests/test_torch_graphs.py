@@ -170,12 +170,14 @@ def _pointers(eng) -> dict[str, int]:
         out["page_table"] = c.page_table.data_ptr()
     for i, layer in enumerate(c.layers):
         for name, t in vars(layer).items():
-            out[f"layer{i}.{name}"] = t.data_ptr()
+            if t is not None:  # a full-precision cache has no scales
+                out[f"layer{i}.{name}"] = t.data_ptr()
     if eng.scratch is not None:
         out["scratch.lengths"] = eng.scratch.lengths.data_ptr()
         for i, layer in enumerate(eng.scratch.layers):
             for name, t in vars(layer).items():
-                out[f"scratch{i}.{name}"] = t.data_ptr()
+                if t is not None:
+                    out[f"scratch{i}.{name}"] = t.data_ptr()
     for key, p in eng._graphs.profiles.items():
         if p.out is not None:
             out[f"{key}.out"] = p.out.data_ptr()

@@ -243,9 +243,6 @@ def _paged(**kw):
 def _refusal(case: str) -> None:
     """Construct what ``case`` names; each must raise."""
     base = get_reduced("minitron-8b")
-    if case == "kv-quant":
-        build_model(base, device="cpu", dtype=torch.float32, kv_quant=True)
-        return
     spec = get_reduced("mistral-7b-swa") if case == "swa-paged" else base
     cfg = {"swa-paged": _paged(unified=False),
            "prefix": _paged(prefix_cache=True, unified=False),
@@ -261,12 +258,11 @@ def _refusal(case: str) -> None:
 # ValueError
 @pytest.mark.parametrize("case,exc,match", [
     ("swa-paged", NotImplementedError, "ROADMAP: section 3"),
-    ("kv-quant", NotImplementedError, "ROADMAP: queue 1, item 3"),
     ("prefix", ValueError, "prefix_cache=True requires unified=True"),
     ("spec", ValueError, "n_spec > 0 needs draft_model"),
     ("tp", NotImplementedError, "ROADMAP: queue 1, item 12"),
     ("pp", NotImplementedError, "ROADMAP: queue 1, item 12"),
-], ids=["swa-paged", "kv-quant", "prefix", "spec", "tp", "pp"])
+], ids=["swa-paged", "prefix", "spec", "tp", "pp"])
 def test_engine_refuses_unported_modes(case, exc, match):
     with pytest.raises(exc, match=match):
         _refusal(case)
@@ -281,8 +277,25 @@ def test_model_and_engine_refuse_unported_architectures():
     ssm = base.scaled(n_heads=0, n_kv_heads=0, ssm=SSMSpec())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(ssm, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        build_model(base, device="cpu", dtype=torch.float32, kv_quant=True)
+
+
+def test_paged_two_dispatch_refuses_a_window_only_in_full_precision():
+    """The paged two-dispatch decode refuses a sliding window for the
+    full-precision model (the reference's kernel route drops the window);
+    with the int8 KV cache it takes the reference's gather route, which
+    applies it, and the engine builds."""
+    swa = get_reduced("minitron-8b").scaled(attn=AttnSpec(kind="swa",
+                                                          window=8))
+    for quant in (False, True):
+        model = build_model(swa, device="cpu", dtype=torch.float32,
+                            kv_quant=quant)
+        if quant:
+            assert ServeEngine(model, _paged(unified=False),
+                               device="cpu").paged
+            continue
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP: section 3"):
+            ServeEngine(model, _paged(unified=False), device="cpu")
 
 
 def test_engine_config_keeps_the_reference_field_names():

@@ -104,6 +104,8 @@ def _seeded_scratch(jmodel, tmodel, seed):
         pos = next(k for k, v in jcache.layers.items() if v is jl)
         for f in dataclasses.fields(layer):
             t = getattr(layer, f.name)
+            if t is None:  # a full-precision cache has no scales
+                continue
             x = rng.standard_normal(tuple(t.shape)).astype(np.float32)
             t.copy_(torch.from_numpy(x))
             arr = stacked.setdefault(
@@ -123,7 +125,9 @@ def test_masked_chunk_matches_jax_prefill_masked(arch, w):
     jspec, jmodel, params, tmodel = _pair(arch)
     tcache, jcache = _seeded_scratch(jmodel, tmodel, seed=len(arch) + w)
     before = [{f.name: getattr(layer, f.name).clone()
-               for f in dataclasses.fields(layer)} for layer in tcache.layers]
+               for f in dataclasses.fields(layer)
+               if getattr(layer, f.name) is not None}
+              for layer in tcache.layers]
     toks = np.random.default_rng(w).integers(
         0, jspec.vocab, (ROWS, w)).astype(np.int32)
     jeng = JaxServeEngine(jmodel, params, JaxEngineConfig(
