@@ -188,6 +188,31 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 then serve_profile of each
                 quantized engine (classes kv_dequantize and gather beside
                 the kernels)
+  serve_disagg  P/D disaggregation on the same model: a DisaggCluster
+                (max_seq 2048, 16-token pages, 128-token chunks, 2 prefill
+                rows, 8 decode slots, the device link) serves the 8
+                requests of serve_full, its decode pool unified and then
+                two-dispatch, each cluster warmed first (every profile
+                captured: the prefill pool's mixed step, the decode
+                pool's decode, the page copy): every prompt prefills in
+                the unified prefill engine, exports at its first token,
+                migrates page by page (one replay of the cluster's copy,
+                every tensor of every layer, per migration) and decodes in
+                the decode engine; in each run 8 migrations, every request
+                done, no capture, each engine's profile runs equal its
+                dispatches, and launches exact: ragged n_layers x (2 x
+                mixed + decode-only) over the prefill engine's packed
+                steps and, unified, the decode engine's; two-dispatch,
+                paged decode n_layers x decode steps and flash n_layers x
+                local prefill calls; every call on the tensor-core route;
+                the line gives tokens/s, TTFT with and without migration,
+                TPOT, host ms per cluster step, each engine's device ms per
+                cluster step, migrations, pages, bytes, device ms per copy
+                against its bytes bound, pool utilisation, peak memory, and
+                how many outputs equal serve_full's (recorded)
+  beam          beam search on the same model: beam 4 on one prompt, 16
+                new tokens, the dense cache; flash launches exactly
+                n_layers x (1 prefill + 15 decode steps), tensor-core route
   serve_parity  minitron-8b widths at 2 layers in float32, each engine mode
                 served on the replay engine through the kernels and with
                 the plain versions selected explicitly, and on the eager
@@ -229,6 +254,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 temperature floor of 1e-4 makes it greedy beyond a top-2
                 gap of 2e-3) against the engine's greedy outputs; the spec
                 engine under debug_guards
+  disagg_parity the cluster at minitron-8b widths, 2 layers, float32, with
+                debug_guards, on replay engines, exact up to TIE_GAP: both
+                decode pools through the kernels against the plain
+                versions and against the unified engine; a 32-page decode
+                pool that preempts mid-migration (both decode pools); the
+                source pages set to 1e3 as each migration lands (outputs
+                identical); the int8 KV cache, kernel against plain
+                (required) and against the quantized unified engine
+                (recorded)
+  beam_parity   beam 4 at minitron-8b widths, 2 layers, float32, kernel
+                against plain, without and with an eos id: the same
+                tokens, scores within 1e-4
   debug_guards  minitron-8b widths at 2 layers in bf16, the unified and the
                 paged two-dispatch replay engines, each in full precision
                 and with the int8 KV cache, with
@@ -1096,19 +1133,10 @@ def long_requests(spec, n, max_new, seed):
                     max_new_tokens=max_new) for _ in range(n)]
 
 
-def time_steps(torch, eng):
-    """Time each step of ``eng`` on the host clock (ms), and the device work
-    of each of its profile runs (replayed, or eager with ``graphs=False``)
-    with CUDA events around the engine's ``StepGraph.run``; returns the
-    list of host times and the list of (profile key, event, event), filled
-    as the engine steps."""
-    host, spans = [], []
-    step, run = eng.step, eng._graphs.run
-
-    def timed_step():
-        t0 = time.perf_counter()
-        step()
-        host.append((time.perf_counter() - t0) * 1e3)
+def _timed_runs(torch, graphs):
+    """CUDA events around every ``graphs.run`` (a StepGraph's profile
+    runs): the list of (key, event, event), filled as it runs."""
+    spans, run = [], graphs.run
 
     def timed_run(key):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -1118,9 +1146,25 @@ def time_steps(torch, eng):
         e1.record()
         spans.append((key, e0, e1))
         return out
+    graphs.run = timed_run
+    return spans
+
+
+def time_steps(torch, eng):
+    """Time each step of ``eng`` (an engine, or a DisaggCluster, whose own
+    StepGraph runs its page copies) on the host clock (ms), and the device
+    work of each of its profile runs (replayed, or eager with
+    ``graphs=False``) with CUDA events around its ``StepGraph.run``;
+    returns the list of host times and the list of (profile key, event,
+    event), filled as it steps."""
+    host, step = [], eng.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
     eng.step = timed_step
-    eng._graphs.run = timed_run
-    return host, spans
+    return host, _timed_runs(torch, eng._graphs)
 
 
 def span_stats(spans, steps):
@@ -1793,6 +1837,254 @@ def phase_serve_kvq(torch, model, spec, base) -> list[dict]:
         emit("kvq_vs_full", model=spec.name, mode=mode,
              identical=len(prompts) - len(parted), diverged=parted)
     return launches
+
+
+# the disaggregated cluster's geometry at full width: the serves' page and
+# chunk sizes, 2 prefill rows, 8 decode slots, one idle packed decode lane
+# on the prefill side
+DISAGG = dict(max_seq=2048, page_size=16, chunk_size=128, prefill_rows=2,
+              prefill_slots=1, decode_slots=8)
+
+
+def _fresh_cluster_counters(cl) -> None:
+    """Zero a warmed cluster's counters (its own, its channel's and both
+    engines'), keeping its engines, pools and captured profiles."""
+    from repro_torch.serving import (ClusterMetrics, EngineMetrics,
+                                     KvMigrationChannel)
+    cl.metrics = ClusterMetrics()
+    for eng in (cl.prefill_eng, cl.decode_eng):
+        eng.metrics = EngineMetrics()
+        eng.finished = []
+    cl.channel = KvMigrationChannel(cl.prefill_eng.pager,
+                                    cl.decode_eng.pager, cl._copy_pages,
+                                    cl.page_bytes, link=cl.cfg.link)
+    cl.migration_s = {}
+    cl._finished_at_prefill = []
+
+
+def warmed_cluster(model, decode_unified, **cfg):
+    """A DisaggCluster on ``model`` (DISAGG, ``cfg`` on top) that two
+    requests of 39 prompt tokens and 2 new ones have warmed: on the card
+    every profile the serve will run is captured then (the prefill pool's
+    mixed step, the decode pool's decode, the page copy); its counters
+    zeroed after."""
+    from repro_torch.serving import DisaggCluster, DisaggClusterConfig, Request
+    cl = DisaggCluster(model, DisaggClusterConfig(
+        **DISAGG, decode_unified=decode_unified, **cfg), device=DEV)
+    cl.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)
+              for _ in range(2)])
+    _fresh_cluster_counters(cl)
+    return cl
+
+
+def phase_serve_disagg(torch, model, spec, base_outs) -> list[dict]:
+    """P/D disaggregation on the main path: the 8 main-path requests
+    through a DisaggCluster (DISAGG; the device link) on ``model``, with
+    the decode pool unified and then two-dispatch, each warmed first
+    (``warmed_cluster``): every prompt prefills in the unified prefill
+    engine, exports at its first token, migrates page by page (one replay
+    of the cluster's copy per migration) and decodes in the decode engine.
+    Each run: every request finishes with MAX_NEW tokens, 8 migrations, no
+    profile captured during the serve, each engine's profile runs equal
+    its dispatches, and the launches exact: ragged n_layers x (2 x mixed +
+    decode-only) over the prefill engine's packed steps (each mixed) and,
+    unified, the decode engine's; two-dispatch, paged decode n_layers x
+    decode steps and flash n_layers x local prefill calls (recompute after
+    a preemption); every other kernel 0, every call on the tensor-core
+    route.  The line gives tokens/s, TTFT with and without the migration,
+    TPOT, host ms per cluster step, each engine's device ms per cluster
+    step, the migrations, pages and bytes, the device ms of a copy against
+    its bytes bound (2 x the content pages' bytes at 3.35 TB/s; the copy
+    moves max_pages pages, the padded lanes null page onto null page), the
+    pools' utilisation and peak memory; how many of the 8 bf16 outputs
+    equal ``base_outs`` (serve_full's replay, the unified engine) is
+    recorded, not required.  Returns each run's launch counts."""
+    launches = []
+    for du in (True, False):
+        launches.append(_serve_disagg_once(torch, model, spec, du,
+                                           base_outs))
+        free(torch)
+    return launches
+
+
+def _serve_disagg_once(torch, model, spec, du, base_outs) -> dict:
+    """One run of serve_disagg (decode pool unified when ``du``): its
+    checks and its line; returns its launch counts.  Everything the run
+    made dies with this frame, so the next run's memory is its own."""
+    n = spec.n_layers
+    mode = "unified" if du else "two_dispatch"
+    gc.collect()
+    mem_before = torch.cuda.memory_allocated()
+    cl = warmed_cluster(model, du)
+    pre, dec = cl.prefill_eng, cl.decode_eng
+    captures = {"prefill": dict(pre._graphs.captures),
+                "decode": dict(dec._graphs.captures),
+                "cluster": dict(cl._graphs.captures)}
+    _, pre_spans = time_steps(torch, pre)
+    _, dec_spans = time_steps(torch, dec)
+    host, mig_spans = time_steps(torch, cl)  # cluster steps, page copies
+    reqs = make_requests(spec, 8, MAX_NEW, seed=0)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    cl.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = read_launches(), read_routes()
+    what = f"serve_disagg {mode}"
+    now = {"prefill": pre._graphs.captures, "decode": dec._graphs.captures,
+           "cluster": cl._graphs.captures}
+    if now != captures:
+        raise AssertionError(f"{what}: a profile was bound during the "
+                             f"serve: {now}, warmed {captures}")
+    for r in reqs:
+        if r.state != "done" or len(r.output) != MAX_NEW or any(
+                not 0 <= t < spec.vocab for t in r.output):
+            raise AssertionError(f"{what}: request {r.rid} "
+                                 f"{r.state}, {len(r.output)} tokens")
+    pm, dm, cm = pre.metrics, dec.metrics, cl.metrics
+    s = cl.summary(reqs)
+    if not (s["migrations"] == cm.migration_dispatches == len(mig_spans)
+            == pm.exports == dm.imports == len(reqs)):
+        raise AssertionError(f"{what}: {s['migrations']} migrations, "
+                             f"{cm.migration_dispatches} copies, "
+                             f"{len(mig_spans)} copy runs, "
+                             f"{pm.exports} exports, {dm.imports} "
+                             "imports")
+    for name, eng, spans in (("prefill", pre, pre_spans),
+                             ("decode", dec, dec_spans)):
+        m = eng.metrics
+        if len(spans) != m.dispatches:
+            raise AssertionError(f"{what}: {name} engine ran "
+                                 f"{len(spans)} profiles for "
+                                 f"{m.dispatches} dispatches")
+    runs_pre, ms_pre, _ = span_stats(pre_spans, cm.steps)
+    runs_dec, ms_dec, _ = span_stats(dec_spans, cm.steps)
+    if set(runs_pre) != {"unified"} or pm.dispatches != pm.transfers_d2h:
+        raise AssertionError(f"{what}: prefill engine runs {runs_pre}, "
+                             f"{pm.dispatches} dispatches, "
+                             f"{pm.transfers_d2h} transfers")
+    want = {"ragged_paged_attention":
+            n * (2 * pm.prefill_calls + pm.dispatches - pm.prefill_calls)}
+    if du:
+        want["ragged_paged_attention"] += n * (
+            2 * dm.prefill_calls + dm.dispatches - dm.prefill_calls)
+    else:
+        if (runs_dec.get("prefill", 0), runs_dec.get("decode", 0)) \
+                != (dm.prefill_calls, dm.decode_steps):
+            raise AssertionError(f"{what}: decode engine runs "
+                                 f"{runs_dec}, {dm.prefill_calls} "
+                                 f"prefill calls, {dm.decode_steps} "
+                                 "decode steps")
+        want["paged_decode_attention"] = n * dm.decode_steps
+        want["flash_attention"] = n * dm.prefill_calls
+    _expect(what, counts, want)
+    for kernel, k in want.items():
+        _expect_tensor_cores(what, routes, kernel, k)
+    copy_ms = [a.elapsed_time(b) for _, a, b in mig_spans]
+    bytes_per_copy = s["migrated_bytes"] / s["migrations"]
+    stats = dict(
+        decode_unified=du, requests=len(reqs),
+        prompt_tokens=sum(len(r.prompt) for r in reqs),
+        generated_tokens=s["generated_tokens"], wall_s=wall,
+        tokens_per_s=s["generated_tokens"] / wall,
+        ttft_s_mean=s["ttft_s_mean"],
+        ttft_incl_migration_s_mean=s["ttft_incl_migration_s_mean"],
+        tpot_s_mean=s["tpot_s_mean"], cluster_steps=cm.steps,
+        host_ms_per_cluster_step=statistics.mean(host),
+        prefill_device_ms_per_cluster_step=sum(
+            a.elapsed_time(b) for _, a, b in pre_spans) / cm.steps,
+        decode_device_ms_per_cluster_step=sum(
+            a.elapsed_time(b) for _, a, b in dec_spans) / cm.steps,
+        copy_device_ms_per_cluster_step=sum(copy_ms) / cm.steps,
+        prefill_runs_by_class=runs_pre, prefill_ms_by_class=ms_pre,
+        decode_runs_by_class=runs_dec, decode_ms_by_class=ms_dec,
+        prefill_engine=dict(steps=pm.steps, dispatches=pm.dispatches,
+                            prefill_calls=pm.prefill_calls,
+                            exports=pm.exports),
+        decode_engine=dict(steps=dm.steps, dispatches=dm.dispatches,
+                           decode_steps=dm.decode_steps,
+                           prefill_calls=dm.prefill_calls,
+                           imports=dm.imports,
+                           preemptions=dm.preemptions),
+        migrations=s["migrations"],
+        migrated_pages=s["migrated_pages"],
+        migrated_bytes=s["migrated_bytes"], page_bytes=cl.page_bytes,
+        migration_dispatches=cm.migration_dispatches,
+        migrations_inflight_peak=cm.migrations_inflight_peak,
+        copy_ms_mean=statistics.mean(copy_ms),
+        copy_ms_median=statistics.median(copy_ms),
+        copy_ms=copy_ms,
+        copy_bound_ms=2 * bytes_per_copy / HBM_BYTES_PER_S * 1e3,
+        copy_bound_by="bytes",
+        copy_moved_pages=cl.max_pages,
+        copy_moved_bound_ms=2 * cl.max_pages * cl.page_bytes
+        / HBM_BYTES_PER_S * 1e3,
+        prefill_pool_util_mean=s["prefill_pool_util_mean"],
+        decode_pool_util_mean=s["decode_pool_util_mean"],
+        prefill_rows_busy_mean=s["prefill_rows_busy_mean"],
+        decode_slot_occupancy_mean=s["decode_slot_occupancy_mean"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        mem_at_start_gb=mem_at_start / 1e9,
+        cluster_mem_gb=(mem_at_start - mem_before) / 1e9,
+        kv=cl.kv_stats(), captures=captures,
+        identical_to_serve_full=sum(
+            r.output == o for r, o in zip(reqs, base_outs)),
+        launches=counts, routes=routes)
+    emit("serve_disagg", model=spec.name, **stats)
+    return counts
+
+
+BEAM_SIZE = 4
+BEAM_NEW = 16
+
+
+def phase_beam(torch, model, spec) -> dict:
+    """Beam search on the main path: ``model`` (full width, bf16), beam
+    BEAM_SIZE on one main-path prompt, BEAM_NEW tokens, no eos, on the
+    dense cache: the flash kernel's launches exactly n_layers x (1 prefill
+    + BEAM_NEW - 1 decode steps), all on the tensor-core route, every other
+    kernel 0.  The line gives the sequence's length, its score, the wall
+    time and ms per token; returns the launch counts."""
+    from repro_torch.serving import BeamSearcher
+    prompt = make_requests(spec, 1, BEAM_NEW, seed=5)[0].prompt
+    calls = {"prefill_chunk": 0, "decode_step": 0}
+    for name in calls:
+        def counted(*a, _name=name, _fn=getattr(model, name), **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(model, name, counted)
+    try:
+        searcher = BeamSearcher(model, beam_size=BEAM_SIZE,
+                                max_seq=GEOMETRY["max_seq"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        seq, score = searcher.search(prompt, BEAM_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name in calls:
+            delattr(model, name)
+    counts, routes = read_launches(), read_routes()
+    n = spec.n_layers * (calls["prefill_chunk"] + calls["decode_step"])
+    if calls != {"prefill_chunk": 1, "decode_step": BEAM_NEW - 1}:
+        raise AssertionError(f"beam: model calls {calls}")
+    _expect("beam", counts, {"flash_attention": n})
+    _expect_tensor_cores("beam", routes, "flash_attention", n)
+    if len(seq) != BEAM_NEW or any(not 0 <= t < spec.vocab for t in seq) \
+            or not score == score:
+        raise AssertionError(f"beam: {seq}, score {score}")
+    emit("beam", model=spec.name, beam_size=BEAM_SIZE,
+         prompt_tokens=len(prompt), new_tokens=len(seq), score=score,
+         model_calls=calls, wall_s=wall, ms_per_token=wall * 1e3 / len(seq),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=counts, routes=routes)
+    return counts
 
 
 def phase_decode_op(torch) -> dict:
@@ -2532,6 +2824,199 @@ def phase_spec_parity(torch, arch) -> None:
     free(torch)
 
 
+def phase_disagg_parity(torch) -> None:
+    """The disaggregated cluster at minitron-8b's widths, 2 layers,
+    float32, every cluster with ``debug_guards`` (the engines' steps and the
+    channel's pump under the sync-debug mode "error") on the replay
+    engines, exactly (only genuine ties, TIE_GAP, allowed): with the decode
+    pool unified and two-dispatch, the cluster through the kernels against
+    the cluster through the plain versions and against the unified engine;
+    a 32-page decode pool that preempts while migrations are in flight
+    against the unified engine in its default pool, for both decode pools;
+    the source pages set to 1e3 in every layer as each migration lands,
+    against the unpoisoned cluster (identical: the same kernels on the same
+    inputs); and with the int8 KV cache, the cluster through the kernels
+    against the plain versions (required) and against the quantized
+    unified engine (recorded: the pools' packed steps have other GEMM
+    shapes, whose f32 differences int8 rounding can amplify, as kvq_parity
+    found).  Every cluster leaves both pools empty and their allocators
+    audited."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import (DisaggCluster, DisaggClusterConfig,
+                                     EngineConfig, ServeEngine)
+
+    spec = get_spec("minitron-8b").scaled(name="minitron-8b-2l", n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+
+    def cluster(reqs, du, probe=None, **cfg):
+        cl = DisaggCluster(model, DisaggClusterConfig(
+            **DISAGG, decode_unified=du, debug_guards=True, **cfg),
+            device=DEV)
+        if probe is not None:
+            probe(cl)
+        cl.serve(reqs)
+        pre, dec = cl.prefill_eng, cl.decode_eng
+        for eng in (pre, dec):
+            eng.pager.check()
+        if (any(r.state != "done" for r in reqs) or pre.pager.pages_in_use
+                or dec.pager.pages_in_use
+                or cl.metrics.migrations_inflight_peak < 1
+                or cl.channel.migrations != len(reqs)):
+            raise AssertionError(f"disagg parity du={du} {cfg}: "
+                                 f"{[r.state for r in reqs]}, "
+                                 f"{cl.channel.stats()}")
+        return cl
+
+    def engine(reqs):
+        ServeEngine(model, EngineConfig(**GEOMETRY, **MODES["unified"]),
+                    device=DEV).serve(reqs)
+
+    def stats(cl):
+        return dict(steps=cl.metrics.steps,
+                    migrations=cl.channel.migrations,
+                    migrated_pages=cl.channel.migrated_pages,
+                    inflight_peak=cl.metrics.migrations_inflight_peak,
+                    decode_preemptions=cl.decode_eng.metrics.preemptions,
+                    decode_prefill_calls=cl.decode_eng.metrics.prefill_calls,
+                    captures={"prefill": cl.prefill_eng._graphs.captures,
+                              "decode": cl.decode_eng._graphs.captures,
+                              "cluster": cl._graphs.captures})
+
+    prompts = [r.prompt for r in make_requests(spec, 8, 16, seed=1)]
+    outs, runs, pairs = {}, {}, []
+    for impl in ("kernel", "plain"):
+        model.kernel_impl = impl
+        for du in (True, False):
+            reqs = make_requests(spec, 8, 16, seed=1)
+            runs[f"{impl}/du={du}"] = stats(cluster(reqs, du))
+            outs[impl, du] = [r.output for r in reqs]
+        reqs = make_requests(spec, 8, 16, seed=1)
+        engine(reqs)
+        outs[impl, "engine"] = [r.output for r in reqs]
+    model.kernel_impl = "kernel"
+    for du in (True, False):
+        pairs += [(f"kernel/du={du} vs plain/du={du}", prompts,
+                   outs["kernel", du], outs["plain", du]),
+                  (f"kernel/du={du} vs unified engine", prompts,
+                   outs["kernel", du], outs["kernel", "engine"])]
+
+    # a decode pool too small for every request: preemption (and, on the
+    # two-dispatch pool, its flash recompute) while migrations queue
+    roomy = _tight_requests(spec)
+    engine(roomy)
+    for du in (True, False):
+        reqs = _tight_requests(spec)
+        cl = cluster(reqs, du, decode_pages=1 + SPEC_TIGHT_PAGES)
+        runs[f"tight/du={du}"] = stats(cl)
+        if cl.decode_eng.metrics.preemptions <= 0:
+            raise AssertionError(f"disagg parity du={du}: no preemption in "
+                                 f"a {SPEC_TIGHT_PAGES}-page decode pool")
+        pairs.append((f"tight/du={du} vs unified engine",
+                      [r.prompt for r in roomy], [r.output for r in reqs],
+                      [r.output for r in roomy]))
+        del cl
+
+    # the poisoned-source-page probe
+    poisoned = []
+
+    def probe(cl):
+        install = cl._install
+
+        def install_and_poison(mig):
+            install(mig)
+            for layer in cl.prefill_eng.cache.layers:
+                for t in (layer.k, layer.v):
+                    for page in mig.src_pages:
+                        t[page].fill_(1e3)
+            poisoned.append(mig.req.rid)
+        cl._install = install_and_poison
+
+    reqs = make_requests(spec, 8, 16, seed=1)
+    runs["poisoned"] = stats(cluster(reqs, True, probe))
+    if len(poisoned) != len(reqs) or \
+            [r.output for r in reqs] != outs["kernel", True]:
+        raise AssertionError(f"disagg parity: poisoned source pages moved "
+                             f"the outputs ({len(poisoned)} poisoned)")
+
+    # the int8 KV cache: codes and scales migrate together
+    model.kv_quant = True
+    try:
+        for impl in ("kernel", "plain"):
+            model.kernel_impl = impl
+            reqs = make_requests(spec, 8, 16, seed=1)
+            runs[f"kv_quant/{impl}"] = stats(cluster(reqs, True))
+            outs["kvq", impl] = [r.output for r in reqs]
+        reqs = make_requests(spec, 8, 16, seed=1)
+        engine(reqs)
+        outs["kvq", "engine"] = [r.output for r in reqs]
+        model.kernel_impl = "plain"
+        kvq_vs_engine = _divergences(
+            torch, model, _as_requests(prompts, outs["kvq", "kernel"]),
+            _as_requests(prompts, outs["kvq", "engine"]))
+        comparisons = {"kv_quant kernel vs plain": {
+            "identical": sum(x == y for x, y in zip(outs["kvq", "kernel"],
+                                                    outs["kvq", "plain"])),
+            "ties": _ties(torch, model, prompts, outs["kvq", "kernel"],
+                          outs["kvq", "plain"], "disagg kv_quant")}}
+    finally:
+        model.kv_quant = False
+    model.kernel_impl = "plain"
+    comparisons.update({what: {"identical": sum(x == y for x, y in zip(a, b)),
+                               "ties": _ties(torch, model, ps, a, b, what)}
+                        for what, ps, a, b in pairs})
+    emit("disagg_parity", model=spec.name, dtype="float32",
+         requests=len(prompts), runs=runs, poisoned_identical=True,
+         comparisons=comparisons,
+         kv_quant_vs_engine={"identical": len(prompts) - len(kvq_vs_engine),
+                             "diverged": kvq_vs_engine})
+    del model
+    free(torch)
+
+
+def phase_beam_parity(torch) -> None:
+    """Beam search at minitron-8b's widths, 2 layers, float32, beam
+    BEAM_SIZE on the dense cache: through the kernels (flash) against the
+    plain versions, with no eos and with an eos id the kernel run's search
+    emits second (hypotheses exit at the first decode step): the same
+    tokens, the scores within 1e-4."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import BeamSearcher
+
+    spec = get_spec("minitron-8b").scaled(name="minitron-8b-2l", n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+    prompt = make_requests(spec, 1, BEAM_NEW, seed=5)[0].prompt
+    results = {}
+    eos = None
+    for case in ("no_eos", "eos"):
+        for impl in ("kernel", "plain"):
+            model.kernel_impl = impl
+            before = read_launches()["flash_attention"]
+            results[case, impl] = BeamSearcher(
+                model, beam_size=BEAM_SIZE,
+                max_seq=GEOMETRY["max_seq"]).search(prompt, BEAM_NEW,
+                                                    eos_id=eos)
+            flash = read_launches()["flash_attention"] - before
+            if (flash > 0) != (impl == "kernel"):
+                raise AssertionError(f"beam parity {case} {impl}: "
+                                     f"{flash} flash launches")
+        eos = results["no_eos", "kernel"][0][1]
+    model.kernel_impl = "kernel"
+    line = {}
+    for case in ("no_eos", "eos"):
+        (a, sa), (b, sb) = results[case, "kernel"], results[case, "plain"]
+        if a != b or not abs(sa - sb) <= 1e-4:
+            raise AssertionError(f"beam parity {case}: kernel {a} {sa}, "
+                                 f"plain {b} {sb}")
+        line[case] = {"tokens": a, "score_kernel": sa, "score_plain": sb,
+                      "score_diff": abs(sa - sb)}
+    emit("beam_parity", model=spec.name, dtype="float32",
+         beam_size=BEAM_SIZE, eos_id=eos, **line)
+    del model
+    free(torch)
+
+
 def phase_debug_guards(torch) -> None:
     """``debug_guards`` on the card, at minitron-8b's widths and 2 layers in
     bf16, in the unified and the paged two-dispatch replay engines, each in
@@ -2664,12 +3149,16 @@ def main(argv: list[str]) -> int:
     full.update(phase_serve_two_dispatch(torch, model, spec))
     serves += [stats["launches"] for stats, _ in full.values()]
     serves += phase_serve_kvq(torch, model, spec, full)
+    serves += phase_serve_disagg(torch, model, spec, full["unified"][1])
+    serves.append(phase_beam(torch, model, spec))
     del model, full
     free(torch)
     phase_serve_parity(torch, "minitron-8b")
     phase_kvq_parity(torch, "minitron-8b")
     phase_prefix_parity(torch)
     phase_spec_parity(torch, "minitron-8b")
+    phase_disagg_parity(torch)
+    phase_beam_parity(torch)
     phase_debug_guards(torch)
 
     spec, model, init_s = build_full(torch, "deepseek-moe-16b")

@@ -1,7 +1,12 @@
 """Serving substrate of the port: the continuous-batching engine, its page
-allocator, the radix-tree prefix cache, speculative decoding, the
-trace-replay workload generator and sampling."""
+allocator, the radix-tree prefix cache, the disaggregated prefill/decode
+cluster with page-granular KV migration, speculative decoding, beam search,
+the trace-replay workload generator and sampling."""
 
+from .beam import BeamSearcher
+from .cluster import (ClusterMetrics, DisaggCluster, DisaggClusterConfig,
+                      KvMigrationChannel, MigrationLink,
+                      pool_split_from_plan)
 from .engine import EngineConfig, EngineMetrics, Request, ServeEngine
 from .paging import PageAllocator, pages_for
 from .prefix_cache import PrefixCache, PrefixCacheStats
@@ -13,6 +18,9 @@ from .workload import (ReplaySummary, TraceConfig, TraceRequest,
                        trace_to_json)
 
 __all__ = ["EngineConfig", "EngineMetrics", "Request", "ServeEngine",
+           "ClusterMetrics", "DisaggCluster", "DisaggClusterConfig",
+           "KvMigrationChannel", "MigrationLink", "pool_split_from_plan",
+           "BeamSearcher",
            "PageAllocator", "pages_for", "PrefixCache", "PrefixCacheStats",
            "SamplingConfig", "sample", "sample_slots",
            "PackedSpeculator", "SpecDecodeStats", "SpeculativeDecoder",

@@ -56,6 +56,15 @@ draft's pool, and ``kv_stats`` counts them.  Quantized, the paged
 two-dispatch decode takes the reference's gather route, which applies the
 sliding window, so that layout serves sliding-window models too.
 
+Under P/D disaggregation (:mod:`.cluster`) a unified engine with an
+``export_fn`` hands each completed prefill to that hook instead of a local
+decode slot (its pages stay owned by the request until the migration
+channel has copied them out), and a paged engine takes migrated requests
+through :meth:`ServeEngine.reserve_imported` and
+:meth:`ServeEngine.install_imported`: a page-table row, the host mirrors
+and, in the two-dispatch engine, the slot's length written into the
+cache's own lengths tensor, which the captured decode reads.
+
 The scheduler is pure Python over host mirrors (numpy), identical to the
 reference's, and ``EngineMetrics.dispatches``/``transfers_d2h`` count
 exactly where the reference counts them, so the port's step, preemption
@@ -179,6 +188,9 @@ class EngineMetrics:
     preemptions: int = 0
     capacity_stops: int = 0
     pages_in_use_peak: int = 0
+    # -- P/D disaggregation counters (zero outside a DisaggCluster) ----------
+    exports: int = 0  # prefill completions handed off to a decode pool
+    imports: int = 0  # migrated requests installed into a decode slot
     # -- prefix-cache counters (mirrors of PrefixCacheStats + engine-side) --
     prefix_lookups: int = 0
     prefix_hits: int = 0  # admissions whose source matched >= 1 cached page
@@ -260,6 +272,9 @@ class EngineMetrics:
             "pages_in_use_peak": self.pages_in_use_peak,
             "kv_used_tokens_peak": self.kv_used_tokens_peak,
         }
+        if self.exports or self.imports:  # only under P/D disaggregation
+            out["exports"] = self.exports
+            out["imports"] = self.imports
         if self.spec_rounds:  # only with speculative decoding on
             out.update(
                 spec_rounds=self.spec_rounds,
@@ -401,6 +416,12 @@ class ServeEngine:
         self.active: dict[int, Request] = {}  # slot -> request
         self.free_slots = list(range(config.max_slots))
         self.finished: list[Request] = []
+        # P/D disaggregation hook (set after construction by DisaggCluster):
+        # called as export_fn(req, src_len, done, now) when a prefill
+        # completes, instead of promoting it into a local decode slot.  The
+        # request's pages stay owned by its rid until the migration channel
+        # releases them after the cross-pool copy.
+        self.export_fn = None
         self.steps = 0
         self.metrics = EngineMetrics()
 
@@ -567,10 +588,14 @@ class ServeEngine:
         """Every free prefill row takes a queued prompt, as long as a decode
         slot is guaranteed at completion and, in the paged layout, the pool
         has pages for the prompt plus one token of headroom (reserved up
-        front).  A two-dispatch row is zeroed for its new prompt."""
+        front).  A two-dispatch row is zeroed for its new prompt.  An
+        exporting engine (P/D disaggregation) never promotes into a local
+        decode slot, so the slot guarantee is waived and admission is
+        bounded by prefill rows and pool pages alone."""
         while (self.queue and self._free_rows
-               and len(self.active) + len(self._prefills)
-               < self.cfg.max_slots):
+               and (self.export_fn is not None
+                    or len(self.active) + len(self._prefills)
+                    < self.cfg.max_slots)):
             req = self.queue[0]
             if self.paged:
                 if self.prefix is not None and req.rid not in self._attached:
@@ -669,6 +694,56 @@ class ServeEngine:
         row[:len(held)] = held
         return row
 
+    # -- P/D import hooks (decode side of a DisaggCluster) ----------------
+    def reserve_imported(self, rid: int, n_tokens: int) -> bool:
+        """Reserve admission for a request whose KV pages arrive from
+        another engine's pool: allocate pages for ``n_tokens`` under ``rid``
+        (evicting cold prefix entries if needed) and report whether a decode
+        slot is free to install into.  Pure reservation:
+        :meth:`install_imported` completes the hand-off after the
+        cross-pool page copy."""
+        if not self.paged:
+            raise ValueError(
+                "imported-page installs need cache_layout='paged'")
+        if self.speculator is not None:
+            raise ValueError(
+                "speculative decoding (n_spec > 0) cannot accept imported "
+                "pages: the migration channel fills only the target pool, "
+                "so the mirrored draft pool would read garbage")
+        if not self.free_slots:
+            return False
+        return self._ensure_or_evict(rid, n_tokens)
+
+    def install_imported(self, req: Request, kv_len: int) -> int:
+        """Install a migrated request into a decode slot.  Its pages,
+        already filled under ``req.rid`` by the cross-pool copy, become the
+        slot's page-table row, and decode resumes from the request's last
+        sampled token.  Host bookkeeping, plus (two-dispatch) the slot's
+        length written into the cache's own lengths tensor in place, on the
+        current stream: the captured decode reads it there."""
+        if not req.output:
+            raise ValueError(f"request {req.rid}: importing with no "
+                             "sampled first token (nothing to decode from)")
+        slot = self.free_slots.pop()
+        req.slot = slot
+        req.state = "decode"
+        self.active[slot] = req
+        self._ptab[slot] = self._ptab_row(req.rid)
+        self._ptab_dirty = True
+        self._lengths[slot] = kv_len
+        if not self.unified:
+            # the two-dispatch decode reads its write position from the
+            # device-side lengths (the unified step packs the host lengths
+            # every step); a fill on the current stream, never a sync
+            self.cache.lengths.narrow(0, slot, 1).fill_(kv_len)
+        self._tokens[slot, 0] = req.output[-1]
+        self._temps[slot] = req.sampling.temperature
+        self._topks[slot] = req.sampling.top_k
+        self._topps[slot] = req.sampling.top_p
+        self._feed_stale = True  # slot churn
+        self.metrics.imports += 1
+        return slot
+
     def _release_slot(self, slot: int, req: Request) -> None:
         """Free-on-finish: the slot and (paged) every page the request
         holds; the slot's table row falls back to the null page, so the
@@ -761,7 +836,8 @@ class ServeEngine:
         into a decode slot.  ``install(req, slot, row)`` puts the request's
         KV where the slot will read it (a device insert on the two-dispatch
         path; a host page-table row on the unified path, whose pages
-        already hold it)."""
+        already hold it).  An exporting engine hands the request to its
+        ``export_fn`` instead."""
         req = self._prefills.pop(row)
         del self._prefill_pos[row]
         src_len = len(self._src(req))
@@ -770,6 +846,25 @@ class ServeEngine:
             req.first_token_t = now
         req.output.append(tok)
         self.metrics.generated_tokens += 1
+        if self.export_fn is not None:
+            # P/D hand-off: the request leaves this engine at prefill
+            # completion.  Its pages stay owned by its rid (the migration
+            # channel copies them out and releases them); the prefill row
+            # frees at once so that the next prompt can start.
+            if not self.unified:
+                raise ValueError(
+                    "export_fn needs unified=True: only the packed step "
+                    "writes prefill K/V directly into pages — the dense-"
+                    "scratch path has nothing page-resident to migrate")
+            self._free_rows.append(row)
+            if self.prefix is not None:
+                self._prefix_insert(req, src_len)
+                self._attached.discard(req.rid)
+            self.metrics.exports += 1
+            done = (len(req.output) >= req.max_new_tokens
+                    or (req.eos_id is not None and tok == req.eos_id))
+            self.export_fn(req, src_len, done, now)
+            return
         slot = self.free_slots.pop()
         req.slot = slot
         install(req, slot, row)

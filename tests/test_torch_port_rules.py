@@ -3,8 +3,9 @@
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or anything of the JAX package ``repro`` (checked on the AST), and
   importing the port leaves ``jax`` out of ``sys.modules``.
-* Entry points default to the card: without one, ``build_model`` and
-  ``ServeEngine`` raise unless ``device="cpu"`` is given.
+* Entry points default to the card: without one, ``build_model``,
+  ``ServeEngine``, ``DisaggCluster`` and the launchers raise unless
+  ``device="cpu"`` is given.
 * The CUDA wrappers refuse tensors on the CPU instead of falling back, and
   nothing builds or loads a kernel at import.
 * The engine refuses, by name, every mode the port does not serve yet.
@@ -30,7 +31,9 @@ from repro_torch.kernels import (build, decode_attention, expert_gemm,
                                  paged_decode_attention, ragged_attention,
                                  rwkv6_scan)
 from repro_torch.models import build_model
-from repro_torch.serving import EngineConfig, ServeEngine
+from repro_torch.launch import serve_chat
+from repro_torch.serving import (DisaggCluster, DisaggClusterConfig,
+                                 EngineConfig, ServeEngine)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -58,6 +61,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.models, repro_torch.serving\n"
             "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
+            "import repro_torch.launch.serve_chat\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -92,6 +96,17 @@ def test_engine_defaults_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(model, cfg)
     assert ServeEngine(model, cfg, device="cpu").device.type == "cpu"
+
+
+def test_cluster_and_chat_launcher_default_to_the_card(no_card):
+    model = build_model(get_reduced("minitron-8b"), device="cpu",
+                        dtype=torch.float32)
+    cfg = DisaggClusterConfig(max_seq=64, page_size=8, chunk_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DisaggCluster(model, cfg)
+    assert DisaggCluster(model, cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_chat.main(["--requests", "1"])
 
 
 def _cpu_case():
