@@ -51,7 +51,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                                x broadcast over the experts) and down
                                products, the decode-only step's (C=8), the
                                mixed shape with distinct per-expert x, and
-                               two ragged cases (C, D, F off the tiles)
+                               two ragged cases (C, D, F off the tiles);
+                               untimed, C=1, C=600 broadcast (three C
+                               tiles) and granite-moe-3b-a800m's mixed
+                               up/gate (E=40, D=1536, F=512); each line
+                               names the route (bf16: wgmma; f32:
+                               cuda_core) and the bf16 launch plan, and
+                               the build line gives ptxas's registers,
+                               spills and shared memory of every instance
                   WKV scan     prefill (2 rows x 128 steps), partial chunk
                                (37 steps), decode (8 rows x 1 step); a
                                non-zero state0 and bonus, decays in
@@ -593,6 +600,12 @@ GEMM_PROFILES = {
     "mixed_distinct": dict(e=64, c=264, d=2048, f=1408, broadcast=False),
     "ragged": dict(e=3, c=37, d=200, f=136, broadcast=False),
     "ragged_broadcast": dict(e=5, c=70, d=72, f=200, broadcast=True),
+    # untimed: one token (an 8-wide tile with 7 idle columns); 600 tokens
+    # broadcast, past one C tile (three tiles of 200); granite-moe-3b-
+    # a800m's mixed up/gate (E 40, D 1536, F 512)
+    "c1": dict(e=64, c=1, d=1408, f=2048, broadcast=False),
+    "c600_broadcast": dict(e=64, c=600, d=2048, f=1408, broadcast=True),
+    "granite_mixed": dict(e=40, c=264, d=1536, f=512, broadcast=True),
 }
 GEMM_TIMED = ("mixed", "mixed_down", "decode", "decode_down")
 
@@ -912,7 +925,8 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
     held, the float32 state within the float32 tolerance in both runs.
     A ``module`` records the bf16 launch plan and, where it has routes,
     the route each dtype took, which must be the one its
-    ``tensor_core_route`` names."""
+    ``tensor_core_route`` names (attention) or, for the expert GEMM,
+    ``wgmma`` in bf16 and ``cuda_core`` in f32."""
     res = dict(info)
     for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
                              (torch.bfloat16, BF16_RTOL, "bf16")):
@@ -921,9 +935,16 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
         torch.cuda.synchronize()
         if module is not None and hasattr(module, "routes"):
             route = module.last_plan.route
-            d = case["q"].shape[-1]
-            if (route == "tensor_core") != \
-                    module.tensor_core_route(dtype, d):
+            if "q" in case:
+                d = case["q"].shape[-1]
+                expected = ("tensor_core"
+                            if module.tensor_core_route(dtype, d)
+                            else "cuda_core")
+            else:
+                d = case["x"].shape[-1]
+                expected = ("wgmma" if dtype == torch.bfloat16
+                            else "cuda_core")
+            if route != expected:
                 raise AssertionError(f"{kernel}/{profile}/{tag}: route "
                                      f"{route} at D = {d}")
             res[f"route_{tag}"] = route
@@ -1014,7 +1035,8 @@ def phase_kernel_check(torch, only=None) -> dict:
             lambda c: expert_gemm.expert_gemm_cuda(**c),
             lambda c: ref.moe_gemm_reference(**c),
             work_gemm(prof, 2), library=bmm_call,
-            timed=name in GEMM_TIMED, scaled=True, **prof)
+            timed=name in GEMM_TIMED, scaled=True, module=expert_gemm,
+            **prof)
     # the WKV scan: f32 tolerances relative to the output's and the state's
     # scale (sums over N in another order; the state update fused into one
     # multiply-add where the plain version rounds twice, over T steps)
@@ -1372,12 +1394,12 @@ def _expect(mode, counts, nonzero):
                              f"{want}")
 
 
-def _expect_tensor_cores(mode, routes, kernel, n):
-    """All ``n`` calls of ``kernel`` (bf16 at D % 16 == 0) took the
-    tensor-core route."""
-    if routes[kernel] != {"tensor_core": n, "cuda_core": 0}:
+def _expect_tensor_cores(mode, routes, kernel, n, route="tensor_core"):
+    """All ``n`` calls of ``kernel`` (bf16 at D % 16 == 0 for attention,
+    bf16 for the expert GEMM) took the tensor-core ``route``."""
+    if routes[kernel] != {route: n, "cuda_core": 0}:
         raise AssertionError(f"{mode}: {kernel} routes {routes[kernel]}, "
-                             f"expected all {n} on the tensor cores")
+                             f"expected all {n} on {route}")
 
 
 def phase_serve_unified(torch, model, spec, init_s, phase):
@@ -1394,11 +1416,13 @@ def phase_serve_unified(torch, model, spec, init_s, phase):
         mixed = m.prefill_calls
         decode_only = m.dispatches - mixed
         n_ragged = spec.n_layers * (2 * mixed + decode_only)
+        n_gemm = expert_launches_per_forward(spec) * m.dispatches
         _expect("unified", stats["launches"], {
-            "ragged_paged_attention": n_ragged,
-            "expert_gemm": expert_launches_per_forward(spec) * m.dispatches})
+            "ragged_paged_attention": n_ragged, "expert_gemm": n_gemm})
         _expect_tensor_cores("unified", stats["routes"],
                              "ragged_paged_attention", n_ragged)
+        _expect_tensor_cores("unified", stats["routes"], "expert_gemm",
+                             n_gemm, route="wgmma")
         stats.update(mixed_steps=mixed, decode_only_steps=decode_only)
 
     n_params = sum(p.numel() for p in model.parameters())

@@ -239,10 +239,12 @@ def test_cuda_headers_are_hashed_and_jax_free(tmp_path, monkeypatch):
 
 
 def test_tensor_core_ptx_helpers_live_in_one_header():
-    """The ldmatrix, mma.sync and cp.async wrappers are defined once, in
-    csrc/mma_ptx.cuh, and both tensor-core sources and the WKV scan's
-    cp.async ring include it."""
-    asm = ('"ldmatrix.sync', '"mma.sync', '"cp.async')  # inline PTX
+    """The ldmatrix, mma.sync, cp.async (and so cp.async.bulk: TMA),
+    wgmma and mbarrier wrappers are defined once, in csrc/mma_ptx.cuh, and
+    both tensor-core sources and the WKV scan's cp.async ring include
+    it."""
+    asm = ('"ldmatrix.sync', '"mma.sync', '"cp.async', '"wgmma',
+           '"mbarrier')  # inline PTX
     owners = sorted(src.name for src in build.CSRC.glob("*.cu*")
                     if any(op in src.read_text() for op in asm))
     assert owners == ["mma_ptx.cuh"]
