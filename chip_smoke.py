@@ -306,6 +306,32 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   serve_parity  again at rwkv6-3b widths, 2 layers, float32, mixes and
                 bonus drawn non-zero, in the two two-dispatch layouts (the
                 long prompts too)
+  scenario      GenZ against the card, after rwkv6-3b's weights are
+                freed: one Scenario per mode (minitron-8b given inline, so
+                at its published width, bf16, random weights from seed 0;
+                Workload(batch=8, tau_p=1024, tau_d=32); hgx-h100x1;
+                max_slots 8, max_seq 2048, 2 prefill rows; ChunkedSpec(128,
+                8) outside monolithic): monolithic (the dense two-dispatch
+                engine, one 1,024-token chunk a prompt), chunked (the
+                unified engine), speculative (K = 4, the draft a second
+                full-width model from the same seed) and disaggregated
+                (DisaggSpec(total_npus=2, colocated_tp=1, tp_options=(1,)):
+                a DisaggCluster whose split the plan picks, its decode pool
+                unified; the prediction prices two NPUs, the card runs
+                both pools).  Each: the analytical Report (max_workers=1),
+                then engine_backend.lower, a warm-up of 2-token requests,
+                the counters reset, serve and the Report; fails on a
+                Report not ok, a clamp, a profile bound twice or during
+                the serve, or launches off their formula (flash n_layers x
+                (prefill calls + decode steps); ragged n_layers x (2 x
+                mixed + decode-only), with speculation L_t (2 m + d) + L_d
+                ((K+1) m + K d), over both engines of the cluster), all on
+                the tensor-core route; its line gives the predicted and
+                measured TTFT, TPOT, tokens/s, max concurrency,
+                compare()'s relative errors (recorded, not held), the
+                engine config, captures, host and device ms per step and
+                the launches; then one cold evaluate() of monolithic (its
+                captures inside its TTFT) and the phase's seconds
 
 A replay does not run the kernel wrappers: the step graph adds each
 capture's launch counts on every replay, so the counts above hold on both
@@ -3097,6 +3123,261 @@ def phase_debug_guards(torch) -> None:
     free(torch)
 
 
+# the scenario phase: GenZ's prediction against the card's measurement of
+# one Scenario per mode, minitron-8b at its published width on hgx-h100x1
+SCENARIO_KW = dict(max_slots=8, max_seq=2048, max_prompt=1024, max_new=32,
+                   prefill_rows=2)
+SCENARIO_CHUNK = 128  # ChunkedSpec.chunk: the engine's chunk in every mode
+
+
+def scenarios(spec):
+    """[(mode, Scenario, engine_kw of its lowering)]: Workload(batch=8,
+    tau_p=1024, tau_d=32) on hgx-h100x1, ``spec`` inline.  Each mode but
+    monolithic carries ChunkedSpec(128, 8), which the engine lowering
+    reads as its chunk (the analytical backend reads it in chunked mode
+    only); chunked lowers to the unified engine, the packed step that
+    ``core.stages.chunked`` prices."""
+    from repro_torch.core.stages import Workload
+    from repro_torch.scenario import (ChunkedSpec, DisaggSpec, Scenario,
+                                      SpeculativeSpec)
+    base = Scenario.make(spec, workload=Workload(batch=8, tau_p=1024,
+                                                 tau_d=32),
+                         platform="hgx-h100x1")
+    chunk = ChunkedSpec(chunk=SCENARIO_CHUNK, decode_batch=8)
+    return [
+        ("monolithic", base, {}),
+        ("chunked", base.replace(mode="chunked", chunked=chunk),
+         dict(unified=True)),
+        ("speculative", base.replace(
+            mode="speculative", chunked=chunk,
+            speculative=SpeculativeSpec(draft=spec, n=SPEC_K)), {}),
+        ("disaggregated", base.replace(
+            mode="disaggregated", chunked=chunk,
+            disaggregated=DisaggSpec(total_npus=2, colocated_tp=1,
+                                     tp_options=(1,))), {}),
+    ]
+
+
+def _bound_once(what, captures, now=None):
+    """Every profile bound exactly once (and, given ``now``, none bound
+    since ``captures`` was read)."""
+    if any(n != 1 for c in captures.values() for n in c.values()):
+        raise AssertionError(f"{what}: a profile bound more than once: "
+                             f"{captures}")
+    if now is not None and now != captures:
+        raise AssertionError(f"{what}: a profile was bound during the "
+                             f"serve: {now}, warmed {captures}")
+
+
+def warm_lowered(low) -> dict:
+    """Warm what ``engine_backend.lower`` built, as ``warmed_engine`` and
+    ``warmed_cluster`` do (requests of 2 new tokens: the lowered prompts
+    for a two-dispatch engine, so that its chunk width is captured; one of
+    39 tokens for a unified or spec engine; two for a cluster), then reset
+    its counters; returns the captures."""
+    from repro_torch.serving import EngineMetrics, Request
+    runner = low.runner
+    if low.kind == "cluster":
+        runner.serve([Request(prompt=list(range(1, 40)), max_new_tokens=2)
+                      for _ in range(2)])
+        _fresh_cluster_counters(runner)
+        return {"prefill": dict(runner.prefill_eng._graphs.captures),
+                "decode": dict(runner.decode_eng._graphs.captures),
+                "cluster": dict(runner._graphs.captures)}
+    prompts = [r.prompt for r in low.requests] if not runner.unified \
+        else [list(range(1, 40))]
+    runner.serve([Request(prompt=list(p), max_new_tokens=2)
+                  for p in prompts])
+    runner.metrics = EngineMetrics()
+    if runner._graphs.captures != dict.fromkeys(runner._graphs.profiles, 1):
+        raise AssertionError(f"scenario {low.scenario.mode}: profiles bound "
+                             f"{runner._graphs.captures}")
+    return {"engine": dict(runner._graphs.captures)}
+
+
+def scenario_launches(mode, spec, low) -> dict:
+    """The launches ``mode``'s lowering must make (PERF.md §2): flash
+    n_layers x (prefill calls + decode steps) in the dense two-dispatch
+    engine (monolithic); ragged n_layers x (2 x mixed + decode-only) in the
+    unified one (chunked), L_t (2 m + d) + L_d ((K+1) m + K d) with
+    speculation, and over both engines of the cluster (its decode pool
+    unified)."""
+    n = spec.n_layers
+    if low.kind == "cluster":
+        want = 0
+        for eng in (low.runner.prefill_eng, low.runner.decode_eng):
+            m = eng.metrics
+            want += n * (2 * m.prefill_calls + m.dispatches
+                         - m.prefill_calls)
+        if not low.runner.cfg.decode_unified:
+            raise AssertionError("scenario: the decode pool is not unified")
+        return {"ragged_paged_attention": want}
+    m = low.runner.metrics
+    if not low.runner.unified:
+        return {"flash_attention": n * (m.prefill_calls + m.decode_steps)}
+    if not m.dispatches == m.transfers_d2h == m.steps:
+        raise AssertionError(f"scenario {mode}: {m.dispatches} dispatches, "
+                             f"{m.transfers_d2h} transfers, {m.steps} steps")
+    mixed, d = m.prefill_calls, m.dispatches - m.prefill_calls
+    k = low.runner.cfg.n_spec
+    want = n * (2 * mixed + d)
+    if k:
+        want += n * ((k + 1) * mixed + k * d)
+    return {"ragged_paged_attention": want}
+
+
+def _scenario_line(torch, mode, ana, rep, low, spans, host, steps):
+    """The measured side of one scenario line."""
+    from repro_torch.scenario import compare
+    if low.kind == "cluster":
+        runs, ms, per_step = {}, {}, 0.0
+        for name, sp in spans.items():
+            r, m, _ = span_stats(sp, steps)
+            runs[name], ms[name] = r, m
+            per_step += sum(a.elapsed_time(b) for _, a, b in sp) / steps
+        engine = {key: rep.extra["engine"][key] for key in (
+            "steps", "migrations", "migrated_pages", "migrated_bytes",
+            "requests_done", "generated_tokens")}
+        engine["prefill"] = {key: rep.extra["engine"]["prefill"][key]
+                             for key in ("steps", "dispatches",
+                                         "prefill_calls", "exports")}
+        engine["decode"] = {key: rep.extra["engine"]["decode"][key]
+                            for key in ("steps", "dispatches",
+                                        "decode_steps", "imports",
+                                        "peak_active", "preemptions")}
+    else:
+        runs, ms, per_step = span_stats(spans["engine"], steps)
+        engine = {key: rep.extra["engine"].get(key) for key in (
+            "steps", "decode_steps", "prefill_calls", "dispatches",
+            "transfers_d2h", "generated_tokens", "peak_active",
+            "preemptions", "requests_done", "spec_rounds",
+            "spec_acceptance_rate", "spec_tokens_per_round")}
+    return dict(
+        mode=mode, model=low.spec.name, platform="hgx-h100x1",
+        predicted=ana.metrics(), measured=rep.metrics(),
+        errors=compare(ana, rep), engine_config=rep.extra["engine_config"],
+        lowering=rep.extra["lowering"], engine=engine,
+        host_ms_per_step=statistics.mean(host),
+        device_ms_per_step=per_step, runs_by_class=runs,
+        device_ms_by_class=ms,
+        predicted_detail={k: v for k, v in ana.extra.items()
+                          if k in ("plan", "kv_transfer_s", "goodput_rps",
+                                   "chunked_two_dispatch")},
+        measured_kv_transfer_s=rep.extra.get("measured_kv_transfer_s"),
+        acceptance_rate=rep.extra.get("acceptance_rate"),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _serve_scenario(torch, mode, sc, kw) -> dict:
+    """One scenario: the analytical Report (no pool: CUDA is up), then the
+    lowered engine or cluster warmed, its serve measured with every count
+    set to 0 just before and read just after, its Report held ok and
+    unclamped, the launches exact, each profile bound once and none during
+    the serve; the line; returns the launch counts."""
+    from repro_torch.scenario import engine_backend as eb
+    from repro_torch.scenario import run
+    ana, = run([sc], max_workers=1)
+    if not ana.ok:
+        raise AssertionError(f"scenario {mode}: analytical {ana.status}: "
+                             f"{ana.error}")
+    t0 = time.perf_counter()
+    low = eb.lower(sc, **kw)
+    lower_s = time.perf_counter() - t0
+    captures = warm_lowered(low)
+    if low.kind == "cluster":
+        cl = low.runner
+        _, pre_spans = time_steps(torch, cl.prefill_eng)
+        _, dec_spans = time_steps(torch, cl.decode_eng)
+        host, mig_spans = time_steps(torch, cl)
+        spans = {"prefill": pre_spans, "decode": dec_spans,
+                 "migrate": mig_spans}
+    else:
+        host, spans = time_steps(torch, low.runner)
+        spans = {"engine": spans}
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eb.serve(low)
+    torch.cuda.synchronize()
+    counts, routes = read_launches(), read_routes()
+    rep = eb.report(low)
+    what = f"scenario {mode}"
+    if not rep.ok:
+        raise AssertionError(f"{what}: engine {rep.status}: {rep.error}")
+    if rep.extra["lowering"]["clamped"]:
+        raise AssertionError(f"{what}: the workload was clamped: "
+                             f"{rep.extra['lowering']}")
+    if low.kind == "cluster":
+        now = {"prefill": dict(low.runner.prefill_eng._graphs.captures),
+               "decode": dict(low.runner.decode_eng._graphs.captures),
+               "cluster": dict(low.runner._graphs.captures)}
+    else:
+        now = {"engine": dict(low.runner._graphs.captures)}
+    _bound_once(what, captures, now)
+    for r in low.requests:
+        if r.state != "done" or len(r.output) != SCENARIO_KW["max_new"] \
+                or any(not 0 <= t < low.spec.vocab for t in r.output):
+            raise AssertionError(f"{what}: request {r.rid} {r.state}, "
+                                 f"{len(r.output)} tokens")
+    want = scenario_launches(mode, low.spec, low)
+    _expect(what, counts, want)
+    for kernel, k in want.items():
+        _expect_tensor_cores(what, routes, kernel, k)
+    line = _scenario_line(torch, mode, ana, rep, low, spans, host,
+                          low.runner.metrics.steps)
+    emit("scenario", **line, lower_s=lower_s, captures=captures,
+         launches=counts, routes=routes)
+    return counts
+
+
+def phase_scenario(torch) -> list[dict]:
+    """GenZ against the card: minitron-8b given inline (full width, bf16,
+    random weights from seed 0) in one Scenario per mode on hgx-h100x1,
+    priced by the analytical backend and measured through
+    ``engine_backend.lower`` -> warm -> ``serve`` -> Report (see
+    ``_serve_scenario``); then one cold ``evaluate()`` of monolithic, as
+    the reference measures it (its captures inside its TTFT).  Fails on a
+    Report that is not ok, a clamp, a profile bound twice or a launch count
+    off its formula; ``compare()``'s errors are recorded, not held.
+    Returns each measured run's launch counts."""
+    from repro_torch.configs import get_spec
+    from repro_torch.scenario import compare, run
+    from repro_torch.scenario import engine_backend as eb
+    t_phase = time.perf_counter()
+    spec = get_spec("minitron-8b")
+    kw = dict(SCENARIO_KW, device=DEV, dtype=torch.bfloat16)
+    launches = []
+    cases = scenarios(spec)
+    for mode, sc, extra in cases:
+        launches.append(_serve_scenario(torch, mode, sc, dict(kw, **extra)))
+        free(torch)
+    mode, sc, extra = cases[0]
+    ana, = run([sc], max_workers=1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cold = eb.evaluate(sc, **kw, **extra)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    if not cold.ok:
+        raise AssertionError(f"scenario cold: {cold.status}: {cold.error}")
+    m = cold.extra["engine"]
+    _expect("scenario cold", counts, {"flash_attention": spec.n_layers * (
+        m["prefill_calls"] + m["decode_steps"])})
+    emit("scenario_cold", mode=mode, predicted=ana.metrics(),
+         measured=cold.metrics(), errors=compare(ana, cold),
+         engine_config=cold.extra["engine_config"],
+         engine={k: m[k] for k in ("steps", "prefill_calls", "decode_steps",
+                                   "dispatches", "generated_tokens")},
+         evaluate_s=seconds, launches=counts)
+    launches.append(counts)
+    free(torch)
+    emit("scenario_phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def kernel_entry(name, mod, launches, profiles, top):
     """The kernels line's entry of one kernel: ``top`` names the profile
     whose numbers stand at the top level (all timed profiles follow)."""
@@ -3200,6 +3481,7 @@ def main(argv: list[str]) -> int:
     del model
     free(torch)
     phase_serve_parity(torch, "rwkv6-3b")
+    serves += phase_scenario(torch)
 
     launches = {name: sum(c[name] for c in serves) for name in mods}
     idle = [name for name, n in launches.items() if n == 0]

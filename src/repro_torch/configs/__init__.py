@@ -1,7 +1,8 @@
-"""Architecture configs the port serves (``--arch <id>``).
+"""Architecture configs (``--arch <id>``), copied from ``repro.configs``.
 
 Each module defines ``SPEC`` (the published configuration) and ``REDUCED``
-(a small same-family config for CPU tests), copied from ``repro.configs``.
+(a small same-family config for CPU tests).  ``registry.get_spec`` also
+resolves the paper's Table-IV models by name, for the analytical side.
 """
 
 from . import registry

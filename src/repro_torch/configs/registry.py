@@ -1,18 +1,22 @@
 """Architecture registry: ``--arch <id>`` -> ModelSpec (+ reduced config).
 
-Only the architectures the port serves so far; the rest of the JAX
-registry waits for the modules they need (Mamba, encoders, frontends).
-mistral-7b-swa's sliding window is served by the dense two-dispatch engine
-only; rwkv6-3b, attention-free, by the two-dispatch engine in either
-layout (the unified step refuses state-carrying layers, as the
-reference's does).
+The reference registry's eleven architectures, plus the paper's Table-IV
+models (``PAPER_MODELS``) by name for the analytical side.  The port
+serves minitron-8b, mistral-7b-swa, qwen1.5-0.5b, deepseek-moe-16b,
+granite-moe-3b-a800m and rwkv6-3b; the model refuses jamba-v0.1-52b's
+Mamba layers and hubert-xlarge's and pixtral-12b's frontends by name
+(ROADMAP: queue 1, item 13), and deepseek-7b and yi-34b wait only for
+their first serve on the card.  mistral-7b-swa's sliding window is
+served by the dense two-dispatch engine only; rwkv6-3b, attention-free,
+by the two-dispatch engine in either layout (the unified step refuses
+state-carrying layers, as the reference's does).
 """
 
 from __future__ import annotations
 
 import importlib
 
-from ..core.modelspec import ModelSpec
+from ..core.modelspec import PAPER_MODELS, ModelSpec
 
 _ARCH_MODULES: dict[str, str] = {
     "minitron-8b": ".minitron_8b",
@@ -21,6 +25,11 @@ _ARCH_MODULES: dict[str, str] = {
     "deepseek-moe-16b": ".deepseek_moe_16b",
     "granite-moe-3b-a800m": ".granite_moe_3b",
     "rwkv6-3b": ".rwkv6_3b",
+    "deepseek-7b": ".deepseek_7b",
+    "yi-34b": ".yi_34b",
+    "jamba-v0.1-52b": ".jamba_52b",
+    "hubert-xlarge": ".hubert_xlarge",
+    "pixtral-12b": ".pixtral_12b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
@@ -30,13 +39,17 @@ def _module(arch_id: str):
     try:
         rel = _ARCH_MODULES[arch_id]
     except KeyError:
-        raise ValueError(f"unknown arch {arch_id!r}; the port serves "
-                         f"{sorted(_ARCH_MODULES)}") from None
+        raise ValueError(
+            f"unknown arch {arch_id!r}; assigned archs: "
+            f"{sorted(_ARCH_MODULES)}; paper models: "
+            f"{sorted(PAPER_MODELS)}") from None
     return importlib.import_module(rel, package=__package__)
 
 
 def get_spec(arch_id: str) -> ModelSpec:
-    """Full published config."""
+    """Full published config (a paper Table-IV model by name too)."""
+    if arch_id in PAPER_MODELS:
+        return PAPER_MODELS[arch_id]
     return _module(arch_id).SPEC
 
 

@@ -207,9 +207,10 @@ class KvMigrationChannel:
 def pool_split_from_plan(plan, budget: int) -> tuple[int, int]:
     """Map an analytical plan's prefill:decode device ratio onto ``budget``
     engine units: returns ``(prefill_rows, decode_slots)``, both >= 1.
-    ``plan`` is read by duck typing (``tp_prefill``, ``n_prefill_groups``,
-    ``tp_decode``, ``n_decode_groups``, as the reference's
-    ``core.disagg.DisaggPlan`` has them), or None for an even split."""
+    ``plan`` is a :class:`~repro_torch.core.disagg.DisaggPlan` (read by
+    its ``tp_prefill``, ``n_prefill_groups``, ``tp_decode`` and
+    ``n_decode_groups``, so the reference's plan serves as well), or None
+    for an even split."""
     if budget < 2:
         raise ValueError(f"pool split needs a budget of >= 2 engine "
                          f"units (got {budget}): each pool takes at "

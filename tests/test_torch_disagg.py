@@ -39,6 +39,7 @@ from repro.serving import Request as JaxRequest
 from repro.serving import ServeEngine as JaxServeEngine
 from repro.serving import pool_split_from_plan as jax_pool_split
 from repro_torch.configs import registry as treg
+from repro_torch.core.disagg import DisaggPlan as PortDisaggPlan
 from repro_torch.models import build_model, from_jax_params
 from repro_torch.serving import (DisaggCluster, DisaggClusterConfig,
                                  EngineConfig, KvMigrationChannel,
@@ -355,21 +356,24 @@ def test_install_imported_needs_a_first_token():
 # host code: the pool split, the link, the channel
 # ---------------------------------------------------------------------------
 
-def _plan(xp_tp, xp_groups, yp_tp, yp_groups):
-    return DisaggPlan(tp_prefill=xp_tp, tp_decode=yp_tp,
-                      n_prefill_groups=xp_groups, n_decode_groups=yp_groups,
-                      goodput_rps=1.0, ttft=0.1, tpot=0.01, decode_batch=8,
-                      kv_transfer_s=0.0, meets_slo=True)
+def _plan(xp_tp, xp_groups, yp_tp, yp_groups, cls=DisaggPlan):
+    return cls(tp_prefill=xp_tp, tp_decode=yp_tp,
+               n_prefill_groups=xp_groups, n_decode_groups=yp_groups,
+               goodput_rps=1.0, ttft=0.1, tpot=0.01, decode_batch=8,
+               kv_transfer_s=0.0, meets_slo=True)
 
 
 @pytest.mark.parametrize("budget", range(2, 17))
 def test_pool_split_matches_jax(budget):
-    plans = [None] + [_plan(*g) for g in itertools.product((1, 2, 8),
-                                                           (1, 3, 4),
-                                                           (1, 8), (1, 3))]
-    for plan in plans:
+    """The port's split of the JAX plan, and of the port's own
+    ``core.disagg.DisaggPlan``, equals the reference's."""
+    grid = list(itertools.product((1, 2, 8), (1, 3, 4), (1, 8), (1, 3)))
+    plans = [None] + [_plan(*g) for g in grid]
+    ours = [None] + [_plan(*g, cls=PortDisaggPlan) for g in grid]
+    for plan, own in zip(plans, ours):
         got = pool_split_from_plan(plan, budget)
         assert got == jax_pool_split(plan, budget)
+        assert pool_split_from_plan(own, budget) == got
         assert min(got) >= 1 and sum(got) == budget
 
 

@@ -62,11 +62,32 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch, repro_torch.models, repro_torch.serving\n"
             "import repro_torch.kernels.ops, repro_torch.launch.serve\n"
             "import repro_torch.launch.serve_chat\n"
+            "import repro_torch.core, repro_torch.scenario\n"
+            "import repro_torch.scenario.engine_backend\n"
+            "import repro_torch.launch.quickstart\n"
+            "import repro_torch.launch.platform_dse\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
     env = {"PYTHONPATH": f"{REPO / 'src'}:{REPO}", "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_model_loads_no_analytical_module():
+    """``repro_torch.core`` loads its analytical modules on first use: the
+    model and the engine, which read only ``modelspec``, load none."""
+    code = ("import sys\n"
+            "import repro_torch.models, repro_torch.serving\n"
+            "import repro_torch.core\n"
+            "loaded = {m.rsplit('.', 1)[1] for m in sys.modules\n"
+            "          if m.startswith('repro_torch.core.')}\n"
+            "assert loaded == {'modelspec', 'hardware'}, loaded\n"
+            "assert repro_torch.core.Workload.__name__ == 'Workload'\n"
+            "assert 'repro_torch.core.stages' in sys.modules\n")
+    env = {"PYTHONPATH": f"{REPO / 'src'}", "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
