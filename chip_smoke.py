@@ -456,8 +456,15 @@ PROFILES.update({
     "catch_up": dict(max_q=2, segs=[(1 + i % 2, kl)
                                     for i, kl in enumerate(SPEC_KV)]),
 })
+# yi-34b's attention (56 query heads over 8 KV heads: G = 7, so the rows
+# of a (query, KV head) are not a power of two) at the same decode and
+# prefill sub-batches
+YI_HEADS = dict(hq=56, hkv=8)
+PROFILES["yi_decode"] = dict(PROFILES["decode"], **YI_HEADS)
+PROFILES["yi_prefill"] = dict(PROFILES["prefill"], **YI_HEADS)
 TIMED = ("decode", "prefill", "deepseek_decode", "deepseek_prefill",
-         "verify_k3", "verify_k4")  # profiles the main paths launch
+         "verify_k3", "verify_k4", "yi_decode",
+         "yi_prefill")  # profiles the main paths launch
 
 # paged decode: the same 8 slots, lengths counting the token just written;
 # untimed, the same edges as the ragged kernel's
@@ -481,12 +488,14 @@ PAGED_DECODE_TIMED = ("decode",)
 # q_offset + queries unless given.  The two scratch rows of a full and of a
 # partial chunk, the dense decode of 8 slots, and mistral-7b-swa's window;
 # the same prefill and decode at deepseek-moe-16b's heads (G = 1, the head
-# shape of its two-dispatch serve).  Then, untimed, the edges of the
-# tensor-core tiles: granite-moe's D = 64 heads (Hq 24 over Hkv 8) at a
-# partial chunk, the reduced configs' D = 16, one row with kv_len 0 beside
-# a window narrower than one 64-key tile (a 16-query chunk, and a decode),
-# and D = 72 (a multiple of 8, not
-# of 16), which takes the CUDA-core walk in bf16 too.
+# shape of its two-dispatch serve); yi-34b's G = 7 prefill and decode; and
+# hubert-xlarge's encoder pass, bidirectional (``causal`` False) over 4 rows
+# of 1,024 frames at D = 80.  Then, untimed, the edges of the tensor-core
+# tiles: granite-moe's D = 64 heads (Hq 24 over Hkv 8) at a partial chunk,
+# the reduced configs' D = 16, one row with kv_len 0 beside a window
+# narrower than one 64-key tile (a 16-query chunk, and a decode), and D =
+# 72 (a multiple of 8, not of 16), which takes the CUDA-core walk in bf16
+# too.
 FLASH_PROFILES = {
     "prefill": dict(b=2, sq=128, skv=2048, q_offset=[1372, 128]),
     "prefill_partial": dict(b=2, sq=37, skv=2048, q_offset=[256, 0]),
@@ -498,6 +507,13 @@ FLASH_PROFILES = {
     "deepseek_decode": dict(b=8, sq=1, skv=2048,
                             q_offset=[0, 16, 254, 639, 1023, 1499, 2046,
                                       2047], **DS_HEADS),
+    "yi_prefill": dict(b=2, sq=128, skv=2048, q_offset=[1372, 128],
+                       **YI_HEADS),
+    "yi_decode": dict(b=8, sq=1, skv=2048,
+                      q_offset=[0, 16, 254, 639, 1023, 1499, 2046, 2047],
+                      **YI_HEADS),
+    "hubert_encoder": dict(b=4, sq=1024, skv=1024, q_offset=[0] * 4,
+                           causal=False, hq=16, hkv=16, d=80),
     "granite_d64_partial": dict(b=2, sq=37, skv=2048, q_offset=[256, 0],
                                 hq=24, hkv=8, d=64),
     "reduced_d16": dict(b=2, sq=37, skv=512, q_offset=[300, 0], hq=8, hkv=2,
@@ -512,7 +528,8 @@ FLASH_PROFILES = {
                           hkv=2, d=72),
 }
 FLASH_TIMED = ("prefill", "prefill_partial", "dense_decode", "window",
-               "deepseek_prefill", "deepseek_decode")
+               "deepseek_prefill", "deepseek_decode", "yi_prefill",
+               "yi_decode", "hubert_encoder")
 
 
 def head_dims(prof):
@@ -609,7 +626,8 @@ def make_flash_case(torch, prof, dtype, seed):
     k[past] = 1e4
     v[past] = 1e4
     return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), kv_len=kl,
-                q_offset=qo, window=prof.get("window"))
+                q_offset=qo, window=prof.get("window"),
+                causal=prof.get("causal", True))
 
 
 # expert GEMM (E, C, D) @ (E, D, F) at deepseek-moe-16b's experts (E 64,
@@ -632,8 +650,18 @@ GEMM_PROFILES = {
     "c1": dict(e=64, c=1, d=1408, f=2048, broadcast=False),
     "c600_broadcast": dict(e=64, c=600, d=2048, f=1408, broadcast=True),
     "granite_mixed": dict(e=40, c=264, d=1536, f=512, broadcast=True),
+    # jamba-v0.1-52b's experts (E 16, D 4,096 <-> F 14,336) at its
+    # two-dispatch engine's shapes: a prefill chunk's 2 rows of 128 (C =
+    # 256) and a decode step's 8 slots, up/gate and down (14,336 deep)
+    "jamba_prefill": dict(e=16, c=256, d=4096, f=14336, broadcast=True),
+    "jamba_prefill_down": dict(e=16, c=256, d=14336, f=4096,
+                               broadcast=False),
+    "jamba_decode": dict(e=16, c=8, d=4096, f=14336, broadcast=True),
+    "jamba_decode_down": dict(e=16, c=8, d=14336, f=4096, broadcast=False),
 }
-GEMM_TIMED = ("mixed", "mixed_down", "decode", "decode_down")
+GEMM_TIMED = ("mixed", "mixed_down", "decode", "decode_down",
+              "jamba_prefill", "jamba_prefill_down", "jamba_decode",
+              "jamba_decode_down")
 
 
 def make_gemm_case(torch, prof, dtype, seed):
@@ -717,10 +745,12 @@ def work_decode(prof, itemsize):
 def _visible(prof):
     """(keys any query of the row sees, visible query-key pairs) per row."""
     out = []
+    causal = prof.get("causal", True)
     for r, qo in enumerate(prof["q_offset"]):
         kl = prof["kv_len"][r] if "kv_len" in prof else qo + prof["sq"]
         w = prof.get("window")
-        spans = [(max(0, qo + i - w + 1) if w else 0, min(kl, qo + i + 1))
+        spans = [(max(0, qo + i - w + 1) if w else 0,
+                  min(kl, qo + i + 1) if causal else kl)
                  for i in range(prof["sq"])]
         spans = [(lo, hi) for lo, hi in spans if hi > lo]
         keys = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)
@@ -750,10 +780,11 @@ def sdpa_call(torch, case):
     sq, skv = q.shape[2], k.shape[2]
     qpos = case["q_offset"][:, None] + torch.arange(sq, device=DEV)
     kpos = torch.arange(skv, device=DEV)
-    mask = (kpos < case["kv_len"][:, None, None]) \
-        & (kpos <= qpos[:, :, None])
+    mask = (kpos < case["kv_len"][:, None, None]).expand(-1, sq, -1)
+    if case["causal"]:
+        mask = mask & (kpos <= qpos[:, :, None])
     if case["window"]:
-        mask &= qpos[:, :, None] - kpos < case["window"]
+        mask = mask & (qpos[:, :, None] - kpos < case["window"])
     mask = mask[:, None]
     f = torch.nn.functional.scaled_dot_product_attention
     return lambda: f(q, k, v, attn_mask=mask, enable_gqa=True)
@@ -1460,14 +1491,21 @@ def phase_serve_unified(torch, model, spec, init_s, phase):
     return replay
 
 
-def build_full(torch, arch):
-    """``arch`` at its published width, random bf16 weights drawn on the
-    card from seed 0; returns (spec, model, seconds to build)."""
+def build_full(torch, arch, n_layers=None):
+    """``arch`` at its published width (and depth, unless ``n_layers``
+    cuts it), random bf16 weights drawn on the card from seed 0; returns
+    (spec, model, seconds to build).  Fails unless the model has exactly
+    the layers its spec states."""
     from repro_torch.configs import get_spec
     from repro_torch.models import build_model
     spec = get_spec(arch)
+    if n_layers is not None:
+        spec = spec.scaled(n_layers=n_layers)
     t0 = time.perf_counter()
     model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0)
+    if len(model.layers) != spec.n_layers:
+        raise AssertionError(f"{arch}: {len(model.layers)} layers built, "
+                             f"{spec.n_layers} stated")
     if spec.is_attention_free:
         draw_rwkv_mixes(torch, model, seed=0)
     torch.cuda.synchronize()
@@ -2237,7 +2275,7 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def phase_serve_profile(torch, model, spec, cfg) -> None:
+def phase_serve_profile(torch, model, spec, cfg) -> dict:
     """Where a step's time goes: torch.profiler over a short serve (8
     requests of 100-1500 prompt tokens, 8 new tokens each) through the
     replay engine ``cfg`` names, its profiles captured before (see
@@ -2284,28 +2322,32 @@ def phase_serve_profile(torch, model, spec, cfg) -> None:
                   decode_only_steps=m.dispatches - m.prefill_calls)
              if cfg.unified else dict(decode_steps=m.decode_steps,
                                       prefill_calls=m.prefill_calls))
-    emit("serve_profile", model=spec.name, layout=cfg.cache_layout,
-         unified=cfg.unified, kv_quant=model.kv_quant, steps=m.steps,
-         **steps, dispatches=m.dispatches,
-         wall_ms=wall * 1e3, device_busy_ms=busy,
-         device_busy_share=busy / (wall * 1e3),
-         kernel_launches=launches, graph_launches=graph_launches,
-         device_ms_by_class=dict(sorted(by_class.items(),
-                                        key=lambda kv: -kv[1])),
-         device_ms_per_step_by_class={c: ms / m.steps
-                                      for c, ms in by_class.items()})
+    line = dict(model=spec.name, layout=cfg.cache_layout,
+                unified=cfg.unified, kv_quant=model.kv_quant, steps=m.steps,
+                **steps, dispatches=m.dispatches,
+                wall_ms=wall * 1e3, device_busy_ms=busy,
+                device_busy_share=busy / (wall * 1e3),
+                kernel_launches=launches, graph_launches=graph_launches,
+                device_ms_by_class=dict(sorted(by_class.items(),
+                                               key=lambda kv: -kv[1])),
+                device_ms_per_step_by_class={c: ms / m.steps
+                                             for c, ms in by_class.items()})
+    emit("serve_profile", **line)
+    return line
 
 
 def _prefill_alone(torch, model, tokens, packed=True):
     """``tokens`` as one request's prompt, walked chunk by chunk on a fresh
     cache of the model's (int8 when ``model.kv_quant``): through the packed
     step on a one-request pool (``packed``), or through ``prefill_chunk``
-    on a one-row dense cache (an attention-free stack, or a sliding window,
-    has no packed step).  Returns the last chunk's logits and the cache."""
+    on a one-row dense cache (a stack with Mamba or RWKV layers, or a
+    sliding window, has no packed step).  Returns the last chunk's logits
+    and the cache."""
     from repro_torch.models.attention import PackedSegs
     chunk, ps = GEOMETRY["chunk_size"], GEOMETRY["page_size"]
     spec = model.spec
-    if not packed or spec.is_attention_free or spec.attn.kind == "swa":
+    stateful = "ssm" in spec.layer_kinds()
+    if not packed or stateful or spec.attn.kind == "swa":
         cache = model.init_cache(1, GEOMETRY["max_seq"], layout="dense")
         for lo in range(0, len(tokens), chunk):
             toks = torch.tensor([tokens[lo:lo + chunk]], device=DEV)
@@ -3378,6 +3420,316 @@ def phase_scenario(torch) -> list[dict]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of the registry
+# ---------------------------------------------------------------------------
+
+#: jamba-v0.1-52b's depth on the card: one 8-layer period (7 Mamba layers
+#: and attention at offset 4; MoE on layers 1, 3, 5 and 7): 13.3 B
+#: parameters, 26.7 GB in bf16.  The published 32 layers are 103 GB and do
+#: not fit one 80 GB card.
+JAMBA_LAYERS = 8
+#: rows x frames of the encoder pass (hubert-xlarge) and of the frontend
+#: prefill (pixtral-12b)
+ENCODER_ROWS, ENCODER_FRAMES = 4, 1024
+
+
+def scan_ms(torch, spec, rows, steps):
+    """Median device ms of one Mamba scan (``ops.mamba_scan``, the
+    reference's arithmetic in PyTorch) at ``spec``'s inner width, over
+    ``rows`` x ``steps`` inputs in bf16 (f32 decays and state), replayed
+    from a CUDA graph as the engine's prefill and decode replays run it
+    (eager, its per-step launches would wait on the host)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEV).manual_seed(steps)
+    di, n = spec.ssm.d_inner(spec.d_model), spec.ssm.d_state
+    x = torch.randn((rows, steps, di), generator=gen,
+                    device=DEV).bfloat16()
+    dt = torch.rand((rows, steps, di), generator=gen, device=DEV) * 0.1
+    a = -torch.rand((di, n), generator=gen, device=DEV) - 0.5
+    b = torch.randn((rows, steps, n), generator=gen, device=DEV).bfloat16()
+    c = torch.randn((rows, steps, n), generator=gen, device=DEV).bfloat16()
+    d = torch.ones((di,), device=DEV)
+    state = torch.zeros((rows, di, n), device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        ops.mamba_scan(x, dt, a, b, c, d, state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ops.mamba_scan(x, dt, a, b, c, d, state)
+    return median_ms(torch, graph.replay, PLAIN_LAUNCHES)
+
+
+def phase_serve_jamba(torch) -> list[dict]:
+    """jamba-v0.1-52b at full width and one period of depth (JAMBA_LAYERS)
+    through the dense and the paged two-dispatch engines, eager and
+    replayed (the unified step refuses Mamba layers, as the reference's
+    does).  Launches exact: flash once per attention layer per forward
+    (dense) or per prefill call (paged, where the paged decode takes the
+    decode steps), the expert GEMM 3 per MoE layer per forward, all on the
+    tensor-core routes, every other kernel 0.  Then the dense replay
+    engine's profile beside the Mamba scan's share: the scan timed alone
+    at the serve's shapes, times its calls.  Returns each warm replay
+    serve's launch counts."""
+    from repro_torch.configs import get_spec
+    from repro_torch.serving import EngineConfig
+    spec, model, init_s = build_full(torch, "jamba-v0.1-52b",
+                                     n_layers=JAMBA_LAYERS)
+    kinds = [layer.cls.key for layer in model.layers]
+    if kinds != ["mamba", "mamba_moe", "mamba", "mamba_moe", "attn",
+                 "mamba_moe", "mamba", "mamba_moe"]:
+        raise AssertionError(f"jamba: layers {kinds}")
+    n_attn, n_mamba = spec.n_attn_layers(), spec.n_ssm_layers()
+    n_gemm = expert_launches_per_forward(spec)
+
+    def expect_for(mode):
+        def expect(m, stats):
+            fwd = m.prefill_calls + m.decode_steps
+            want = {"expert_gemm": n_gemm * fwd,
+                    "flash_attention": n_attn * (fwd if mode == "dense"
+                                                 else m.prefill_calls)}
+            if mode == "paged":
+                want["paged_decode_attention"] = n_attn * m.decode_steps
+            _expect(f"jamba {mode}", stats["launches"], want)
+            _expect_tensor_cores(mode, stats["routes"], "expert_gemm",
+                                 want["expert_gemm"], route="wgmma")
+            for kernel in ("flash_attention", "paged_decode_attention"):
+                if kernel in want:
+                    _expect_tensor_cores(mode, stats["routes"], kernel,
+                                         want[kernel])
+        return expect
+
+    n_params = sum(p.numel() for p in model.parameters())
+    info = dict(params=n_params, weight_gb=n_params * 2 / 1e9,
+                init_s=init_s, layers=spec.n_layers,
+                published_layers=get_spec("jamba-v0.1-52b").n_layers,
+                depth_cut="one 8-layer period of 32: the published 103 GB "
+                          "of bf16 weights do not fit one 80 GB card",
+                layer_kinds=kinds)
+    out, lines = [], {}
+    for mode in ("dense", "paged"):
+        lines[mode] = serve_eager_and_replay(
+            torch, model, spec, mode, "serve_jamba", expect_for(mode),
+            **info)[0]
+        out.append(lines[mode]["launches"])
+    prof = phase_serve_profile(torch, model, spec,
+                               EngineConfig(**GEOMETRY, **MODES["dense"]))
+    # the profile's serve: 8 requests, 8 new tokens (see phase_serve_profile)
+    rows, chunk = GEOMETRY["prefill_rows"], GEOMETRY["chunk_size"]
+    t_prefill = scan_ms(torch, spec, rows, chunk)
+    t_decode = scan_ms(torch, spec, GEOMETRY["max_slots"], 1)
+    scan = n_mamba * (prof["prefill_calls"] * t_prefill
+                      + prof["decode_steps"] * t_decode)
+    busy = prof["device_busy_ms"]
+    emit("jamba_split", model=spec.name, layers=spec.n_layers,
+         scan_ms_prefill_call=t_prefill, scan_ms_decode_step=t_decode,
+         scan_calls=n_mamba * (prof["prefill_calls"]
+                               + prof["decode_steps"]),
+         scan_ms_in_profile=scan, scan_share=scan / busy,
+         expert_gemm_ms=prof["device_ms_by_class"].get("expert_gemm", 0.0),
+         expert_gemm_share=prof["device_ms_by_class"].get(
+             "expert_gemm", 0.0) / busy,
+         elementwise_ms=prof["device_ms_by_class"].get("other", 0.0),
+         device_busy_ms=busy,
+         peak_mem_gb={m: lines[m]["peak_mem_gb"] for m in lines})
+    del model
+    free(torch)
+    return out
+
+
+def phase_serve_dense_registry(torch) -> list[dict]:
+    """deepseek-7b (MHA, G = 1) and yi-34b (G = 7) at full width through the
+    unified engine, eager and replayed, ragged launches exact on the
+    tensor-core route (see ``phase_serve_unified``).  yi-34b's 68.8 GB of
+    weights are built only after every earlier model is freed, and its
+    peak stands beside the card's total.  Returns each replay serve's
+    launch counts."""
+    out = []
+    for arch in ("deepseek-7b", "yi-34b"):
+        free(torch)
+        held = torch.cuda.memory_allocated()
+        spec, model, init_s = build_full(torch, arch)
+        stats = phase_serve_unified(torch, model, spec, init_s,
+                                    "serve_dense_registry")[0]
+        out.append(stats["launches"])
+        total = torch.cuda.get_device_properties(0).total_memory
+        emit("registry_memory", model=spec.name, layers=spec.n_layers,
+             g=spec.n_heads // spec.n_kv_heads,
+             weight_gb=sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9,
+             held_before_build_gb=held / 1e9,
+             peak_mem_gb=stats["peak_mem_gb"], card_total_gb=total / 1e9,
+             max_slots=GEOMETRY["max_slots"], max_seq=GEOMETRY["max_seq"],
+             kv_reserved_gb=stats["kv_reserved_bytes"] / 1e9)
+        del model
+        free(torch)
+    return out
+
+
+def _frames(torch, rows, frames, d, seed):
+    """Seeded stand-in frontend embeddings (unit scale), bf16 on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((rows, frames, d), generator=gen,
+                       device=DEV).bfloat16()
+
+
+def _timed_call(torch, fn):
+    """One call of ``fn`` with every kernel count 0 and the peak memory
+    reset just before, read just after: (its result, its device ms, the
+    launch counts, the routes); the peak stays for the caller to read."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1), read_launches(), read_routes()
+
+
+def phase_encoder_frontend(torch) -> list[dict]:
+    """hubert-xlarge at full width: ``forward(embeds=)`` over 4 x 1,024
+    frames, bidirectional, one flash launch per layer on the tensor-core
+    route at D = 80; logits finite, (4, 1,024, 504).  pixtral-12b at full
+    width: the unified engine on token prompts (see
+    ``phase_serve_unified``), then one ``prefill(embeds=)`` of 4 x 1,024
+    patch embeddings into a dense cache, one flash launch per layer.
+    Returns the launch counts of each."""
+    out = []
+    spec, model, init_s = build_full(torch, "hubert-xlarge")
+    if model.embed is not None or spec.attn.causal:
+        raise AssertionError("hubert: an encoder has no token embedding "
+                             "and bidirectional attention")
+    emb = _frames(torch, ENCODER_ROWS, ENCODER_FRAMES, spec.d_model, 0)
+    model.forward(embeds=emb)  # warm-up
+    logits, ms, counts, routes = _timed_call(
+        torch, lambda: model.forward(embeds=emb))
+    _expect("encoder hubert", counts, {"flash_attention": spec.n_layers})
+    _expect_tensor_cores("encoder hubert", routes, "flash_attention",
+                         spec.n_layers)
+    if tuple(logits.shape) != (ENCODER_ROWS, ENCODER_FRAMES, spec.vocab) \
+            or not bool(logits.isfinite().all()):
+        raise AssertionError(f"encoder hubert: logits {tuple(logits.shape)}"
+                             " not finite or not (rows, frames, vocab)")
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("encoder_frontend", model=spec.name, entry="forward(embeds=)",
+         rows=ENCODER_ROWS, frames=ENCODER_FRAMES, d_head=spec.d_head,
+         causal=spec.attn.causal, params=n_params, init_s=init_s,
+         device_ms=ms, frames_per_s=ENCODER_ROWS * ENCODER_FRAMES / ms * 1e3,
+         launches=counts, routes=routes,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out.append(counts)
+    del model, logits
+    free(torch)
+
+    spec, model, init_s = build_full(torch, "pixtral-12b")
+    out.append(phase_serve_unified(torch, model, spec, init_s,
+                                   "serve_frontend")[0]["launches"])
+    emb = _frames(torch, ENCODER_ROWS, ENCODER_FRAMES, spec.d_model, 1)
+    cache = model.init_cache(ENCODER_ROWS, GEOMETRY["max_seq"],
+                             layout="dense")
+    (logits, cache), ms, counts, routes = _timed_call(
+        torch, lambda: model.prefill(embeds=emb, cache=cache))
+    _expect("frontend pixtral", counts, {"flash_attention": spec.n_layers})
+    _expect_tensor_cores("frontend pixtral", routes, "flash_attention",
+                         spec.n_layers)
+    if tuple(logits.shape) != (ENCODER_ROWS, spec.vocab) \
+            or not bool(logits.isfinite().all()) \
+            or cache.lengths.tolist() != [ENCODER_FRAMES] * ENCODER_ROWS:
+        raise AssertionError("frontend pixtral: prefill(embeds=) logits or "
+                             "lengths wrong")
+    emit("encoder_frontend", model=spec.name, entry="prefill(embeds=)",
+         rows=ENCODER_ROWS, frames=ENCODER_FRAMES, device_ms=ms,
+         tokens_per_s=ENCODER_ROWS * ENCODER_FRAMES / ms * 1e3,
+         launches=counts, routes=routes,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out.append(counts)
+    del model, cache, logits
+    free(torch)
+    return out
+
+
+def phase_registry_parity(torch) -> None:
+    """The new architectures at full width and 2 layers in float32, each
+    kernel against its plain version.  jamba-v0.1-52b: a Mamba layer (dense
+    MLP) then an attention layer (MoE), through the dense and the paged
+    two-dispatch replay engines: kernel against plain in each layout and
+    dense against paged, token-identical up to genuine ties (top-2 gap
+    under TIE_GAP).  yi-34b (G = 7) through the unified engine, kernel
+    against plain likewise.  hubert-xlarge's ``forward(embeds=)`` over 2 x
+    256 frames: kernel against plain logits within F32_ATOL."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    def serve_outs(model, spec, modes):
+        outs = {}
+        for mode in modes:
+            for impl in ("kernel", "plain"):
+                model.kernel_impl = impl
+                reqs = make_requests(spec, 8, 16, seed=1)
+                ServeEngine(model, EngineConfig(**GEOMETRY, **MODES[mode]),
+                            device=DEV).serve(reqs)
+                outs[mode, impl] = [r.output for r in reqs]
+        model.kernel_impl = "plain"
+        prompts = [r.prompt for r in make_requests(spec, 8, 16, seed=1)]
+        pairs = [((m, "kernel"), (m, "plain")) for m in modes] + [
+            ((modes[0], "kernel"), (m, "kernel")) for m in modes[1:]]
+        comparisons = {}
+        for a, b in pairs:
+            what = f"{'/'.join(a)} vs {'/'.join(b)}"
+            comparisons[what] = {
+                "identical": sum(x == y for x, y in zip(outs[a], outs[b])),
+                "ties": _ties(torch, model, prompts, outs[a], outs[b],
+                              what)}
+        return comparisons
+
+    jamba = get_spec("jamba-v0.1-52b").scaled(
+        name="jamba-v0.1-52b-2l", n_layers=2, hybrid_pattern=("ssm", "attn"))
+    yi = get_spec("yi-34b").scaled(name="yi-34b-2l", n_layers=2)
+    for spec, modes in ((jamba, ("dense", "paged")), (yi, ("unified",))):
+        model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+        emit("registry_parity", model=spec.name, dtype="float32",
+             layers=[layer.cls.key for layer in model.layers],
+             comparisons=serve_outs(model, spec, modes))
+        del model
+        free(torch)
+
+    spec = get_spec("hubert-xlarge").scaled(name="hubert-xlarge-2l",
+                                            n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+    emb = _frames(torch, 2, 256, spec.d_model, 2).float()
+    logits = {}
+    for impl in ("kernel", "plain"):
+        model.kernel_impl = impl
+        logits[impl] = model.forward(embeds=emb)
+    err = float((logits["kernel"] - logits["plain"]).abs().max())
+    if not err <= F32_ATOL:
+        raise AssertionError(f"registry_parity hubert: kernel against "
+                             f"plain logits differ by {err}")
+    emit("registry_parity", model=spec.name, dtype="float32",
+         entry="forward(embeds=)", max_abs_err_logits=err, atol=F32_ATOL)
+    del model, logits
+    free(torch)
+
+
+def ptxas_of(log, marker):
+    """ptxas's lines (entry, registers, spills) of the kernels whose
+    mangled names hold ``marker``."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "entry function" in ln:
+            keep = marker in ln
+        if keep and any(w in ln for w in ("entry function", "registers",
+                                          "spill")):
+            out.append(ln.strip())
+    return out
+
+
 def kernel_entry(name, mod, launches, profiles, top):
     """The kernels line's entry of one kernel: ``top`` names the profile
     whose numbers stand at the top level (all timed profiles follow)."""
@@ -3437,6 +3789,9 @@ def main(argv: list[str]) -> int:
                     if any(w in ln for w in ("entry function", "registers",
                                              "spill"))]
                 for n, b in built.items()},
+         # hubert-xlarge's heads: the tensor-core walk's D = 80 kernels
+         ptxas_flash_d80=(ptxas_of(built["flash_attention"].log, "Li80E")
+                          if "flash_attention" in built else None),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     if only is not None:  # a short run: the named kernels' checks alone
@@ -3482,6 +3837,11 @@ def main(argv: list[str]) -> int:
     free(torch)
     phase_serve_parity(torch, "rwkv6-3b")
     serves += phase_scenario(torch)
+
+    serves += phase_serve_jamba(torch)
+    serves += phase_serve_dense_registry(torch)
+    serves += phase_encoder_frontend(torch)
+    phase_registry_parity(torch)
 
     launches = {name: sum(c[name] for c in serves) for name in mods}
     idle = [name for name, n in launches.items() if n == 0]

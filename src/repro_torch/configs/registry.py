@@ -2,14 +2,15 @@
 
 The reference registry's eleven architectures, plus the paper's Table-IV
 models (``PAPER_MODELS``) by name for the analytical side.  The port
-serves minitron-8b, mistral-7b-swa, qwen1.5-0.5b, deepseek-moe-16b,
-granite-moe-3b-a800m and rwkv6-3b; the model refuses jamba-v0.1-52b's
-Mamba layers and hubert-xlarge's and pixtral-12b's frontends by name
-(ROADMAP: queue 1, item 13), and deepseek-7b and yi-34b wait only for
-their first serve on the card.  mistral-7b-swa's sliding window is
-served by the dense two-dispatch engine only; rwkv6-3b, attention-free,
-by the two-dispatch engine in either layout (the unified step refuses
-state-carrying layers, as the reference's does).
+builds all eleven.  The unified engine serves the attention stacks
+(minitron-8b, qwen1.5-0.5b, deepseek-7b, yi-34b, pixtral-12b's backbone
+on token prompts, deepseek-moe-16b, granite-moe-3b-a800m);
+mistral-7b-swa's sliding window is served by the dense two-dispatch
+engine only; jamba-v0.1-52b (Mamba, attention and MoE) and rwkv6-3b carry
+per-slot state and serve through the two-dispatch engine in either layout
+(the unified step refuses state-carrying layers, as the reference's
+does); hubert-xlarge, an encoder with no token embedding, runs
+``Model.forward(embeds=)`` only.
 """
 
 from __future__ import annotations

@@ -7,6 +7,8 @@ version (the port of ``repro.kernels.ops``).
                            against the paged pools
   expert_gemm            : the MoE FFN's batched per-expert GEMM
   rwkv6_scan             : the RWKV-6 WKV recurrence
+  mamba_scan             : the Mamba selective scan (plain PyTorch on every
+                           device: the reference's is jnp, not Pallas)
   decode_attention       : one-token decode against a dense (B, T, Hkv, D)
                            cache (no model routes to it, as in the
                            reference)
@@ -130,3 +132,38 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  kv_len=lengths,
                                  q_offset=lengths.long() - 1)
     return decode_attention_cuda(q, k, v, lengths=lengths, sm_scale=sm_scale)
+
+
+def _chunked_recurrence(ref_fn, state: torch.Tensor,
+                        time_args: tuple[torch.Tensor, ...],
+                        other_args: tuple[torch.Tensor, ...], chunk: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run a sequential recurrence chunk by chunk along axis 1, each chunk
+    continuing from the last one's state (the reference's chunks exist for
+    its backward pass; here they bound each chunk's (B, chunk, ...)
+    buffers).  ``ref_fn(*chunk_args, *other_args, state) -> (out,
+    state)``."""
+    t = time_args[0].shape[1]
+    if t <= chunk:
+        return ref_fn(*time_args, *other_args, state)
+    outs = []
+    for s in range(0, t, chunk):
+        out, state = ref_fn(*(a[:, s:s + chunk] for a in time_args),
+                            *other_args, state)
+        outs.append(out)
+    return torch.cat(outs, dim=1), state
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+               state: torch.Tensor, *, chunk: int = 128
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba selective scan: x (B, T, Di) in the compute dtype, dt (B, T,
+    Di) float32, a (Di, N) float32, b, c (B, T, N), d (Di,) float32, state
+    (B, Di, N) float32 -> (y (B, T, Di) in x's dtype, final state float32),
+    ``chunk`` steps at a time (the same numbers as one pass)."""
+    def ref_reordered(x_, dt_, b_, c_, a_, d_, s_):
+        return ref.mamba_scan_reference(x_, dt_, a_, b_, c_, d_, s_)
+
+    return _chunked_recurrence(ref_reordered, state, (x, dt, b, c), (a, d),
+                               chunk)

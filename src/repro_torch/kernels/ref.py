@@ -166,3 +166,38 @@ def rwkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = wf[:, t, :, :, None] * s + kv
     out = torch.stack(outs, dim=1) if outs else torch.zeros_like(rf)
     return out.to(r.dtype), s
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` as the reference computes it,
+    ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))`` (torch's own
+    softplus switches to x above a threshold)."""
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mamba_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                         state: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba selective scan, sequential over time in f32.
+
+    x, dt: (B, T, Di); a: (Di, N); b, c: (B, T, N); d: (Di,); state:
+    (B, Di, N).  Discretization dA = exp(dt * A), dB = dt * B:
+
+      h_t = dA_t * h_{t-1} + dB_t x_t ;  y_t = (C_t . h_t) + D x_t
+
+    Returns (y (B, T, Di) in x's dtype, final state (B, Di, N) f32).  The
+    discretized terms of every step are formed at once; only the
+    recurrence ``h = dA_t * h + dBx_t`` steps, written in place into the
+    (B, T, Di, N) buffer that held dBx, with the reference's rounding (a
+    product, then a sum)."""
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    af, df = a.float(), d.float()
+    da = torch.exp(dtf[..., None] * af)  # (B, T, Di, N)
+    hs = (dtf * xf)[..., None] * bf[:, :, None, :]  # dBx, then h
+    h = state.float()
+    for t in range(x.shape[1]):
+        hs[:, t] += da[:, t] * h
+        h = hs[:, t]
+    y = torch.einsum("btdn,btn->btd", hs, cf) + df * xf
+    return y.to(x.dtype), h.clone()

@@ -1,6 +1,7 @@
-"""The port's model: dense, GQA and MoE decoders served through the
-token-packed paged step, and RWKV-6 decoders through the two-dispatch
-steps.
+"""The port's model: every architecture of the registry.  Dense, GQA and
+MoE decoders serve through the token-packed paged step; the Mamba hybrid
+(jamba) and RWKV-6 decoders through the two-dispatch steps; the encoder
+(hubert) and the frontends' backbones run ``Model.forward(embeds=)``.
 
     model = build_model(spec)                   # on the card, bf16 weights
     model = build_model(spec, device="cpu", dtype=torch.float32)

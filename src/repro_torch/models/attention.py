@@ -409,14 +409,16 @@ def _dense_cached_attention(spec: ModelSpec, cache: AttnCache,
 
 def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
                     positions: torch.Tensor,
-                    cache: AttnCache | PagedAttnCache, *,
+                    cache: AttnCache | PagedAttnCache | None, *,
                     lengths: torch.Tensor | None = None,
                     page_table: torch.Tensor | None = None,
                     packed: PackedSegs | None = None,
                     mask: torch.Tensor | None = None,
                     views: dict,
                     impl: str = "kernel") -> torch.Tensor:
-    """Three cached modes, as the reference's:
+    """The full pass (``cache`` None: :meth:`Model.forward`, attention over
+    the S tokens themselves with the spec's ``causal``) and three cached
+    modes, as the reference's:
 
       * packed unified step (PagedAttnCache + ``packed``): x is the (T, D)
         token-packed mixed decode+prefill batch; K/V go to pages and the
@@ -434,7 +436,9 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
             "the packed unified step has no sliding-window masking, as in "
             "the reference")
     q, k, v = _project_qkv(spec, params, x, positions)
-    if packed is not None:
+    if cache is None:
+        o = _attend(spec, q, k, v, impl=impl)
+    elif packed is not None:
         o = _packed_paged_attention(cache, q, k, v, packed, impl, views)
     elif isinstance(cache, PagedAttnCache):
         o = _paged_attention(spec, cache, q, k, v, lengths, page_table, impl,

@@ -10,8 +10,11 @@ repeat ``i // period``.  Weights keep the (in, out) orientation both sides
 use as ``h @ w``.  An MoE layer's ``ffn`` holds the router, the 3-D
 expert tensors and, with shared experts, the nested ``shared`` MLP dict,
 which becomes ``layers.{i}.ffn.shared.{name}``.  An RWKV-6 layer has a
-``mixer`` only (its channel mix is its FFN).  A tied head has no
-``lm_head``: the port reads ``embed.T`` as the reference does.
+``mixer`` only (its channel mix is its FFN); a Mamba layer's ``mixer``
+holds the reference's Mamba leaves (``a_log`` and ``d_skip`` float32 on
+both sides) beside its ``ffn``.  A tied head has no ``lm_head``: the port
+reads ``embed.T`` as the reference does; an encoder-only frontend model
+(hubert) has no ``embed`` at all.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from ..core.modelspec import ModelSpec
-from .transformer import layer_classes, stack_period
+from .transformer import stack_period
 
 
 def _f32(a: Any) -> torch.Tensor:
@@ -44,13 +47,10 @@ def from_jax_params(params_np: dict, spec: ModelSpec
     """numpy JAX param tree -> {name: f32 CPU tensor} for
     ``Model.load_state_dict``."""
     period, _ = stack_period(spec)
-    classes = layer_classes(spec)
-    state: dict[str, torch.Tensor] = {"embed": _f32(params_np["embed"])}
+    state: dict[str, torch.Tensor] = {}
+    if "embed" in params_np:
+        state["embed"] = _f32(params_np["embed"])
     for i in range(spec.n_layers):
-        if classes[i].kind == "mamba":
-            raise NotImplementedError(
-                f"layer {i} of {spec.name!r} is {classes[i].key}: mamba "
-                "layers are not ported yet (ROADMAP: queue 1, item 13)")
         stacked = params_np["layers"][f"pos{i % period}"]
         for block in ("mixer", "ffn"):
             _flatten(stacked.get(block, {}), f"layers.{i}.{block}",

@@ -1,7 +1,9 @@
-"""Top-level model: embedding -> decoder stack -> head, with the serving
-steps (the port of ``repro.models.model``'s serving half).
+"""Top-level model: embedding -> decoder stack -> head, with the full
+pass and the serving steps (the port of ``repro.models.model``).
 
     model = build_model(spec)                          # on the card, bf16
+    logits = model.forward(tokens)                     # (B, S, V), no cache
+    logits = model.forward(embeds=frames)              # hubert, pixtral
     cache = model.init_cache(batch, max_len, layout="paged", page_size=16)
     logits, cache = model.unified_step(cache, tokens, positions, packed)
     dec, seg, cache = model.verify_step(cache, tokens, positions, packed,
@@ -10,13 +12,19 @@ steps (the port of ``repro.models.model``'s serving half).
     logits, scratch = model.prefill_chunk(scratch, tokens, mask=mask)
     logits, cache = model.decode_step(cache, tokens)
 
-Every step writes K/V (or an RWKV layer's state) into the cache's tensors
-in place.  ``unified_step``, ``prefill_chunk`` and ``decode_step``, the
-steps the serving engine captures in CUDA graphs, also advance the cache's
-own ``lengths`` tensor and return the cache they were given;
-``verify_step`` leaves the lengths to its caller (the speculative round's
-rollback writes them); ``prefill`` returns a ``ModelCache`` holding the
-same layers and new lengths.
+Audio and vision models take precomputed frontend embeddings (``embeds=``,
+(B, S, d_model)) in place of token ids: the modality frontend is a stub,
+as in the reference.  An encoder-only frontend model (hubert-xlarge,
+``decoder=False``) has no token embedding and must be given ``embeds``;
+a decoder with a frontend (pixtral-12b) has both.
+
+Every step writes K/V (or a Mamba or RWKV layer's state) into the cache's
+tensors in place.  ``unified_step``, ``prefill_chunk`` and
+``decode_step``, the steps the serving engine captures in CUDA graphs,
+also advance the cache's own ``lengths`` tensor and return the cache they
+were given; ``verify_step`` leaves the lengths to its caller (the
+speculative round's rollback writes them); ``prefill`` returns a
+``ModelCache`` holding the same layers and new lengths.
 """
 
 from __future__ import annotations
@@ -29,10 +37,9 @@ from torch import nn
 from ..core.modelspec import ModelSpec
 from ..device import resolve_device
 from . import transformer as T
-from .attention import (AttnCache, PackedSegs, PagedAttnCache,
-                        init_attn_cache, init_paged_attn_cache)
+from .attention import PackedSegs, init_attn_cache, init_paged_attn_cache
 from .common import embed_init_, rms_norm, weight
-from .ssm import RWKVCache, init_rwkv_cache
+from .ssm import init_mamba_cache, init_rwkv_cache
 
 
 @dataclass
@@ -40,10 +47,11 @@ class ModelCache:
     """Serving cache.  ``page_table`` is the (B, max_pages) int32 slot
     table the paged decode reads (None for the dense layout; the packed
     step reads each segment's pages from its ``PackedSegs.page_table``).
-    An RWKV layer's cache is per-slot state in either layout.  ``views``
-    holds the buffers an int8 cache is dequantized into, one K/V pair per
-    shape, shared by every layer (empty for a full-precision cache)."""
-    layers: list[AttnCache | PagedAttnCache | RWKVCache]  # one per layer
+    A Mamba or RWKV layer's cache is per-slot state in either layout.
+    ``views`` holds the buffers an int8 cache is dequantized into, one K/V
+    pair per shape, shared by every layer (empty for a full-precision
+    cache)."""
+    layers: list[T.LayerCache]  # one per layer
     lengths: torch.Tensor  # (B,) int32 valid tokens per slot
     page_table: torch.Tensor | None = None
     views: dict = field(default_factory=dict)
@@ -64,15 +72,14 @@ class Model(nn.Module):
     def __init__(self, spec: ModelSpec, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
-        if not spec.decoder or spec.frontend != "none":
-            raise NotImplementedError(
-                f"{spec.name!r}: encoder-only and frontend-embedding "
-                "models are not ported yet (ROADMAP: queue 1, item 13)")
         self.spec = spec
         self.device = device
         self.dtype = dtype
         d = spec.d_model
-        self.embed = weight((spec.vocab, d), device, dtype)
+        # decoders own a token embedding even with a modality frontend (a
+        # VLM decodes text tokens); encoder-only frontends (HuBERT) don't
+        self.embed = (weight((spec.vocab, d), device, dtype)
+                      if spec.frontend == "none" or spec.decoder else None)
         self.layers = nn.ModuleList(
             T.Layer(spec, cls, device, dtype) for cls in T.layer_classes(spec))
         self.final_norm = weight((d,), device, dtype, fill=1.0)
@@ -81,13 +88,24 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        embed_init_(self.embed, generator)
+        if self.embed is not None:
+            embed_init_(self.embed, generator)
         for layer in self.layers:
             layer.reset_parameters(generator)
         if not self.spec.tied_embeddings:
             embed_init_(self.lm_head, generator)
 
     # -- helpers ----------------------------------------------------------
+    def _embed_in(self, tokens: torch.Tensor | None,
+                  embeds: torch.Tensor | None) -> torch.Tensor:
+        """Precomputed frontend embeddings in the model's dtype, else the
+        token embedding of ``tokens``."""
+        if embeds is not None:
+            return embeds.to(self.dtype)
+        if self.embed is None:
+            raise AssertionError("encoder-only frontend archs take embeds")
+        return self.embed[tokens.long()]
+
     def _head_w(self) -> torch.Tensor:
         if self.spec.tied_embeddings:
             return self.embed.T
@@ -95,6 +113,27 @@ class Model(nn.Module):
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         return rms_norm(h, self.final_norm) @ self._head_w()
+
+    # -- encoder / full forward --------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+        """Full pass with no cache: (B, S) tokens or (B, S, D) ``embeds`` ->
+        (B, S, V) logits at every position.  Attention is one flash call
+        per layer over the S tokens (causal as the spec says: HuBERT's is
+        bidirectional); a Mamba or RWKV layer starts from zero state.
+        ``positions`` (B, S) default to 0..S-1 (read only by RoPE)."""
+        x = self._embed_in(tokens, embeds)
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        caches = [init_rwkv_cache(self.spec, b, x.device, self.dtype)
+                  if cls.kind == "rwkv6" else None
+                  for cls in T.layer_classes(self.spec)]
+        x = T.apply_stack(self.spec, self.layers, x, positions, caches,
+                          impl=self.kernel_impl)
+        return self._logits(x)
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *, layout: str = "paged",
@@ -106,7 +145,8 @@ class Model(nn.Module):
         dense reservation plus the null page, and a zero (batch, max_pages)
         page table.  With ``kv_quant`` every attention layer's K/V are int8
         with f32 scales.  An RWKV layer gets its per-slot state in both
-        layouts: paging and quantization never apply to state."""
+        layouts: paging and quantization never apply to state, and a Mamba
+        layer's is its conv inputs and SSM state."""
         dev, spec = self.device, self.spec
         lengths = torch.zeros((batch,), dtype=torch.int32, device=dev)
         if layout not in ("dense", "paged"):
@@ -125,6 +165,8 @@ class Model(nn.Module):
         def one(cls: T.LayerClass):
             if cls.kind == "rwkv6":
                 return init_rwkv_cache(spec, batch, dev, self.dtype)
+            if cls.kind == "mamba":
+                return init_mamba_cache(spec, batch, dev, self.dtype)
             if layout == "dense":
                 return init_attn_cache(spec, batch, max_len, dev, self.dtype,
                                        quantized=self.kv_quant)
@@ -135,19 +177,21 @@ class Model(nn.Module):
                           lengths=lengths, page_table=page_table)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, cache: ModelCache,
+    def prefill(self, tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None, cache: ModelCache,
                 lengths: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, ModelCache]:
-        """Process (B, S) prompts into a fresh dense cache and return the
-        logits at each row's last valid position.  ``lengths``: (B,) true
-        prompt lengths (right padding allowed; default the full width)."""
-        b, s = tokens.shape
-        dev = tokens.device
+        """Process (B, S) prompts (or (B, S, D) frontend ``embeds``) into a
+        fresh dense cache and return the logits at each row's last valid
+        position.  ``lengths``: (B,) true prompt lengths (right padding
+        allowed; default the full width)."""
+        x = self._embed_in(tokens, embeds)
+        b, s, _ = x.shape
+        dev = x.device
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         positions = torch.arange(s, device=dev).expand(b, s)
-        x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
-                          positions, cache.layers,
+        x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
                           lengths=torch.zeros((b,), dtype=torch.int32,
                                               device=dev),
                           views=cache.views, impl=self.kernel_impl)
@@ -174,7 +218,7 @@ class Model(nn.Module):
         dev = tokens.device
         positions = cache.lengths[:, None].long() + torch.arange(s,
                                                                  device=dev)
-        x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
+        x = T.apply_stack(self.spec, self.layers, self._embed_in(tokens, None),
                           positions, cache.layers, lengths=cache.lengths,
                           page_table=cache.page_table, mask=mask,
                           views=cache.views, impl=self.kernel_impl)
@@ -193,7 +237,7 @@ class Model(nn.Module):
         token go straight into their pages.  Returns per-segment
         last-position logits (S, V) and ``cache`` itself (pools updated in
         place; slot lengths written in place for the slots that ran)."""
-        x = self.embed[tokens.long()]
+        x = self._embed_in(tokens, None)
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
                           packed=packed, views=cache.views,
                           impl=self.kernel_impl)
@@ -222,7 +266,7 @@ class Model(nn.Module):
         ``cache.lengths`` is left unchanged: the committed frontier depends
         on the accept counts, so the caller writes the lengths after
         rejection sampling."""
-        x = self.embed[tokens.long()]
+        x = self._embed_in(tokens, None)
         x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
                           packed=packed, views=cache.views,
                           impl=self.kernel_impl)
@@ -240,7 +284,7 @@ class Model(nn.Module):
         Every slot's length advances in place, idle ones too, as in the
         reference (their writes clamp inside their own row, or land on the
         null page)."""
-        x = T.apply_stack(self.spec, self.layers, self.embed[tokens.long()],
+        x = T.apply_stack(self.spec, self.layers, self._embed_in(tokens, None),
                           cache.lengths[:, None], cache.layers,
                           lengths=cache.lengths, page_table=cache.page_table,
                           views=cache.views, impl=self.kernel_impl)

@@ -1,22 +1,29 @@
-"""RWKV-6 (Finch) time mix and channel mix: the RWKV half of
-``repro.models.ssm``.
+"""State-space mixers: Mamba (the selective scan) and RWKV-6 (Finch), the
+port of ``repro.models.ssm``.
 
-The block carries constant-size state per request (:class:`RWKVCache`):
-the previous token's normed features for each of its two token shifts and
-the (H, N, N) f32 WKV state.  The WKV recurrence runs through
-:func:`repro_torch.kernels.ops.rwkv6_scan` (the Hopper kernel on the card).
+Both carry constant-size state per request.  A Mamba layer's
+(:class:`MambaCache`) is the last K-1 *pre-conv* inputs of its depthwise
+causal conv, in the compute dtype, and the (Di, N) f32 SSM state; its
+selective scan runs through :func:`repro_torch.kernels.ops.mamba_scan`
+(plain PyTorch on every device: the reference's scan is jnp, not Pallas).
+An RWKV-6 layer's (:class:`RWKVCache`) is the previous token's normed
+features for each of its two token shifts and the (H, N, N) f32 WKV state;
+its recurrence runs through :func:`repro_torch.kernels.ops.rwkv6_scan`
+(the Hopper kernel on the card).
 
-The block copies the reference's, quirks included (ROADMAP section 3):
-``ln_x`` is an RMSNorm over the whole width (the reference's comment says
-"per-head group norm"), the token-shift mixes are static vectors with a
-single decay LoRA, and the shift caches hold the *normed* last features
+The RWKV-6 block copies the reference's, quirks included (ROADMAP section
+3): ``ln_x`` is an RMSNorm over the whole width (the reference's comment
+says "per-head group norm"), the token-shift mixes are static vectors with
+a single decay LoRA, and the shift caches hold the *normed* last features
 ``h[:, -1:]`` and ``h2[:, -1:]``.  The reference's init leaves the mixes
 and the bonus ``u_bonus`` at zero; tests that mean to exercise the token
 shift and the bonus overwrite them with seeded draws.
 
-Unlike the reference, whose arrays are immutable, the block writes its new
-state into the cache in place.  Mamba is not ported yet (ROADMAP: queue 1,
-item 13).
+Unlike the reference, whose arrays are immutable, both blocks write their
+new state into the cache in place: every row, or with ``mask`` only the
+rows it selects (the two-dispatch prefill's rows at other chunk widths
+keep theirs bit for bit, as the reference's masked ``jnp.where`` keeps
+them).
 """
 
 from __future__ import annotations
@@ -29,7 +36,134 @@ from torch import nn
 
 from ..core.modelspec import ModelSpec
 from ..kernels import ops as kops
+from ..kernels.ref import softplus
 from .common import dense_init_, rms_norm, weight
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+
+@dataclass
+class MambaCache:
+    """Per-layer Mamba state: ``conv`` is (B, K-1, Di) in the compute
+    dtype (the last pre-conv inputs), ``ssm`` is (B, Di, N) float32."""
+    conv: torch.Tensor
+    ssm: torch.Tensor
+
+
+def _dt_rank(spec: ModelSpec) -> int:
+    return max(spec.ssm.d_inner(spec.d_model) // 16, 1)
+
+
+def init_mamba_cache(spec: ModelSpec, batch: int, device,
+                     dtype) -> MambaCache:
+    s = spec.ssm
+    di = s.d_inner(spec.d_model)
+    return MambaCache(
+        conv=torch.zeros((batch, s.d_conv - 1, di), device=device,
+                         dtype=dtype),
+        ssm=torch.zeros((batch, di, s.d_state), device=device,
+                        dtype=torch.float32))
+
+
+class Mamba(nn.Module):
+    """Mamba mixer parameters under the reference's names and inits
+    (``init_mamba``), (in, out) weights.  ``a_log`` (log 1..N per channel)
+    and ``d_skip`` stay float32 whatever the model's dtype, as the
+    reference keeps them."""
+
+    def __init__(self, spec: ModelSpec, device, dtype):
+        super().__init__()
+        s = spec.ssm
+        d, di, n = spec.d_model, s.d_inner(spec.d_model), s.d_state
+        dtr = _dt_rank(spec)
+        self.norm = weight((d,), device, dtype, fill=1.0)
+        self.in_proj = weight((d, 2 * di), device, dtype)
+        self.conv_w = weight((s.d_conv, di), device, dtype)
+        self.conv_b = weight((di,), device, dtype, fill=0.0)
+        self.x_proj = weight((di, dtr + 2 * n), device, dtype)
+        self.dt_w = weight((dtr, di), device, dtype)
+        self.dt_bias = weight((di,), device, dtype, fill=-4.6)
+        self.a_log = weight((di, n), device, torch.float32)
+        self.d_skip = weight((di,), device, torch.float32, fill=1.0)
+        self.out_proj = weight((di, d), device, dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("in_proj", "conv_w", "x_proj", "dt_w", "out_proj"):
+            dense_init_(getattr(self, name), generator)
+        n = self.a_log.shape[1]
+        self.a_log.copy_(torch.arange(1, n + 1, dtype=torch.float32,
+                                      device=self.a_log.device).log())
+
+
+def _causal_conv(x: torch.Tensor, prev: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along time, summed tap by tap in x's dtype as
+    the reference sums it.  x: (B, S, Di); prev: (B, K-1, Di) -> (out
+    (B, S, Di), the new K-1 last inputs)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)  # (B, S+K-1, Di)
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    new_prev = xp[:, -(k - 1):] if k > 1 else prev
+    return out + b, new_prev
+
+
+def _commit_state(dst_src: list[tuple[torch.Tensor, torch.Tensor]],
+                  mask: torch.Tensor | None) -> None:
+    """Write each new state into its cache tensor in place: every row, or
+    with the (B,) bool ``mask`` only the rows it selects (``torch.where``;
+    the other rows keep theirs bit for bit)."""
+    for dst, src in dst_src:
+        src = src.to(dst.dtype)
+        if mask is not None:
+            sel = mask.reshape((-1,) + (1,) * (dst.dim() - 1))
+            src = torch.where(sel, src, dst)
+        dst.copy_(src)
+
+
+def mamba_block(spec: ModelSpec, params: Mamba, x: torch.Tensor,
+                cache: MambaCache | None = None, *,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, T, D) continuing each row from its state in ``cache`` (None:
+    a full pass from zero state, nothing kept).  Returns the mixer's
+    output, before the residual add; the new conv inputs and SSM state go
+    into ``cache`` for the rows ``mask`` selects (None: every row)."""
+    s = spec.ssm
+    b, _, d = x.shape
+    di, n = s.d_inner(d), s.d_state
+    dtr = _dt_rank(spec)
+
+    h = rms_norm(x, params.norm)
+    xin, z = (h @ params.in_proj).chunk(2, dim=-1)
+    prev = cache.conv if cache is not None else \
+        x.new_zeros((b, s.d_conv - 1, di))
+    xc, new_prev = _causal_conv(xin, prev, params.conv_w, params.conv_b)
+    xc = F.silu(xc)
+
+    proj = xc @ params.x_proj
+    dt_raw = proj[..., :dtr]
+    bmat = proj[..., dtr:dtr + n]
+    cmat = proj[..., dtr + n:]
+    dt = softplus(dt_raw @ params.dt_w + params.dt_bias.float())
+    a = -torch.exp(params.a_log)
+    state = cache.ssm if cache is not None else \
+        torch.zeros((b, di, n), device=x.device, dtype=torch.float32)
+    y, new_state = kops.mamba_scan(xc, dt, a, bmat, cmat, params.d_skip,
+                                   state)
+    out = (y * F.silu(z)) @ params.out_proj
+    if cache is not None:
+        _commit_state([(cache.conv, new_prev), (cache.ssm, new_state)],
+                      mask)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
 
 #: rank of the decay LoRA (the reference's ``lo``)
 DECAY_LORA = 64
@@ -95,19 +229,13 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 def _commit(cache: RWKVCache, mask: torch.Tensor | None,
             tm_shift: torch.Tensor, cm_shift: torch.Tensor,
             wkv: torch.Tensor | None) -> None:
-    """Write the new state into the cache's own tensors: every row, or with
-    ``mask`` only the rows it selects (``torch.where``; the other rows keep
-    theirs bit for bit).  ``wkv`` None: the scan already wrote the WKV
-    state in place."""
+    """Write the new RWKV state into the cache's own tensors for the rows
+    ``mask`` selects (None: every row).  ``wkv`` None: the scan already
+    wrote the WKV state in place."""
     pairs = [(cache.tm_shift, tm_shift), (cache.cm_shift, cm_shift)]
     if wkv is not None:
         pairs.append((cache.wkv, wkv))
-    for dst, src in pairs:
-        src = src.to(dst.dtype)
-        if mask is not None:
-            sel = mask.reshape((-1,) + (1,) * (dst.dim() - 1))
-            src = torch.where(sel, src, dst)
-        dst.copy_(src)
+    _commit_state(pairs, mask)
 
 
 def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,

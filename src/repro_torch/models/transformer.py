@@ -19,7 +19,11 @@ from .attention import (Attention, AttnCache, PackedSegs, PagedAttnCache,
                         attention_block)
 from .mlp import MLP, mlp_block
 from .moe import MoE, moe_block
-from .ssm import RWKV6, RWKVCache, rwkv6_block
+from .ssm import (RWKV6, Mamba, MambaCache, RWKVCache, mamba_block,
+                  rwkv6_block)
+
+#: one layer's serving cache
+LayerCache = AttnCache | PagedAttnCache | MambaCache | RWKVCache
 
 
 @dataclass(frozen=True)
@@ -59,23 +63,20 @@ def stack_period(spec: ModelSpec) -> tuple[int, int]:
 
 
 class Layer(nn.Module):
-    """One layer.  Attention: ``mixer`` (attention) + ``ffn`` (the MoE
-    block where the layer class is MoE, else the dense MLP).  RWKV-6:
-    ``mixer`` (time mix and channel mix) and no ``ffn``, as in the
-    reference: the channel mix is its FFN."""
+    """One layer.  Attention or Mamba: ``mixer`` + ``ffn`` (the MoE block
+    where the layer class is MoE, else the dense MLP; a Jamba layer has
+    either).  RWKV-6: ``mixer`` (time mix and channel mix) and no ``ffn``,
+    as in the reference: the channel mix is its FFN."""
 
     def __init__(self, spec: ModelSpec, cls: LayerClass, device, dtype):
         super().__init__()
-        if cls.kind == "mamba":
-            raise NotImplementedError(
-                f"{spec.name!r}: mamba layers are not ported yet "
-                "(ROADMAP: queue 1, item 13)")
         self.cls = cls
         if cls.kind == "rwkv6":
             self.mixer = RWKV6(spec, device, dtype)
             self.ffn = None
             return
-        self.mixer = Attention(spec, device, dtype)
+        self.mixer = (Mamba if cls.kind == "mamba" else Attention)(
+            spec, device, dtype)
         if cls.is_moe:
             self.ffn = MoE(spec, device, dtype)
         else:
@@ -88,19 +89,23 @@ class Layer(nn.Module):
 
 
 def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
-               positions: torch.Tensor,
-               cache: AttnCache | PagedAttnCache | RWKVCache, *, impl: str,
-               **attn_kw) -> torch.Tensor:
-    if layer.cls.kind == "rwkv6":
-        if attn_kw["packed"] is not None:
-            raise NotImplementedError(
-                "the token-packed unified step supports attention-only "
-                "stacks; layer kind 'rwkv6' carries sequential state")
+               positions: torch.Tensor, cache: LayerCache | None, *,
+               impl: str, **attn_kw) -> torch.Tensor:
+    kind = layer.cls.kind
+    if kind == "attn":
+        x = x + attention_block(spec, layer.mixer, x, positions, cache,
+                                impl=impl, **attn_kw)
+    elif attn_kw["packed"] is not None:
+        raise NotImplementedError(
+            "the token-packed unified step supports attention-only "
+            f"stacks; layer kind {kind!r} carries sequential state")
+    elif kind == "mamba":
+        x = x + mamba_block(spec, layer.mixer, x, cache,
+                            mask=attn_kw["mask"])
+    else:
         # both residuals inside the block: the stack adds none
         return rwkv6_block(spec, layer.mixer, x, cache,
                            mask=attn_kw["mask"], impl=impl)
-    x = x + attention_block(spec, layer.mixer, x, positions, cache,
-                            impl=impl, **attn_kw)
     if layer.cls.is_moe:
         x = x + moe_block(spec, layer.ffn, x, impl=impl)
     elif layer.ffn is not None:
@@ -110,16 +115,19 @@ def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
 
 def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 positions: torch.Tensor,
-                caches: list[AttnCache | PagedAttnCache | RWKVCache], *,
+                caches: list[LayerCache | None], *,
                 lengths: torch.Tensor | None = None,
                 page_table: torch.Tensor | None = None,
                 packed: PackedSegs | None = None,
                 mask: torch.Tensor | None = None,
                 views: dict | None = None,
                 impl: str = "kernel") -> torch.Tensor:
-    """Run every layer; each writes its K/V (or its RWKV state) into its own
-    cache, in place.  ``impl`` routes every kernel of the stack, attention,
-    expert GEMMs and the WKV scan (``kernels.ops.IMPLS``).
+    """Run every layer; each writes its K/V (or its Mamba or RWKV state)
+    into its own cache, in place.  A None cache is the full pass of
+    :meth:`Model.forward`: attention over the S tokens themselves, a Mamba
+    layer from zero state, nothing kept.  ``impl`` routes every kernel of
+    the stack, attention, expert GEMMs and the WKV scan
+    (``kernels.ops.IMPLS``).
     ``lengths``/``page_table`` are the (B,) valid tokens and the shared
     (B, max_pages) page table; ``packed`` the shared segment table when x
     is a token-packed unified step; ``mask`` the (B,) bool selection of the

@@ -179,9 +179,7 @@ def evaluate(sc: Scenario, **engine_kw) -> Report:
                   f"lowerable modes are {', '.join(LOWERABLE_MODES)}")
     try:
         spec, model = lower_model(sc.model, **_model_kw(kw))
-    except (ValueError, TypeError, NotImplementedError) as e:
-        # NotImplementedError: an architecture the port's model does not
-        # build yet (Mamba layers, frontends), named by its ROADMAP item
+    except (ValueError, TypeError) as e:
         return Report(scenario=sc, backend="engine", status="error",
                       error=str(e))
     try:

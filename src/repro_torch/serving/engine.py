@@ -21,11 +21,12 @@ concurrent prefill rows.  Two engines, as in the reference:
   paged layout).  Decode is one ``decode_step`` over every slot and one
   sample, in ``decode_priority`` order with the prefill.
 
-An attention-free stack (RWKV-6) serves through the two-dispatch engine
-in either layout: its per-slot state is reset, advanced and inserted as
-K/V rows are, and the paged layout's page accounting runs unchanged, as
-the reference's does.  The unified step refuses it (``ValueError``, as the
-reference).
+A stack with state-carrying layers (the jamba hybrid's Mamba layers, an
+attention-free RWKV-6 stack) serves through the two-dispatch engine in
+either layout: its per-slot state is reset, advanced and inserted as K/V
+rows are (paging never applies to state), and the paged layout's page
+accounting runs unchanged, as the reference's does.  The unified step
+refuses it (``ValueError``, as the reference).
 
 In the paged layout pages are allocated on append and freed on finish;
 when the pool runs dry the youngest active request is preempted back to
@@ -321,7 +322,8 @@ class EngineMetrics:
 
 def _tensors(layer_cache) -> list[torch.Tensor]:
     """Every tensor of one layer's cache (K/V and, quantized, their scales,
-    or an RWKV layer's state), each with the batch (or page) axis first."""
+    or a Mamba or RWKV layer's state), each with the batch (or page) axis
+    first."""
     return [t for f in fields(layer_cache)
             if (t := getattr(layer_cache, f.name)) is not None]
 
@@ -927,8 +929,8 @@ class ServeEngine:
 
     def _reset_fn(self, inp: dict[str, torch.Tensor]):
         """The reset profile's step: zero scratch row ``row`` (claimed by a
-        newly admitted prompt): its K/V, or an RWKV layer's shift caches and
-        WKV state, and its length."""
+        newly admitted prompt): its K/V, or a Mamba or RWKV layer's state,
+        and its length."""
         def step() -> None:
             row = inp["row"].long()
             for layer in self.scratch.layers:
@@ -963,12 +965,12 @@ class ServeEngine:
         return step
 
     def _insert_fn(self, inp: dict[str, torch.Tensor]):
-        """The insert profile's step: copy scratch row ``row`` (K/V or RWKV
-        state, and length) into decode slot ``slot``.  In the paged layout
-        the attention layers' K/V are scattered into the pool pages named by
-        ``pages`` instead (paging never applies to RWKV state), and the
-        slot's page-table row is installed on the device, so the table
-        needs no separate upload."""
+        """The insert profile's step: copy scratch row ``row`` (K/V or
+        Mamba or RWKV state, and length) into decode slot ``slot``.  In the
+        paged layout the attention layers' K/V are scattered into the pool
+        pages named by ``pages`` instead (paging never applies to state),
+        and the slot's page-table row is installed on the device, so the
+        table needs no separate upload."""
         def step() -> None:
             slot, row = inp["slot"].long(), inp["row"].long()
             for big, small in zip(self.cache.layers, self.scratch.layers):
@@ -1383,8 +1385,8 @@ class ServeEngine:
         """Static + peak KV-capacity numbers: the decode cache's device
         reservation in bytes and the peak bytes holding live tokens (the
         dense layout's footprint is its reservation).  Attention K/V and,
-        quantized, their scales, as the reference counts: RWKV state is not
-        KV."""
+        quantized, their scales, as the reference counts: Mamba and RWKV
+        state is not KV."""
         reserved = sum(t.numel() * t.element_size()
                        for layer in self.cache.layers
                        if isinstance(layer, (AttnCache, PagedAttnCache))

@@ -29,12 +29,16 @@ def _moe_shapes(arch, reduced, cs):
 
 # deepseek-moe-16b's four timed shapes (a mixed step's 264 packed tokens,
 # a decode-only step's 8), granite-moe-3b-a800m's, the reduced configs'
-# (C up to the CPU tests' packed steps) and the ragged kernel_check cases
+# (C up to the CPU tests' packed steps), the ragged kernel_check cases and
+# jamba-v0.1-52b's two-dispatch shapes
 SHAPES = (_moe_shapes("deepseek-moe-16b", False, (264, 8))
           + _moe_shapes("granite-moe-3b-a800m", False, (264, 8))
           + _moe_shapes("deepseek-moe-16b", True, (1, 13, 40))
           + _moe_shapes("granite-moe-3b-a800m", True, (1, 13, 40))
-          + [(3, 37, 200, 136), (5, 70, 72, 200), (64, 600, 2048, 1408)])
+          + [(3, 37, 200, 136), (5, 70, 72, 200), (64, 600, 2048, 1408)]
+          # jamba-v0.1-52b's: a prefill chunk's 2 x 128 tokens and a
+          # decode step's 8, D 4,096 <-> F 14,336 (a 14,336-deep down)
+          + _moe_shapes("jamba-v0.1-52b", False, (256, 8)))
 
 
 def _coverage(p, c, f):

@@ -261,6 +261,11 @@ FLASH_CASES = [
     (2, 64, 64, 4, 4, 16, True, 24),
     (1, 96, 96, 2, 1, 64, True, None),
     (3, 32, 32, 6, 3, 8, True, None),
+    # hubert-xlarge's bidirectional heads: reduced (4 x 16) and the
+    # published width's D = 80; yi-34b's G = 7
+    (2, 48, 48, 4, 4, 16, False, None),
+    (1, 40, 40, 2, 2, 80, False, None),
+    (1, 24, 24, 14, 2, 16, True, None),
 ]
 FLASH_ATOL = 1e-4
 
@@ -458,6 +463,52 @@ def test_flash_plan_tile_edges(d):
                                             -(-skv // 64))
     ds_decode = _flash_plan((8, 1, 2048), hq=16, hkv=16, d=d)
     assert 8 * 16 * ds_decode.blocks >= 2 * H100_SMS
+
+
+def test_plans_at_the_registry_shapes():
+    """The shapes this slice adds on the card.  yi-34b (Hq 56 over Hkv 8,
+    G = 7, rows per query not a power of two): a 2 x 128 prefill takes 14
+    64-row blocks per (row, KV head), 896 rows, unsplit; the 8-slot decode
+    one 16-row block (7 rows) split like minitron's; the ragged kernel's
+    sub-batches the same.  hubert-xlarge (Hq = Hkv = 16, D = 80,
+    bidirectional; the plan never reads ``causal``): 4 x 1,024 frames in
+    16 64-row blocks, 1,024 blocks in all, unsplit, on the tensor-core
+    route."""
+    pre = flash_attention._plan(2, 128, 2048, 56, 8, 128, torch.bfloat16,
+                                H100_SMS)
+    assert (pre.route, pre.block_rows, pre.row_blocks, pre.n_split) \
+        == ("tensor_core", 64, 14, 1)
+    assert pre.row_blocks * pre.block_rows >= 128 * 7
+    dec = ragged_attention._plan(8, 1, 128, 16, 56, 8, 128, torch.bfloat16,
+                                 H100_SMS)
+    assert (dec.route, dec.block_rows, dec.row_blocks) \
+        == ("tensor_core", 16, 1)
+    assert dec == ragged_attention._plan(8, 1, 128, 16, 32, 8, 128,
+                                         torch.bfloat16, H100_SMS)
+    rpre = ragged_attention._plan(2, 128, 128, 16, 56, 8, 128,
+                                  torch.bfloat16, H100_SMS)
+    assert (rpre.block_rows, rpre.row_blocks, rpre.n_split) == (64, 14, 1)
+    hub = flash_attention._plan(4, 1024, 1024, 16, 16, 80, torch.bfloat16,
+                                H100_SMS)
+    assert attention_tc.tensor_core_route(torch.bfloat16, 80)
+    assert (hub.route, hub.block_rows, hub.row_blocks, hub.n_split,
+            hub.part_rows) == ("tensor_core", 64, 16, 1, 0)
+    assert flash_attention._plan(4, 1024, 1024, 16, 16, 80, torch.float32,
+                                 H100_SMS).route == "cuda_core"
+
+
+def test_plain_bidirectional_attention_at_hubert_widths_matches_jax():
+    """The encoder's full pass: non-causal attention over every frame, at
+    the reduced config's heads (4 of 16) and at the published D = 80,
+    against the JAX oracle."""
+    for hq, d in ((4, 16), (2, 80)):
+        q, k, v = _qkv(2, 33, 33, hq, hq, d, seed=d)
+        want = np.asarray(jref.mha_reference(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False))
+        got = tops.multi_head_attention(*_torch((q, k, v)), causal=False)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+        causal = tops.multi_head_attention(*_torch((q, k, v)))
+        assert not np.allclose(causal.numpy()[:, 0], want[:, 0])
 
 
 def test_decode_plan_at_the_main_path_shapes():

@@ -312,9 +312,13 @@ def test_model_and_engine_refuse_unported_architectures():
     model = build_model(swa, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         ServeEngine(model, _paged(), device="cpu")
+    # Mamba layers are ported: a pure Mamba stack builds, and the engine
+    # refuses it only where the reference does (the unified step)
     ssm = base.scaled(n_heads=0, n_kv_heads=0, ssm=SSMSpec())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(ssm, device="cpu", dtype=torch.float32)
+    model = build_model(ssm, device="cpu", dtype=torch.float32)
+    assert {layer.cls.kind for layer in model.layers} == {"mamba"}
+    with pytest.raises(ValueError, match="attention-only stacks"):
+        ServeEngine(model, _paged(), device="cpu")
 
 
 def test_paged_two_dispatch_refuses_a_window_only_in_full_precision():

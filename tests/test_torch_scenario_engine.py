@@ -198,13 +198,71 @@ def test_tp_refused_naming_the_roadmap_item(mode):
     assert ep.status == "error" and "item 12" not in ep.error
 
 
+JAMBA_CASES = {
+    "monolithic": (_scenario(), {}),
+    "chunked": (_scenario("chunked", chunked=ChunkedSpec(
+        chunk=4, decode_batch=2)), {}),
+    "chunked-unified": (_scenario("chunked", chunked=ChunkedSpec(
+        chunk=4, decode_batch=2)), dict(unified=True)),
+    "speculative": (_scenario("speculative", speculative=SpeculativeSpec(
+        draft=treg.get_reduced("jamba-v0.1-52b"), n=2)), {}),
+    "disaggregated": (_scenario("disaggregated"), {}),
+}
+
+
+def _jamba_reports(case):
+    """The port's and the reference's Reports of the reduced jamba hybrid
+    in ``JAMBA_CASES[case]``, the port on the reference's weights."""
+    sc, kw = JAMBA_CASES[case]
+    sc = sc.replace(model=treg.get_reduced("jamba-v0.1-52b"))
+    with mock.patch.object(teb, "lower_model", _converted):
+        rep = teb.evaluate(sc, device="cpu", **ENGINE_KW, **kw)
+    ref = jeb.evaluate(JaxScenario.from_json(sc.to_json()), **ENGINE_KW,
+                       **kw)
+    return rep, ref
+
+
 def test_unported_architectures_are_error_reports():
-    jamba = _scenario().replace(model=treg.get_reduced("jamba-v0.1-52b"))
-    rep = teb.evaluate(jamba, device="cpu", **ENGINE_KW)
-    assert rep.status == "error" and "item 13" in rep.error
+    """Every registry architecture now lowers as the reference's: the
+    jamba hybrid's monolithic Report equals the reference's (lowering,
+    engine config, kv stats and every counter); hubert-xlarge, an encoder
+    with no token embedding, is the reference's error Report; an unknown
+    arch is an error Report."""
+    rep, ref = _jamba_reports("monolithic")
+    assert rep.status == ref.status == "ok", (rep.error, ref.error)
+    assert rep.extra["lowering"] == ref.extra["lowering"]
+    assert {k: v for k, v in rep.extra["engine_config"].items()
+            if k not in PORT_ONLY} == ref.extra["engine_config"]
+    assert rep.extra["kv"] == ref.extra["kv"]
+    assert _untimed(rep.extra["engine"]) == _untimed(ref.extra["engine"])
+    hubert = _scenario().replace(model=treg.get_reduced("hubert-xlarge"))
+    with mock.patch.object(teb, "lower_model", _converted):
+        rep = teb.evaluate(hubert, device="cpu", **ENGINE_KW)
+    ref = jeb.evaluate(JaxScenario.from_json(hubert.to_json()), **ENGINE_KW)
+    assert rep.status == ref.status == "error"
+    assert rep.error == ref.error == \
+        "AssertionError: encoder-only frontend archs take embeds"
     rep = teb.evaluate(_scenario().replace(mode="monolithic").replace(
         model="no-such-arch"), device="cpu", **ENGINE_KW)
     assert rep.status == "error" and "unknown arch" in rep.error
+
+
+@pytest.mark.parametrize("case", sorted(set(JAMBA_CASES) - {"monolithic"}))
+def test_jamba_reports_equal_the_reference(case):
+    """The jamba hybrid in the other modes: the dense two-dispatch chunked
+    Report equals the reference's; where the reference refuses its Mamba
+    layers (the unified step, speculation, the disaggregated prefill pool)
+    the port gives the same error."""
+    rep, ref = _jamba_reports(case)
+    assert rep.status == ref.status, (rep.error, ref.error)
+    if case == "chunked":
+        assert rep.status == "ok", rep.error
+        assert rep.extra["lowering"] == ref.extra["lowering"]
+        assert rep.extra["kv"] == ref.extra["kv"]
+        assert _untimed(rep.extra["engine"]) == _untimed(ref.extra["engine"])
+    else:
+        assert rep.status == "error" and rep.error == ref.error
+        assert "SSM layers" in rep.error
 
 
 def test_lower_then_serve_equals_evaluate(monkeypatch):
