@@ -23,7 +23,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 scaled_dot_product_attention; expert GEMM: torch.bmm):
                   ragged       decode (8 slots, kv_len 1..2048), prefill
                                (max_q=128), idle rows; decode and prefill
-                               again at deepseek's G=1; the speculative
+                               again at deepseek's G=1 and at a tp = 2
+                               rank's 16 over 4 heads; the speculative
                                verify's windows, 8 of K+1 queries at G=4
                                (verify_k3, verify_k4; kv_len 100..2048);
                                untimed, the draft catch-up's 8 segments of
@@ -332,6 +333,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 engine config, captures, host and device ms per step and
                 the launches; then one cold evaluate() of monolithic (its
                 captures inside its TTFT) and the phase's seconds
+  serve_tp      the sharded unified engine (serving/sharded.py), after every
+                earlier model is freed: two ranks spawned with the kernels
+                already built, sharing the one card over gloo (every
+                collective staged through pinned host memory; gloo cannot
+                be captured, so graphs=False, and an engine with graphs on
+                must be refused), each drawing its shard of full-width
+                minitron-8b from seed 0 in bf16, tp = 2 then pp = 2, serving
+                serve_full's 8 requests; on each rank ragged launches
+                exactly (n_layers / pp) x (2 x mixed + decode-only steps)
+                on the tensor-core route, every other kernel 0, collectives
+                65 a step at tp = 2 (2 x 32 all-reduces + the logits
+                gather) and 3 at pp = 2 (2 hops + 1 broadcast), dispatches
+                == d2h copies == steps; both ranks' outputs identical; each
+                rank's line gives tokens/s, TTFT, TPOT, step ms, peak
+                memory and its label: two ranks on one card are not a
+                measure of tp across cards.  With two or more cards the
+                nccl route runs too (a card a rank, graphs on); else a line
+                says it was not run
+  tp_parity     minitron-8b widths at 2 layers in float32: the tp = 1
+                unified replay engine, then tp = 2 and pp = 2 (one layer a
+                stage) on two gloo ranks, through the kernels and the plain
+                versions: both ranks identical, and every run
+                token-identical to tp = 1 and kernel to plain, up to a
+                genuine tie (top-2 gap under TIE_GAP)
 
 A replay does not run the kernel wrappers: the step graph adds each
 capture's launch counts on every replay, so the counts above hold on both
@@ -462,9 +487,15 @@ PROFILES.update({
 YI_HEADS = dict(hq=56, hkv=8)
 PROFILES["yi_decode"] = dict(PROFILES["decode"], **YI_HEADS)
 PROFILES["yi_prefill"] = dict(PROFILES["prefill"], **YI_HEADS)
+# a tp = 2 rank's shard of minitron-8b's attention (16 query heads over 4
+# KV heads: G = 4 as unsharded, half the heads, so another key split) at
+# the same sub-batches: serve_tp's launches
+TP2_HEADS = dict(hq=HQ // 2, hkv=HKV // 2)
+PROFILES["tp2_decode"] = dict(PROFILES["decode"], **TP2_HEADS)
+PROFILES["tp2_prefill"] = dict(PROFILES["prefill"], **TP2_HEADS)
 TIMED = ("decode", "prefill", "deepseek_decode", "deepseek_prefill",
-         "verify_k3", "verify_k4", "yi_decode",
-         "yi_prefill")  # profiles the main paths launch
+         "verify_k3", "verify_k4", "yi_decode", "yi_prefill", "tp2_decode",
+         "tp2_prefill")  # profiles the main paths launch
 
 # paged decode: the same 8 slots, lengths counting the token just written;
 # untimed, the same edges as the ragged kernel's
@@ -1306,9 +1337,11 @@ def warmed_engine(model, cfg, what, *, graphs=True, draft=None,
 
 
 def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
-                  draft=None, warm=True):
+                  draft=None, warm=True, tp=1, pp=1):
     """Serve the 8 main-path requests through ``mode`` (speculating K =
-    ``n_spec`` tokens a round with ``draft``, when given), with every kernel
+    ``n_spec`` tokens a round with ``draft``, when given; with ``tp`` x
+    ``pp`` > 1, this rank's engine of the sharded serve, ``model`` its
+    shard and ``spec`` the whole model's), with every kernel
     count set to 0 just before and read just after; every request must
     finish with MAX_NEW tokens in the vocabulary, and every dispatch must be
     one profile run (two-dispatch: the prefill runs equal the prefill
@@ -1319,7 +1352,8 @@ def serve_counted(torch, model, spec, mode, *, graphs=True, n_spec=0,
     which puts the captures' cost in its numbers.  Returns the engine, its
     stats and the outputs."""
     from repro_torch.serving import EngineConfig, ServeEngine
-    cfg = EngineConfig(**GEOMETRY, **MODES[mode], n_spec=n_spec)
+    cfg = EngineConfig(**GEOMETRY, **MODES[mode], n_spec=n_spec, tp=tp,
+                       pp=pp)
     reqs = make_requests(spec, 8, MAX_NEW, seed=0)
     gc.collect()
     mem_before_engine = torch.cuda.memory_allocated()
@@ -3717,6 +3751,244 @@ def phase_registry_parity(torch) -> None:
     free(torch)
 
 
+# ---------------------------------------------------------------------------
+# serve_tp, tp_parity: the sharded unified engine, two ranks on one card
+# ---------------------------------------------------------------------------
+
+#: the meshes of two ranks serve_tp and tp_parity serve
+TP_MESHES = ((2, 1), (1, 2))
+TP_NOTE = ("two ranks share one card over gloo, which stages every "
+           "collective through host memory: not a measure of tp across "
+           "cards")
+
+
+def run_ranks(fn, *args, backend="gloo"):
+    """``fn(*args)`` on two ranks (``sharded.spawn``: each a fresh process
+    in a process group of ``backend``); returns their results, rank 0's
+    first.  Stops both ranks whatever happens."""
+    from repro_torch.serving import sharded
+    return sharded.spawn(2, fn, *args, backend=backend, timeout_s=600)
+
+
+def collectives_per_step(spec, tp, pp) -> int:
+    """The reference's count of one step's collectives on a rank: two
+    all-reduces a layer and one logits gather (an untied head) at tp > 1;
+    pp hops and one broadcast at pp > 1 (65 and 3 at minitron-8b)."""
+    n = 0
+    if tp > 1:
+        n += 2 * spec.n_layers + (not spec.tied_embeddings)
+    if pp > 1:
+        n += pp + 1
+    return n
+
+
+def _rank_setup(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _rank_serve_tp(arch, graphs):
+    """One rank of serve_tp: for each of TP_MESHES, the rank's shard of
+    ``arch`` at its published width in bf16 (every full tensor drawn from
+    seed 0, the rank's slice kept), then the 8 requests of serve_full
+    through the sharded unified engine, warmed by one short request;
+    launches exact (ragged: the stage's layers x (2 x mixed + decode-only
+    steps), every other kernel 0, all on the tensor-core route), collectives
+    the reference's count a step, dispatches == d2h copies == steps.  Over
+    gloo a card engine with graphs=True must be refused first.  Returns
+    {mesh: (stats, outputs)}."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, ServeEngine, sharded
+
+    _rank_setup(torch)
+    spec = get_spec(arch)
+    out = {}
+    for tp, pp in TP_MESHES:
+        what = f"serve_tp rank {dist.get_rank()} tp={tp} pp={pp}"
+        mesh = sharded.make_engine_mesh(tp, pp, DEV)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(spec, device=DEV, dtype=torch.bfloat16, seed=0,
+                            shard=mesh.shard)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        refusal = None
+        if mesh.staged:  # gloo on the card
+            try:
+                ServeEngine(model, EngineConfig(**GEOMETRY, **MODES["unified"],
+                                                tp=tp, pp=pp), device=DEV)
+            except ValueError as e:
+                refusal = str(e)
+            if refusal is None or "gloo" not in refusal:
+                raise AssertionError(f"{what}: graphs=True over gloo was not "
+                                     f"refused ({refusal})")
+        eng, stats, outs = serve_counted(torch, model, spec, "unified",
+                                         graphs=graphs, tp=tp, pp=pp)
+        m = eng.metrics
+        if not m.dispatches == m.transfers_d2h == m.steps:
+            raise AssertionError(f"{what}: {m.dispatches} dispatches, "
+                                 f"{m.transfers_d2h} transfers, {m.steps} "
+                                 "steps")
+        mixed = m.prefill_calls
+        decode_only = m.dispatches - mixed
+        n_ragged = model.spec.n_layers * (2 * mixed + decode_only)
+        _expect(what, stats["launches"], {"ragged_paged_attention": n_ragged})
+        _expect_tensor_cores(what, stats["routes"], "ragged_paged_attention",
+                             n_ragged)
+        per_step = collectives_per_step(spec, tp, pp)
+        if m.collectives != per_step * m.steps or m.collective_bytes <= 0:
+            raise AssertionError(f"{what}: {m.collectives} collectives "
+                                 f"({m.collective_bytes} bytes) over "
+                                 f"{m.steps} steps, expected {per_step} a "
+                                 "step")
+        n_params = sum(p.numel() for p in model.parameters())
+        stats.update(tp=tp, pp=pp, rank=dist.get_rank(),
+                     tp_rank=mesh.tp_rank, pp_rank=mesh.pp_rank,
+                     backend=mesh.backend, staged=mesh.staged,
+                     local_layers=model.spec.n_layers,
+                     local_heads=[model.spec.n_heads, model.spec.n_kv_heads],
+                     params=n_params, weight_gb=n_params * 2 / 1e9,
+                     init_s=init_s, mixed_steps=mixed,
+                     decode_only_steps=decode_only,
+                     collectives=m.collectives,
+                     collective_bytes=m.collective_bytes,
+                     collectives_per_step=m.collectives / m.steps,
+                     step_ms=stats["host_ms_per_step"],
+                     kv_rank_bytes=stats["kv_reserved_bytes"] // (tp * pp),
+                     graphs_refused=refusal)
+        out[f"tp{tp}pp{pp}"] = (stats, outs)
+        del eng, model, mesh
+        free(torch)
+    return out
+
+
+def phase_serve_tp(torch, base_outs) -> list[dict]:
+    """minitron-8b at its published width served by the sharded unified
+    engine as two ranks on the one card over gloo (graphs=False), tp=2
+    then pp=2 (``_rank_serve_tp``): both ranks' outputs identical, each
+    rank's line; how many outputs equal the tp=1 replay serve's
+    (``base_outs``, recorded: bf16 sums in another order).  Where two or
+    more cards are visible, the nccl route as well, one card a rank,
+    graphs on; else a line says it was not run.  Returns each rank's
+    launch counts of each serve."""
+    emit("serve_tp_route", backend="gloo", graphs=False, ranks=2,
+         device="cuda:0", cards=torch.cuda.device_count(), note=TP_NOTE)
+    routes = [("gloo", False)]
+    if torch.cuda.device_count() >= 2:
+        routes.append(("nccl", True))
+    else:
+        emit("serve_tp_nccl", run=False,
+             reason=f"{torch.cuda.device_count()} card visible; nccl needs "
+                    "one card a rank (its route, the collectives captured in "
+                    "the step's CUDA graph, is unverified here)")
+    launches = []
+    for backend, graphs in routes:
+        t0 = time.perf_counter()
+        ranks = run_ranks(_rank_serve_tp, "minitron-8b", graphs,
+                          backend=backend)
+        for mesh in ranks[0]:
+            outs = [r[mesh][1] for r in ranks]
+            if outs[0] != outs[1]:
+                raise AssertionError(f"serve_tp {backend} {mesh}: the ranks' "
+                                     "outputs differ")
+            for r in ranks:
+                stats = r[mesh][0]
+                emit("serve_tp", model="minitron-8b", mesh=mesh,
+                     label=TP_NOTE if backend == "gloo" else None, **stats)
+                launches.append(stats["launches"])
+            emit("serve_tp_outputs", mesh=mesh, backend=backend,
+                 ranks_identical=True,
+                 identical_to_tp1=sum(a == b for a, b in
+                                      zip(outs[0], base_outs)),
+                 requests=len(outs[0]))
+        emit("serve_tp_phase", backend=backend,
+             seconds=time.perf_counter() - t0)
+    return launches
+
+
+def _rank_tp_parity(arch):
+    """One rank of tp_parity: for each of TP_MESHES the rank's shard of
+    ``arch``'s widths at 2 layers (one a stage at pp=2) in float32 from
+    seed 1, serving 8 requests through the sharded unified engine, eager,
+    through the kernels and with the plain versions selected; returns
+    {(mesh, impl): outputs}."""
+    import torch
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, ServeEngine, sharded
+
+    _rank_setup(torch)
+    spec = get_spec(arch).scaled(name=f"{arch}-2l", n_layers=2)
+    out = {}
+    for tp, pp in TP_MESHES:
+        mesh = sharded.make_engine_mesh(tp, pp, DEV)
+        model = build_model(spec, device=DEV, dtype=torch.float32, seed=1,
+                            shard=mesh.shard)
+        for impl in ("kernel", "plain"):
+            model.kernel_impl = impl
+            reqs = make_requests(spec, 8, 16, seed=1)
+            eng = ServeEngine(model, EngineConfig(**GEOMETRY, **MODES[
+                "unified"], tp=tp, pp=pp), device=DEV, graphs=False)
+            eng.serve(reqs)
+            m = eng.metrics
+            if not m.dispatches == m.transfers_d2h == m.steps:
+                raise AssertionError(f"tp_parity tp={tp} pp={pp} {impl}: "
+                                     f"{m.dispatches} dispatches, "
+                                     f"{m.transfers_d2h} transfers, "
+                                     f"{m.steps} steps")
+            out[f"tp{tp}pp{pp}", impl] = [r.output for r in reqs]
+            del eng
+        del model, mesh
+        free(torch)
+    return out
+
+
+def phase_tp_parity(torch, arch="minitron-8b") -> None:
+    """``arch``'s widths at 2 layers in float32: the tp=1 unified replay
+    engine, then tp=2 and pp=2 as two ranks on the card over gloo, each
+    through the kernels and the plain versions (``_rank_tp_parity``):
+    both ranks identical, and every run token-identical to tp=1 and to
+    each other, or parting only at a genuine tie (top-2 logit gap of the
+    tp=1 model under TIE_GAP)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    spec = get_spec(arch).scaled(name=f"{arch}-2l", n_layers=2)
+    model = build_model(spec, device=DEV, dtype=torch.float32, seed=1)
+    reqs = make_requests(spec, 8, 16, seed=1)
+    ServeEngine(model, EngineConfig(**GEOMETRY, **MODES["unified"]),
+                device=DEV).serve(reqs)
+    prompts = [r.prompt for r in reqs]
+    outs = {"tp1": [r.output for r in reqs]}
+    ranks = run_ranks(_rank_tp_parity, arch)
+    for key in ranks[0]:
+        if ranks[0][key] != ranks[1][key]:
+            raise AssertionError(f"tp_parity {key}: the ranks' outputs "
+                                 "differ")
+        outs["/".join(key)] = ranks[0][key]
+    model.kernel_impl = "plain"
+    comparisons = {}
+    pairs = [(k, "tp1") for k in outs if k != "tp1"] + [
+        (f"tp{tp}pp{pp}/kernel", f"tp{tp}pp{pp}/plain")
+        for tp, pp in TP_MESHES]
+    for a, b in pairs:
+        what = f"tp_parity {a} vs {b}"
+        comparisons[f"{a} vs {b}"] = {
+            "identical": sum(x == y for x, y in zip(outs[a], outs[b])),
+            "ties": _ties(torch, model, prompts, outs[a], outs[b], what)}
+    emit("tp_parity", model=spec.name, dtype="float32", requests=len(reqs),
+         backend="gloo", ranks_identical=True, comparisons=comparisons,
+         seconds=time.perf_counter() - t0, note=TP_NOTE)
+    del model
+    free(torch)
+
+
 def ptxas_of(log, marker):
     """ptxas's lines (entry, registers, spills) of the kernels whose
     mangled names hold ``marker``."""
@@ -3811,6 +4083,7 @@ def main(argv: list[str]) -> int:
     serves += phase_serve_kvq(torch, model, spec, full)
     serves += phase_serve_disagg(torch, model, spec, full["unified"][1])
     serves.append(phase_beam(torch, model, spec))
+    base_outs = full["unified"][1]
     del model, full
     free(torch)
     phase_serve_parity(torch, "minitron-8b")
@@ -3842,6 +4115,9 @@ def main(argv: list[str]) -> int:
     serves += phase_serve_dense_registry(torch)
     serves += phase_encoder_frontend(torch)
     phase_registry_parity(torch)
+
+    serves += phase_serve_tp(torch, base_outs)
+    phase_tp_parity(torch)
 
     launches = {name: sum(c[name] for c in serves) for name in mods}
     idle = [name for name, n in launches.items() if n == 0]

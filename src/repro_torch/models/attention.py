@@ -415,7 +415,7 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
                     packed: PackedSegs | None = None,
                     mask: torch.Tensor | None = None,
                     views: dict,
-                    impl: str = "kernel") -> torch.Tensor:
+                    impl: str = "kernel", tp=None) -> torch.Tensor:
     """The full pass (``cache`` None: :meth:`Model.forward`, attention over
     the S tokens themselves with the spec's ``causal``) and three cached
     modes, as the reference's:
@@ -429,8 +429,12 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
         decode at ``lengths``, writing only the rows ``mask`` selects.
 
     ``views`` holds the buffers a quantized cache is dequantized into,
-    shared by the layers of one cache.  Returns the attention output
-    (before the residual add)."""
+    shared by the layers of one cache.  ``tp`` (a tensor-parallel shard's
+    communicator, :class:`~repro_torch.models.common.Shard`'s ``comm``):
+    the parameters are this rank's heads, and the row-parallel ``wo``'s
+    partial products are summed over the tp ranks in place (the
+    reference's ``psum``).  Returns the attention output (before the
+    residual add)."""
     if packed is not None and spec.attn.kind == "swa":
         raise NotImplementedError(
             "the packed unified step has no sliding-window masking, as in "
@@ -446,5 +450,8 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
     else:
         o = _dense_cached_attention(spec, cache, q, k, v, lengths, mask,
                                     impl, views)
-    return o.reshape(tuple(x.shape[:-1]) + (spec.n_heads * spec.d_head,)) \
+    out = o.reshape(tuple(x.shape[:-1]) + (spec.n_heads * spec.d_head,)) \
         @ params.wo
+    if tp is not None:
+        tp.all_reduce_(out)
+    return out

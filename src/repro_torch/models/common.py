@@ -1,10 +1,12 @@
 """Shared building blocks: norms, RoPE, activations, inits (the port of
-``repro.models.common``)."""
+``repro.models.common``), and the tensor/pipeline-parallel geometry of one
+rank's shard (:class:`Shard`, :func:`local_spec`, :data:`TP_SHARD_DIM`)."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -72,15 +74,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 @torch.no_grad()
 def _trunc_normal_(w: torch.Tensor, std: float,
                    generator: torch.Generator) -> None:
-    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    """Draw the whole tensor ``w`` is (or is a tensor-parallel slice of,
+    see :func:`full_shape`) on the generator's device and keep ``w``'s
+    slice: a shard draws what the unsharded model draws from the same
+    generator, so both hold the same weights.  A ``meta`` tensor keeps
+    nothing (a pipeline stage's draw of another stage's layer)."""
+    tmp = torch.empty(full_shape(w), dtype=torch.float32,
+                      device=generator.device)
     torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0,
                                 generator=generator)
+    if w.is_meta:
+        return
+    shard = getattr(w, "tp_shard", None)
+    if shard is not None:
+        dim, _, rank = shard
+        tmp = tmp.narrow(dim, rank * w.shape[dim], w.shape[dim])
     w.copy_(tmp.mul_(std))
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
                 in_axis: int = 0) -> None:
-    _trunc_normal_(w, 1.0 / float(np.sqrt(w.shape[in_axis])), generator)
+    _trunc_normal_(w, 1.0 / float(np.sqrt(full_shape(w)[in_axis])),
+                   generator)
 
 
 def embed_init_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -94,3 +109,71 @@ def weight(shape: tuple[int, ...], device, dtype, fill: float | None = None
     if fill is not None:
         t.fill_(fill)
     return torch.nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Tensor/pipeline-parallel shards (Megatron's plan, the reference's
+# ``serving/sharded.py`` rules): column-parallel q/k/v and up/gate
+# projections, row-parallel wo and w_down, a vocab-parallel untied head,
+# the embedding and every norm replicated, contiguous layers per stage
+# ---------------------------------------------------------------------------
+
+#: parameter leaf name -> the axis tp splits it on (every other leaf is
+#: replicated).  Heads are contiguous column blocks of d_head, so a rank's
+#: columns are whole heads, and its kv heads are the ones its query
+#: heads' groups read.
+TP_SHARD_DIM = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+                "wo": 0, "w_up": 1, "w_gate": 1, "w_down": 0, "lm_head": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One rank's place in a (pp, tp) mesh of ``tp * pp`` ranks: rank
+    ``pp_rank * tp + tp_rank`` holds tp slice ``tp_rank`` of the layers of
+    pipeline stage ``pp_rank``.  ``comm`` runs the shard's collectives
+    (:class:`repro_torch.serving.sharded.EngineMesh`: ``all_reduce_``,
+    ``all_gather_last`` over the stage's tp ranks and ``pp_ring`` over the
+    stages); None for a shard that is only built or loaded, never run."""
+    tp: int = 1
+    pp: int = 1
+    tp_rank: int = 0
+    pp_rank: int = 0
+    comm: Any = None
+
+    def stage_layers(self, n_layers: int) -> range:
+        """The global indices of the layers this rank's stage holds."""
+        per = n_layers // self.pp
+        return range(self.pp_rank * per, (self.pp_rank + 1) * per)
+
+
+def local_spec(spec, tp: int):
+    """The per-rank model geometry a tp rank computes with (the
+    reference's ``sharded.local_spec``): heads, kv heads and FFN width
+    over tp."""
+    if tp == 1:
+        return spec
+    return dataclasses.replace(spec, n_heads=spec.n_heads // tp,
+                               n_kv_heads=spec.n_kv_heads // tp,
+                               d_ff=spec.d_ff // tp)
+
+
+def tag_tp_shards(module: torch.nn.Module, tp: int, tp_rank: int) -> None:
+    """Mark every tp-sliced parameter of ``module`` with ``tp_shard = (dim,
+    tp, tp_rank)``, which :func:`full_shape` and the inits read."""
+    if tp == 1:
+        return
+    for name, p in module.named_parameters():
+        dim = TP_SHARD_DIM.get(name.rsplit(".", 1)[-1])
+        if dim is not None:
+            p.tp_shard = (dim, tp, tp_rank)
+
+
+def full_shape(w: torch.Tensor) -> tuple[int, ...]:
+    """The unsharded shape of ``w`` (its own shape unless it is a tp
+    slice)."""
+    shape = list(w.shape)
+    shard = getattr(w, "tp_shard", None)
+    if shard is not None:
+        dim, tp, _ = shard
+        shape[dim] *= tp
+    return tuple(shape)

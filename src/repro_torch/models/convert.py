@@ -15,6 +15,12 @@ holds the reference's Mamba leaves (``a_log`` and ``d_skip`` float32 on
 both sides) beside its ``ffn``.  A tied head has no ``lm_head``: the port
 reads ``embed.T`` as the reference does; an encoder-only frontend model
 (hubert) has no ``embed`` at all.
+
+``shard_state`` cuts such a state (or any full model's ``state_dict()``)
+to one rank's part of a (pp, tp) mesh, the names a
+``Model(spec, ..., shard=shard)`` expects: its stage's layers, renumbered
+from 0, and the tp slice of every leaf :data:`~.common.TP_SHARD_DIM`
+names.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.modelspec import ModelSpec
+from .common import TP_SHARD_DIM, Shard
 from .transformer import stack_period
 
 
@@ -59,3 +66,27 @@ def from_jax_params(params_np: dict, spec: ModelSpec
     if not spec.tied_embeddings:
         state["lm_head"] = _f32(params_np["lm_head"])
     return state
+
+
+def shard_state(state: dict[str, torch.Tensor], spec: ModelSpec,
+                shard: Shard) -> dict[str, torch.Tensor]:
+    """The part of the full ``state`` of ``spec`` that rank ``shard`` holds:
+    the layers of its pipeline stage (renumbered from 0), each
+    column-parallel leaf's columns and each row-parallel leaf's rows of
+    its tp slice (heads are contiguous d_head blocks, so a slice is whole
+    heads), the untied head's vocab slice; the embedding and the norms
+    whole."""
+    stage = shard.stage_layers(spec.n_layers)
+    out: dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            if int(i) not in stage:
+                continue
+            name = f"layers.{int(i) - stage.start}.{rest}"
+        dim = TP_SHARD_DIM.get(name.rsplit(".", 1)[-1])
+        if dim is not None and shard.tp > 1:
+            size = t.shape[dim] // shard.tp
+            t = t.narrow(dim, shard.tp_rank * size, size)
+        out[name] = t.contiguous()
+    return out

@@ -28,9 +28,12 @@ class MLP(nn.Module):
 
 
 def mlp_block(spec: ModelSpec, params: MLP, x: torch.Tensor, *,
-              norm: bool = True) -> torch.Tensor:
+              norm: bool = True, tp=None) -> torch.Tensor:
     """``norm=False`` takes x as already normalised (the MoE block's shared
-    experts see the block's normed input)."""
+    experts see the block's normed input).  ``tp``: a tensor-parallel
+    shard's communicator; the parameters are this rank's FFN columns, and
+    the row-parallel ``w_down``'s partial products are summed over the tp
+    ranks in place (the reference's ``psum``)."""
     act = activation(spec.act)
     h = rms_norm(x, params.norm) if norm else x
     up = h @ params.w_up
@@ -38,4 +41,7 @@ def mlp_block(spec: ModelSpec, params: MLP, x: torch.Tensor, *,
         up = act(h @ params.w_gate) * up
     else:
         up = act(up)
-    return up @ params.w_down
+    out = up @ params.w_down
+    if tp is not None:
+        tp.all_reduce_(out)
+    return out

@@ -18,6 +18,13 @@ as in the reference.  An encoder-only frontend model (hubert-xlarge,
 ``decoder=False``) has no token embedding and must be given ``embeds``;
 a decoder with a frontend (pixtral-12b) has both.
 
+A model built with a :class:`~repro_torch.models.common.Shard` (``shard=``)
+is one rank's part of a (pp, tp) mesh: its ``spec`` is the rank's geometry
+(heads, kv heads and FFN width over tp, the stage's n_layers / pp layers),
+``full_spec`` the model's, and its steps run the shard's collectives: two
+all-reduces per layer over the tp ranks, the vocab-parallel head's logits
+gathered, and the pipeline ring over the stages (``Shard.comm``).
+
 Every step writes K/V (or a Mamba or RWKV layer's state) into the cache's
 tensors in place.  ``unified_step``, ``prefill_chunk`` and
 ``decode_step``, the steps the serving engine captures in CUDA graphs,
@@ -29,6 +36,7 @@ speculative round's rollback writes them); ``prefill`` returns a
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import torch
@@ -38,7 +46,8 @@ from ..core.modelspec import ModelSpec
 from ..device import resolve_device
 from . import transformer as T
 from .attention import PackedSegs, init_attn_cache, init_paged_attn_cache
-from .common import embed_init_, rms_norm, weight
+from .common import (Shard, embed_init_, local_spec, rms_norm,
+                     tag_tp_shards, weight)
 from .ssm import init_mamba_cache, init_rwkv_cache
 
 
@@ -70,8 +79,13 @@ class Model(nn.Module):
     kv_quant = False
 
     def __init__(self, spec: ModelSpec, device: torch.device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, shard: Shard | None = None):
         super().__init__()
+        self.full_spec = spec
+        self.shard = shard
+        if shard is not None:
+            spec = dataclasses.replace(local_spec(spec, shard.tp),
+                                       n_layers=spec.n_layers // shard.pp)
         self.spec = spec
         self.device = device
         self.dtype = dtype
@@ -84,13 +98,36 @@ class Model(nn.Module):
             T.Layer(spec, cls, device, dtype) for cls in T.layer_classes(spec))
         self.final_norm = weight((d,), device, dtype, fill=1.0)
         if not spec.tied_embeddings:
-            self.lm_head = weight((d, spec.vocab), device, dtype)
+            self.lm_head = weight((d, spec.vocab // self._tp), device, dtype)
+        if shard is not None:
+            tag_tp_shards(self, shard.tp, shard.tp_rank)
+
+    @property
+    def _tp(self) -> int:
+        return 1 if self.shard is None else self.shard.tp
+
+    def _stage(self) -> range:
+        """The global indices of this model's layers."""
+        if self.shard is None:
+            return range(self.spec.n_layers)
+        return self.shard.stage_layers(self.full_spec.n_layers)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every weight from ``generator``.  A shard draws every tensor
+        of the whole model in the same order and keeps its slices (another
+        stage's layers are drawn into ``meta`` tensors and dropped), so it
+        holds exactly its part of the unsharded model of the same seed."""
         if self.embed is not None:
             embed_init_(self.embed, generator)
-        for layer in self.layers:
+        stage = self._stage()
+        for i, cls in enumerate(T.layer_classes(self.full_spec)):
+            if i in stage:
+                layer = self.layers[i - stage.start]
+            else:
+                layer = T.Layer(self.spec, cls, torch.device("meta"),
+                                self.dtype)
+                tag_tp_shards(layer, self._tp, self.shard.tp_rank)
             layer.reset_parameters(generator)
         if not self.spec.tied_embeddings:
             embed_init_(self.lm_head, generator)
@@ -112,7 +149,27 @@ class Model(nn.Module):
         return self.lm_head
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        return rms_norm(h, self.final_norm) @ self._head_w()
+        logits = rms_norm(h, self.final_norm) @ self._head_w()
+        if self._tp > 1 and not self.spec.tied_embeddings:
+            # the vocab-parallel untied head: the step's one logits gather
+            # (a tied head stays replicated: the embedding serves lookups)
+            logits = self.shard.comm.all_gather_last(logits)
+        return logits
+
+    def _stack(self, x: torch.Tensor, positions: torch.Tensor, caches,
+               **kw) -> torch.Tensor:
+        """``T.apply_stack`` over this model's layers with its kernel
+        route; a shard sums over its tp ranks and, with pp > 1, runs its
+        stage inside the pipeline ring, which returns the last stage's
+        hidden state on every rank."""
+        tp = self.shard.comm if self._tp > 1 else None
+
+        def run(h: torch.Tensor) -> torch.Tensor:
+            return T.apply_stack(self.spec, self.layers, h, positions,
+                                 caches, impl=self.kernel_impl, tp=tp, **kw)
+        if self.shard is None or self.shard.pp == 1:
+            return run(x)
+        return self.shard.comm.pp_ring(x, run)
 
     # -- encoder / full forward --------------------------------------------
     @torch.no_grad()
@@ -131,8 +188,7 @@ class Model(nn.Module):
         caches = [init_rwkv_cache(self.spec, b, x.device, self.dtype)
                   if cls.kind == "rwkv6" else None
                   for cls in T.layer_classes(self.spec)]
-        x = T.apply_stack(self.spec, self.layers, x, positions, caches,
-                          impl=self.kernel_impl)
+        x = self._stack(x, positions, caches)
         return self._logits(x)
 
     # -- serving ----------------------------------------------------------
@@ -191,10 +247,10 @@ class Model(nn.Module):
         if lengths is None:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
         positions = torch.arange(s, device=dev).expand(b, s)
-        x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          lengths=torch.zeros((b,), dtype=torch.int32,
-                                              device=dev),
-                          views=cache.views, impl=self.kernel_impl)
+        x = self._stack(x, positions, cache.layers,
+                        lengths=torch.zeros((b,), dtype=torch.int32,
+                                            device=dev),
+                        views=cache.views)
         x = x[torch.arange(b, device=dev), lengths.long() - 1]
         return self._logits(x), ModelCache(layers=cache.layers,
                                            lengths=lengths,
@@ -218,10 +274,10 @@ class Model(nn.Module):
         dev = tokens.device
         positions = cache.lengths[:, None].long() + torch.arange(s,
                                                                  device=dev)
-        x = T.apply_stack(self.spec, self.layers, self._embed_in(tokens, None),
-                          positions, cache.layers, lengths=cache.lengths,
-                          page_table=cache.page_table, mask=mask,
-                          views=cache.views, impl=self.kernel_impl)
+        x = self._stack(self._embed_in(tokens, None), positions,
+                        cache.layers, lengths=cache.lengths,
+                        page_table=cache.page_table, mask=mask,
+                        views=cache.views)
         if mask is None:
             cache.lengths.add_(s)
         else:
@@ -238,9 +294,8 @@ class Model(nn.Module):
         last-position logits (S, V) and ``cache`` itself (pools updated in
         place; slot lengths written in place for the slots that ran)."""
         x = self._embed_in(tokens, None)
-        x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          packed=packed, views=cache.views,
-                          impl=self.kernel_impl)
+        x = self._stack(x, positions, cache.layers, packed=packed,
+                        views=cache.views)
         # each segment's logits come from its last valid packed position
         # (inactive segments produce garbage rows the engine ignores)
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
@@ -267,9 +322,8 @@ class Model(nn.Module):
         on the accept counts, so the caller writes the lengths after
         rejection sampling."""
         x = self._embed_in(tokens, None)
-        x = T.apply_stack(self.spec, self.layers, x, positions, cache.layers,
-                          packed=packed, views=cache.views,
-                          impl=self.kernel_impl)
+        x = self._stack(x, positions, cache.layers, packed=packed,
+                        views=cache.views)
         last = packed.q_start.long() + packed.q_len.long().clamp(min=1) - 1
         # one head product for both, so the head is read once
         n = n_decode * width
@@ -284,23 +338,26 @@ class Model(nn.Module):
         Every slot's length advances in place, idle ones too, as in the
         reference (their writes clamp inside their own row, or land on the
         null page)."""
-        x = T.apply_stack(self.spec, self.layers, self._embed_in(tokens, None),
-                          cache.lengths[:, None], cache.layers,
-                          lengths=cache.lengths, page_table=cache.page_table,
-                          views=cache.views, impl=self.kernel_impl)
+        x = self._stack(self._embed_in(tokens, None),
+                        cache.lengths[:, None], cache.layers,
+                        lengths=cache.lengths, page_table=cache.page_table,
+                        views=cache.views)
         cache.lengths.add_(1)
         return self._logits(x)[:, 0], cache
 
 
 def build_model(spec: ModelSpec, device: str | torch.device | None = None,
                 dtype: torch.dtype = torch.bfloat16, *, seed: int = 0,
-                kv_quant: bool = False) -> Model:
+                kv_quant: bool = False, shard: Shard | None = None) -> Model:
     """Build ``spec`` with random weights on ``device`` (default: the card;
     raises without one).  Weights are drawn on the device from a generator
     seeded ``seed``, tensor by tensor, so no f32 copy of the whole model
-    ever exists.  ``kv_quant`` gives the model int8 KV caches."""
+    ever exists.  ``kv_quant`` gives the model int8 KV caches.  With
+    ``shard`` the model is that rank's part, holding the same weights as
+    its slices of the unsharded model of the same seed (each full tensor
+    drawn in turn and sliced)."""
     dev = resolve_device(device)
-    model = Model(spec, dev, dtype)
+    model = Model(spec, dev, dtype, shard=shard)
     model.kv_quant = kv_quant
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model

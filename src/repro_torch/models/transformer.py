@@ -90,11 +90,11 @@ class Layer(nn.Module):
 
 def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
                positions: torch.Tensor, cache: LayerCache | None, *,
-               impl: str, **attn_kw) -> torch.Tensor:
+               impl: str, tp, **attn_kw) -> torch.Tensor:
     kind = layer.cls.kind
     if kind == "attn":
         x = x + attention_block(spec, layer.mixer, x, positions, cache,
-                                impl=impl, **attn_kw)
+                                impl=impl, tp=tp, **attn_kw)
     elif attn_kw["packed"] is not None:
         raise NotImplementedError(
             "the token-packed unified step supports attention-only "
@@ -109,7 +109,7 @@ def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
     if layer.cls.is_moe:
         x = x + moe_block(spec, layer.ffn, x, impl=impl)
     elif layer.ffn is not None:
-        x = x + mlp_block(spec, layer.ffn, x)
+        x = x + mlp_block(spec, layer.ffn, x, tp=tp)
     return x
 
 
@@ -121,11 +121,15 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 packed: PackedSegs | None = None,
                 mask: torch.Tensor | None = None,
                 views: dict | None = None,
-                impl: str = "kernel") -> torch.Tensor:
+                impl: str = "kernel", tp=None) -> torch.Tensor:
     """Run every layer; each writes its K/V (or its Mamba or RWKV state)
-    into its own cache, in place.  A None cache is the full pass of
-    :meth:`Model.forward`: attention over the S tokens themselves, a Mamba
-    layer from zero state, nothing kept.  ``impl`` routes every kernel of
+    into its own cache, in place.  ``layers`` may be one pipeline stage's
+    contiguous layers (a period-1 stack: the reference shards its stacked
+    ``repeats`` axis), and ``tp`` a tensor-parallel shard's communicator,
+    which sums each layer's two row-parallel products over the tp ranks.
+    A None cache is the full pass of :meth:`Model.forward`: attention over
+    the S tokens themselves, a Mamba layer from zero state, nothing
+    kept.  ``impl`` routes every kernel of
     the stack, attention, expert GEMMs and the WKV scan
     (``kernels.ops.IMPLS``).
     ``lengths``/``page_table`` are the (B,) valid tokens and the shared
@@ -138,5 +142,5 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
     for layer, cache in zip(layers, caches, strict=True):
         x = _apply_one(spec, layer, x, positions, cache, lengths=lengths,
                        page_table=page_table, packed=packed, mask=mask,
-                       views=views, impl=impl)
+                       views=views, impl=impl, tp=tp)
     return x

@@ -38,10 +38,15 @@ Lowering rules, the reference's:
 
 Differences from the reference, each because the port runs on one card:
 ``engine_kw`` takes ``device`` (None: the card, raising without one) and
-``dtype`` (None: float32, what the reference builds); tp or pp > 1 is
-refused (mesh sharding is not ported, ROADMAP: queue 1, item 12); and the
-lowering is split from the serve, so that a caller can warm what
-:func:`lower` built before the measured :func:`serve`.  :func:`evaluate`
+``dtype`` (None: float32, what the reference builds).  A
+``ParallelismConfig`` with tp or pp > 1 lowers, as the reference's, to the
+unified engine sharded over ``tp * pp`` ranks
+(:mod:`repro_torch.serving.sharded`): every rank of a process group of
+that size lowers and serves the same Scenario, and outside one the Report
+is the engine's error naming the ranks it needs (on the card its steps
+are captured, so the group's backend must be nccl).  The lowering is split
+from the serve, so that a caller can warm what :func:`lower` built before
+the measured :func:`serve`.  :func:`evaluate`
 is ``lower`` → ``serve`` → the Report, cold, as the reference measures.
 """
 
@@ -57,10 +62,6 @@ from .scenario import Scenario
 #: Scenario modes this backend can lower to a live run.  Refusal paths
 #: quote this list so an unsupported-mode Report is self-explanatory.
 LOWERABLE_MODES = ("monolithic", "chunked", "speculative", "disaggregated")
-
-#: the parallelism axes the engine lowering knows (ep/dp/sp are refused by
-#: name; tp/pp wait for the sharded engine, ROADMAP: queue 1, item 12)
-SUPPORTED_AXES = ("tp", "pp")
 
 #: engine-lowering defaults, overridable via ``run(..., engine_kw=...)``
 DEFAULTS = dict(max_slots=8, max_seq=256, prefill_rows=2, max_prompt=64,
@@ -276,11 +277,12 @@ def _paged_lowering(sc: Scenario, spec, geo: dict, kw: dict) -> dict:
 
 
 def _parallelism_lowering(sc: Scenario, kw: dict) -> tuple[int, int]:
-    """Scenario ``ParallelismConfig`` -> the (tp, pp) degrees the engine
-    would shard over.  Axes the engine cannot lower refuse loudly:
+    """Scenario ``ParallelismConfig`` -> the (tp, pp) degrees the live
+    engine shards over.  Axes the engine cannot lower refuse loudly:
     silently measuring a tp=pp=1 run against an ep>1 prediction would
-    corrupt every ``compare()`` cell built on it.  The port's engine runs
-    on one card, so tp or pp > 1 is refused as well."""
+    corrupt every ``compare()`` cell built on it."""
+    from ..serving.sharded import SUPPORTED_AXES
+
     par = sc.parallelism
     bad = [(ax, par.degree(ax)) for ax in ("ep", "dp", "sp")
            if par.degree(ax) > 1]
@@ -294,16 +296,7 @@ def _parallelism_lowering(sc: Scenario, kw: dict) -> tuple[int, int]:
             "analytical backend")
     tp = int(kw["tp"]) if kw.get("tp") is not None else par.tp
     pp = int(kw["pp"]) if kw.get("pp") is not None else par.pp
-    _refuse_mesh(tp, pp)
     return tp, pp
-
-
-def _refuse_mesh(tp: int, pp: int) -> None:
-    if tp * pp > 1:
-        raise NotImplementedError(
-            f"engine backend cannot lower tp={tp} pp={pp}: the port's "
-            "engine runs on one card; mesh-sharded serving is not ported "
-            "yet (ROADMAP: queue 1, item 12)")
 
 
 def _engine_config(cfg) -> dict:
@@ -322,7 +315,8 @@ def _lower_engine(sc: Scenario, spec, model, kw: dict) -> Lowered:
         chunk = geo["prompt_len"]
     tp, pp = _parallelism_lowering(sc, kw)
     prefix = bool(kw["prefix_cache"]) or sc.opt.prefix_hit_rate > 0
-    kw["unified"] = bool(kw["unified"]) or prefix  # prefix rides unified
+    # prefix + mesh sharding both ride the unified paged step
+    kw["unified"] = bool(kw["unified"]) or prefix or tp * pp > 1
     paging = _paged_lowering(sc, spec, geo, kw)
     cfg = EngineConfig(max_slots=int(kw["max_slots"]), max_seq=geo["max_seq"],
                        chunk_size=chunk, prefill_rows=int(kw["prefill_rows"]),
@@ -357,7 +351,6 @@ def _lower_disaggregated(sc: Scenario, spec, model, kw: dict) -> Lowered:
                                    MigrationLink, pool_split_from_plan)
     from .scenario import DisaggSpec
 
-    _refuse_mesh(sc.parallelism.tp, sc.parallelism.pp)
     if sc.parallelism.total > 1 or sc.parallelism.sp > 1:
         raise ValueError(
             f"mode 'disaggregated' cannot lower parallelism "
@@ -449,7 +442,6 @@ def _lower_speculative(sc: Scenario, spec, model, kw: dict) -> Lowered:
     acceptance rate compares with the scenario's ``gamma``."""
     from ..serving import EngineConfig, ServeEngine
 
-    _refuse_mesh(sc.parallelism.tp, sc.parallelism.pp)
     if sc.parallelism.total > 1 or sc.parallelism.sp > 1:
         raise ValueError(
             f"mode 'speculative' cannot lower parallelism "

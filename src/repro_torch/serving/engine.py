@@ -57,6 +57,18 @@ draft's pool, and ``kv_stats`` counts them.  Quantized, the paged
 two-dispatch decode takes the reference's gather route, which applies the
 sliding window, so that layout serves sliding-window models too.
 
+With ``tp * pp > 1`` (unified only, attention-only dense stacks, as the
+reference) the unified engine serves across ``tp * pp`` torch.distributed
+ranks (:mod:`.sharded`): every rank builds the same engine over the same
+requests and runs the same scheduler, holds its shard of the weights (the
+engine cuts it from a full model, or is given the rank's shard) and of the
+paged pools (its kv heads / tp of its stage's layers over the full page
+axis; the page table and lengths replicated, so host page ids hold on
+every rank), and its packed step runs the shard's collectives, which
+``EngineMetrics.collectives``/``collective_bytes`` count with the
+reference's analytical ``collective_stats`` once a step.  Every rank
+samples the same tokens and copies them to its host once a step.
+
 Under P/D disaggregation (:mod:`.cluster`) a unified engine with an
 ``export_fn`` hands each completed prefill to that hook instead of a local
 decode slot (its pages stay owned by the request until the migration
@@ -109,6 +121,8 @@ from ..models.model import Model
 from .paging import PageAllocator
 from .prefix_cache import PrefixCache
 from .sampling import SamplingConfig, sample_slots
+from .sharded import (collective_stats, make_engine_mesh, shard_model,
+                      validate_engine_sharding)
 from .speculative import PackedSpeculator
 from .step_graph import Staged, StepGraph, sync_mode
 
@@ -192,6 +206,9 @@ class EngineMetrics:
     # -- P/D disaggregation counters (zero outside a DisaggCluster) ----------
     exports: int = 0  # prefill completions handed off to a decode pool
     imports: int = 0  # migrated requests installed into a decode slot
+    # -- mesh-sharded counters (zero at tp=pp=1) ------------------------------
+    collectives: int = 0  # all-reduce/send/broadcast/all_gather per rank
+    collective_bytes: int = 0  # estimated all-reduce/ring bytes moved
     # -- prefix-cache counters (mirrors of PrefixCacheStats + engine-side) --
     prefix_lookups: int = 0
     prefix_hits: int = 0  # admissions whose source matched >= 1 cached page
@@ -276,6 +293,13 @@ class EngineMetrics:
         if self.exports or self.imports:  # only under P/D disaggregation
             out["exports"] = self.exports
             out["imports"] = self.imports
+        if self.collectives:  # only on a >1-rank mesh
+            out["collectives"] = self.collectives
+            out["collective_bytes"] = self.collective_bytes
+            out["collectives_per_step"] = (self.collectives / self.steps
+                                           if self.steps else 0.0)
+            out["collective_bytes_per_step"] = (
+                self.collective_bytes / self.steps if self.steps else 0.0)
         if self.spec_rounds:  # only with speculative decoding on
             out.update(
                 spec_rounds=self.spec_rounds,
@@ -328,11 +352,6 @@ def _tensors(layer_cache) -> list[torch.Tensor]:
             if (t := getattr(layer_cache, f.name)) is not None]
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: queue 1, {item})")
-
-
 class ServeEngine:
     """The serving engine.  ``device`` defaults to the card (raises without
     one) and must be where ``model`` lives; ``seed`` seeds the engine's
@@ -341,7 +360,12 @@ class ServeEngine:
     ``jax.disable_jit``; the CPU always does).  ``draft_model`` (with
     ``n_spec > 0``) proposes the speculative rounds' tokens; it carries its
     weights, lives on the engine's device, and may be ``model`` itself (a
-    self-draft, with its own mirrored KV pool)."""
+    self-draft, with its own mirrored KV pool).  With ``tp * pp > 1``
+    every rank of a process group of that size builds the engine, on the
+    full ``model`` (cut to the rank's shard here) or on the rank's shard
+    (``build_model(..., shard=make_engine_mesh(tp, pp, device).shard)``);
+    a card engine over gloo needs ``graphs=False`` (gloo's collectives
+    cannot be captured)."""
 
     def __init__(self, model: Model, config: EngineConfig, *,
                  device: str | torch.device | None = None, seed: int = 0,
@@ -356,8 +380,6 @@ class ServeEngine:
             raise ValueError(f"unknown cache_layout {config.cache_layout!r}")
         if config.n_spec < 0:
             raise ValueError("EngineConfig.n_spec must be >= 0")
-        if config.tp < 1 or config.pp < 1:
-            raise ValueError("EngineConfig tp/pp must be >= 1")
         if config.unified and config.cache_layout != "paged":
             raise ValueError(
                 "unified=True needs cache_layout='paged': the packed step "
@@ -386,8 +408,7 @@ class ServeEngine:
             raise ValueError(
                 "draft_model given but n_spec == 0: set EngineConfig."
                 "n_spec=K to enable speculative decoding")
-        if config.tp * config.pp > 1:
-            _refuse(f"tp={config.tp} pp={config.pp}", "item 12")
+        validate_engine_sharding(model.full_spec, config)
         self.unified = config.unified
         self.paged = config.cache_layout == "paged"
         if spec.attn.kind == "swa" and self.unified:
@@ -409,6 +430,21 @@ class ServeEngine:
             if m is not None and m.device != self.device:
                 raise ValueError(f"{what} lives on {m.device}, engine on "
                                  f"{self.device}")
+        # -- mesh-sharded serving (tp/pp > 1): this rank's shard of the
+        # weights (its pools follow from its spec below) and the per-profile
+        # collective counts, static functions of the packed geometry
+        self.tp, self.pp = config.tp, config.pp
+        self.mesh = None
+        self._coll_mixed = self._coll_decode = (0, 0)
+        if self.tp * self.pp > 1:
+            model = self._shard(model)
+            self.mesh = model.shard.comm
+            if graphs and self.device.type == "cuda" \
+                    and self.mesh.backend == "gloo":
+                raise ValueError(
+                    "graphs=True with a gloo process group: gloo's "
+                    "collectives cannot be captured in a CUDA graph; pass "
+                    "graphs=False (or use nccl, one card per rank)")
         self.model = model
         self.cfg = config
         self.debug_guards = config.debug_guards
@@ -473,6 +509,14 @@ class ServeEngine:
         self.n_segs = config.max_slots + config.prefill_rows
         self.t_pack = config.max_slots + config.prefill_rows \
             * config.chunk_size
+        if self.mesh is not None:
+            nbytes = model.dtype.itemsize
+            self._coll_mixed = collective_stats(
+                model.full_spec, self.tp, self.pp, self.t_pack, self.n_segs,
+                nbytes)
+            self._coll_decode = collective_stats(
+                model.full_spec, self.tp, self.pp, config.max_slots,
+                config.max_slots, nbytes)
         seg_start = np.concatenate([
             np.arange(config.max_slots, dtype=np.int32),
             config.max_slots + np.arange(config.prefill_rows, dtype=np.int32)
@@ -527,6 +571,20 @@ class ServeEngine:
             self._graphs.add(self._decode_key, inputs, nslots,
                              self._decode_fn(inputs.dev))
             self._add_two_dispatch_profiles()
+
+    def _shard(self, model: Model) -> Model:
+        """The rank's shard: ``model`` itself when it is one of this
+        (tp, pp) mesh, else cut from the full ``model`` over a new mesh of
+        the default process group."""
+        if model.shard is None:
+            return shard_model(model, make_engine_mesh(self.tp, self.pp,
+                                                       self.device))
+        if (model.shard.tp, model.shard.pp) != (self.tp, self.pp) \
+                or model.shard.comm is None:
+            raise ValueError(
+                f"model is a tp={model.shard.tp} pp={model.shard.pp} shard "
+                f"without the engine's tp={self.tp} pp={self.pp} mesh")
+        return model
 
     def _up(self, x: np.ndarray) -> torch.Tensor:
         """Host -> device copy of an eager step's input (always a copy: the
@@ -1178,6 +1236,10 @@ class ServeEngine:
         toks = self._pull(self._graphs.run(key))
         self.metrics.dispatches += 1
         self.metrics.transfers_d2h += 1
+        coll, coll_bytes = (self._coll_mixed if key == "unified/mixed"
+                            else self._coll_decode)
+        self.metrics.collectives += coll
+        self.metrics.collective_bytes += coll_bytes
         now = time.perf_counter()
         if self.active:
             self.metrics.decode_steps += 1
@@ -1387,10 +1449,12 @@ class ServeEngine:
         dense layout's footprint is its reservation).  Attention K/V and,
         quantized, their scales, as the reference counts: Mamba and RWKV
         state is not KV."""
-        reserved = sum(t.numel() * t.element_size()
-                       for layer in self.cache.layers
-                       if isinstance(layer, (AttnCache, PagedAttnCache))
-                       for t in kv_tensors(layer))
+        # a mesh's ranks hold equal shards: the reservation is the mesh's
+        # (the reference's global arrays), tp * pp times this rank's
+        reserved = self.tp * self.pp * sum(
+            t.numel() * t.element_size() for layer in self.cache.layers
+            if isinstance(layer, (AttnCache, PagedAttnCache))
+            for t in kv_tensors(layer))
         out = {"cache_layout": self.cfg.cache_layout,
                "kv_reserved_bytes": reserved}
         if self.paged:

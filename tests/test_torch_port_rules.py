@@ -281,25 +281,27 @@ def _paged(**kw):
 def _refusal(case: str) -> None:
     """Construct what ``case`` names; each must raise."""
     base = get_reduced("minitron-8b")
-    spec = get_reduced("mistral-7b-swa") if case == "swa-paged" else base
+    spec = {"swa-paged": get_reduced("mistral-7b-swa"),
+            "pp": base.scaled(n_layers=3)}.get(case, base)
     cfg = {"swa-paged": _paged(unified=False),
            "prefix": _paged(prefix_cache=True, unified=False),
            "spec": _paged(n_spec=2),
-           "tp": _paged(tp=2), "pp": _paged(pp=2)}[case]
+           "tp": _paged(tp=2, unified=False), "pp": _paged(pp=2)}[case]
     ServeEngine(build_model(spec, device="cpu", dtype=torch.float32), cfg,
                 device="cpu")
 
 
 # an unported mode raises NotImplementedError naming its roadmap item; the
-# prefix cache, ported, is refused on the two-dispatch engine, and
-# speculation, ported, without a draft model, each with the reference's
-# ValueError
+# prefix cache, ported, is refused on the two-dispatch engine, speculation,
+# ported, without a draft model, and tp/pp, ported, on the two-dispatch
+# engine or with layer repeats pp does not divide, each with the
+# reference's ValueError
 @pytest.mark.parametrize("case,exc,match", [
     ("swa-paged", NotImplementedError, "ROADMAP: section 3"),
     ("prefix", ValueError, "prefix_cache=True requires unified=True"),
     ("spec", ValueError, "n_spec > 0 needs draft_model"),
-    ("tp", NotImplementedError, "ROADMAP: queue 1, item 12"),
-    ("pp", NotImplementedError, "ROADMAP: queue 1, item 12"),
+    ("tp", ValueError, "tp/pp > 1 requires unified=True"),
+    ("pp", ValueError, "pp=2 must divide the stacked layer repeats=3"),
 ], ids=["swa-paged", "prefix", "spec", "tp", "pp"])
 def test_engine_refuses_unported_modes(case, exc, match):
     with pytest.raises(exc, match=match):

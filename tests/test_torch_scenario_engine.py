@@ -10,9 +10,11 @@ agree in status, ``extra["lowering"]``, ``extra["engine_config"]`` (apart
 from the port-only ``device``, ``dtype`` and ``decode_unified``),
 ``extra["kv"]`` and every counter of ``extra["engine"]`` (only the
 wall-clock fields are dropped), in every mode; the refusals must carry the
-reference's messages, except tp/pp > 1, which names the port's roadmap
-item.  Each Report is computed once per module (the JAX engines compile
-per instance) and shared by the cases that read it.
+reference's messages.  A tp/pp Scenario outside a process group of the
+ranks it needs is the engine's error naming them (the sharded Reports
+themselves are held by ``tests/test_torch_sharded.py``).  Each Report is
+computed once per module (the JAX engines compile per instance) and shared
+by the cases that read it.
 """
 
 import dataclasses
@@ -185,17 +187,28 @@ def test_refusals_carry_the_reference_messages(case):
 
 @pytest.mark.parametrize("mode", ["monolithic", "chunked", "speculative",
                                   "disaggregated"])
-def test_tp_refused_naming_the_roadmap_item(mode):
+def test_tp_lowers_to_the_sharded_engine_or_is_refused(mode):
+    """tp=2 lowers the monolithic and chunked modes onto the sharded
+    unified engine, which outside a process group of 2 ranks is an error
+    Report naming the ranks and how to launch them; the speculative and
+    disaggregated modes carry the reference's refusal.  ep=2 is the
+    reference's axis refusal in every mode."""
     kw = {"speculative": dict(speculative=SpeculativeSpec(draft=TINY, n=2))
           }.get(mode, {})
     sc = _scenario(mode, parallelism=dict(tp=2), **kw)
-    rep, = run([sc], backend="engine",
-               engine_kw=dict(ENGINE_KW, device="cpu"))
-    assert rep.status == "error"
-    assert "tp=2 pp=1" in rep.error and "item 12" in rep.error
-    ep = teb.evaluate(_scenario(mode, parallelism=dict(ep=2), **kw),
-                      device="cpu", **ENGINE_KW)
-    assert ep.status == "error" and "item 12" not in ep.error
+    if mode in ("monolithic", "chunked"):
+        rep, = run([sc], backend="engine",
+                   engine_kw=dict(ENGINE_KW, device="cpu"))
+        assert rep.status == "error"
+        assert rep.error.startswith(
+            "ValueError: tp=2 x pp=1 needs a torch.distributed process "
+            "group of 2 ranks, but the group is not initialised; launch 2 "
+            "ranks with torchrun --nproc-per-node 2"), rep.error
+    else:
+        got, want = _refusal(sc)
+        assert got == want and mode in got and "TP=2" in got
+    got, want = _refusal(_scenario(mode, parallelism=dict(ep=2), **kw))
+    assert got == want and "ep=2" in got.lower()
 
 
 JAMBA_CASES = {
