@@ -6,9 +6,9 @@
 
 Phases, each printing one JSON line (any failure raises and exits non-zero):
 
-  build         build every CUDA kernel of the serving paths from
-                ``src/repro_torch/csrc`` with nvcc for sm_90a, one nvcc per
-                source, all at once (six kernels)
+  build         build every CUDA kernel of the serving and training paths
+                from ``src/repro_torch/csrc`` with nvcc for sm_90a, one
+                nvcc per source, all at once (seven kernels)
   kernel_check  each kernel against its plain PyTorch version on the card,
                 at minitron-8b's attention shapes (Hq=32, Hkv=8, D=128,
                 page_size=16), deepseek-moe-16b's (Hq=Hkv=16; experts
@@ -76,10 +76,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                   dense decode 8 rows against a 2048-key cache, lengths
                                0..2048, at G=4 and at deepseek's G=1;
                                untimed, G=3 at D=64
-                the ragged, paged decode, flash and dense decode lines
-                name the route each dtype took (bf16 at D % 16 == 0,
-                D <= 128: tensor_core; else cuda_core) and the bf16 launch
-                plan
+                  flash backward
+                               qwen1.5-0.5b's training shape (8 x 1,024,
+                               16 heads of 64, causal), minitron-8b's
+                               G=4 at D=128 over 1,024 tokens, a 512-key
+                               window at 2,048, a 128-query chunk against
+                               kv_len 1,500 and 256 (q_offset), rows
+                               with no visible key (kv_len 0 beside a
+                               24-key window) and hubert's bidirectional
+                               pass at D=80, each timed: dq, dk, dv
+                               against the plain backward on the same o
+                               and lse (each relative to its gradient's
+                               scale), the forward kernel's lse against
+                               the plain lse; library: SDPA's backward
+                the ragged, paged decode, flash, dense decode and flash
+                backward lines name the route each dtype took (bf16 at
+                D % 16 == 0, D <= 128: tensor_core; else cuda_core) and the
+                first four the bf16 launch plan
   decode_op     the dense decode's path: kernels.ops.decode_attention, its
                 entry point (no model routes to it, as in the reference),
                 once per layer of a minitron-8b decode step; its launches
@@ -358,6 +371,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 token-identical to tp = 1 and kernel to plain, up to a
                 genuine tie (top-2 gap under TIE_GAP)
 
+  train         qwen1.5-0.5b at its published width (24 layers, d_model
+                1,024, a tied 151,936-token head; 463,987,712 parameters,
+                random weights from seed 0) through launch/train.py's code
+                path: 30 AdamW steps of 8 x 1,024 tokens in float32, then
+                with bf16 weights (m and v float32); the loss must fall
+                (last-5 mean 0.2 under the first-5), flash forward and
+                backward launch exactly 24 x micro-batches x steps times on
+                the dtype's route, every other kernel 0, and the last
+                step's checkpoint must commit; the line gives the loss
+                curve, ms a step split into forward, backward and optimizer
+                (CUDA events), tokens/s and peak memory
+  train_parity  float32, qwen1.5-0.5b's width at 2 layers, 8 x 1,024 tokens:
+                a trainer through the kernels against one through the plain
+                versions from the same weights and batches: step-0
+                gradients within 1e-4 of each leaf's scale, 5 steps'
+                losses within 1e-4; the plain one launches nothing
+  train_restart launch/train_faulty.py's configuration on the card (reduced
+                deepseek-7b, float32, 40 steps, a failure at step 25, a
+                checkpoint every 10): the restarted weights within 1e-5 of
+                the uninterrupted run's, and whether they are equal bit for
+                bit
+
 A replay does not run the kernel wrappers: the step graph adds each
 capture's launch counts on every replay, so the counts above hold on both
 engines with the same formulas.
@@ -374,6 +409,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -821,6 +857,146 @@ def sdpa_call(torch, case):
     return lambda: f(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+# flash backward (training): qwen1.5-0.5b's training shape (8 rows of
+# 1,024 tokens, 16 heads of 64, causal: the train phase's every layer),
+# minitron-8b's heads (32 over 8: G = 4, D = 128) at 1,024 tokens, a
+# sliding window, a chunk against a longer cache (kv_len and q_offset),
+# rows with no visible key (kv_len 0 beside a 24-key window), and
+# hubert's bidirectional pass at D = 80; each timed.  The forward's inputs
+# are made on the card; o and lse come from the plain forward, so the
+# kernel and the plain backward read the same residuals.
+FLASH_BWD_PROFILES = {
+    "qwen_train": dict(b=8, sq=1024, skv=1024, q_offset=[0] * 8, hq=16,
+                       hkv=16, d=64),
+    "minitron_g4": dict(b=2, sq=1024, skv=1024, q_offset=[0, 0]),
+    "window": dict(b=1, sq=2048, skv=2048, q_offset=[0], window=512),
+    "kv_len_q_offset": dict(b=2, sq=128, skv=2048, q_offset=[1372, 128],
+                            kv_len=[1500, 256], hq=16, hkv=16, d=64),
+    "no_visible_key": dict(b=3, sq=16, skv=512, q_offset=[200, 0, 400],
+                           kv_len=[216, 0, 416], window=24, hq=16, hkv=16,
+                           d=64),
+    "hubert_bidirectional": dict(b=2, sq=512, skv=512, q_offset=[0, 0],
+                                 causal=False, hq=16, hkv=16, d=80),
+}
+
+
+def make_bwd_case(torch, ref, prof, dtype, seed):
+    """The forward's inputs (as make_flash_case), the plain forward's o (in
+    dtype) and lse, and a random upstream gradient do."""
+    case = make_flash_case(torch, prof, dtype, seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    o, lse = ref.flash_fwd_reference(**case)
+    case.update(o=o, lse=lse.float(),
+                do=torch.randn(o.shape, generator=gen, device=DEV).to(dtype))
+    return case
+
+
+def _fwd_kw(case):
+    return {k: case[k] for k in ("causal", "window", "kv_len", "q_offset")}
+
+
+def work_flash_bwd(prof, itemsize):
+    """Least bytes and operations of one backward call: q, o, do read and
+    dq written (B Sq Hq D each), K+V of the keys some query sees read once,
+    dk and dv written whole (B Skv Hkv D each), lse read (4 bytes a row),
+    kv_len and q_offset; 10 D operations per visible query-key pair per
+    query head (S and dP recomputed, dq, dk, dv)."""
+    hq, hkv, d = head_dims(prof)
+    vis = _visible(prof)
+    b, sq, skv = prof["b"], prof["sq"], prof["skv"]
+    nbytes = (4 * b * sq * hq * d * itemsize + 4 * b * sq * hq
+              + sum(2 * keys * hkv * d * itemsize for keys, _ in vis)
+              + 2 * b * skv * hkv * d * itemsize + 8 * b)
+    return _bound(nbytes, 10 * d * hq * sum(pairs for _, pairs in vis))
+
+
+def sdpa_bwd_call(torch, case):
+    """The one PyTorch call that computes the backward's function (the
+    yardstick; the port never calls it): scaled_dot_product_attention's
+    backward, the graph built once and walked again each call, with
+    is_causal where the profile is the plain causal square, else the
+    boolean visibility mask."""
+    q, k, v = (case[n].transpose(1, 2).detach().requires_grad_()
+               for n in "qkv")
+    sq, skv = q.shape[2], k.shape[2]
+    f = torch.nn.functional.scaled_dot_product_attention
+    square = (case["causal"] and not case["window"] and sq == skv
+              and bool((case["q_offset"] == 0).all())
+              and bool((case["kv_len"] == skv).all()))
+    with torch.enable_grad():
+        if square:
+            o = f(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            qpos = case["q_offset"][:, None] + torch.arange(sq, device=DEV)
+            kpos = torch.arange(skv, device=DEV)
+            mask = (kpos < case["kv_len"][:, None, None]).expand(-1, sq, -1)
+            if case["causal"]:
+                mask = mask & (kpos <= qpos[:, :, None])
+            if case["window"]:
+                mask = mask & (qpos[:, :, None] - kpos < case["window"])
+            o = f(q, k, v, attn_mask=mask[:, None], enable_gqa=True)
+    do = case["do"].transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+
+def check_bwd_profile(torch, name, prof):
+    """One profile of the flash backward: dq, dk and dv of the kernel
+    against the plain backward on the same inputs and residuals, float32
+    within F32_ATOL and bfloat16 within one bf16 ulp plus F32_ATOL, each
+    relative to the gradient's scale max(1, max |want|); the forward
+    kernel's lse against the plain lse on the rows that see a key (a row
+    that sees none must read NEG_INF on both); in bfloat16 the median
+    times of the kernel, the plain backward and SDPA's backward beside
+    the bound."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+    res = dict(prof)
+    for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
+                             (torch.bfloat16, BF16_RTOL, "bf16")):
+        case = make_bwd_case(torch, ref, prof, dtype, seed=prof["sq"])
+        args = [case[n] for n in ("q", "k", "v", "o", "lse", "do")]
+        kw = _fwd_kw(case)
+        got = flash_attention_bwd.flash_attention_bwd_cuda(*args, **kw)
+        want = ref.flash_bwd_reference(*args, **kw)
+        _, lse_k = flash_attention.flash_attention_cuda(
+            case["q"], case["k"], case["v"], return_lse=True, **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = max(1.0, _amax(w))
+            res[f"{gname}_scale_{tag}"] = scale
+            errs.append(_compare(f"flash_attention_bwd/{name}/{tag}/{gname}",
+                                 g, w, rtol, scale))
+        res[f"max_abs_err_{tag}"] = max(errs)
+        seen = case["lse"] > ref.NEG_INF / 2
+        if bool((lse_k[~seen] > ref.NEG_INF / 2).any()):
+            raise AssertionError(f"flash_attention/{name}/{tag}: lse of a "
+                                 "row with no visible key")
+        res[f"max_abs_err_lse_{tag}"] = _compare(
+            f"flash_attention/{name}/{tag}/lse", lse_k[seen],
+            case["lse"][seen], 0.0)
+        res[f"empty_rows_{tag}"] = int((~seen).sum())
+        route = flash_attention_bwd.last_route
+        if route != ("tensor_core" if flash_attention.tensor_core_route(
+                dtype, head_dims(prof)[2]) else "cuda_core"):
+            raise AssertionError(f"flash_attention_bwd/{name}/{tag}: route "
+                                 f"{route}")
+        res[f"route_{tag}"] = route
+        if tag == "bf16":
+            res["ms"] = median_ms(
+                torch, lambda: flash_attention_bwd.flash_attention_bwd_cuda(
+                    *args, **kw), TIMED_LAUNCHES)
+            res["plain_ms"] = median_ms(
+                torch, lambda: ref.flash_bwd_reference(*args, **kw),
+                PLAIN_LAUNCHES)
+            res["library_ms"] = median_ms(torch, sdpa_bwd_call(torch, case),
+                                          TIMED_LAUNCHES)
+            res.update(work_flash_bwd(prof, 2))
+        del case, args, got, want, lse_k
+    emit("kernel_check", kernel="flash_attention_bwd", profile=name,
+         atol_f32=F32_ATOL, rtol_bf16=BF16_RTOL, atol_bf16=F32_ATOL, **res)
+    return res
+
+
 # WKV scan at rwkv6-3b's heads (H 40 of N 64): the two-dispatch engine's
 # prefill calls (2 scratch rows, a full and a partial chunk) and its decode
 # steps (8 slots, one step); then, untimed, the decode step with the final
@@ -1070,7 +1246,7 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
 
 
 def phase_kernel_check(torch, only=None) -> dict:
-    """{kernel: {profile: result}} for the six kernels (those ``only``
+    """{kernel: {profile: result}} for the seven kernels (those ``only``
     names, when given)."""
     from repro_torch.kernels import (decode_attention, expert_gemm,
                                      flash_attention, paged_decode_attention,
@@ -1160,6 +1336,11 @@ def phase_kernel_check(torch, only=None) -> dict:
             work_dense_decode(prof, 2), library=sdpa_decode_call,
             timed=name in DENSE_DECODE_TIMED, module=decode_attention,
             **{"lengths": DECODE_LENGTHS, "t": DENSE_DECODE_T, **prof})
+    for name, prof in FLASH_BWD_PROFILES.items():
+        if skip("flash_attention_bwd"):
+            break
+        out["flash_attention_bwd"][name] = check_bwd_profile(torch, name,
+                                                             prof)
     for name in RWKV_EDGES:
         if skip("rwkv6_scan"):
             break
@@ -1182,14 +1363,16 @@ MAX_NEW = 32
 def kernel_modules():
     """{kernel name: wrapper module}; each module's ``launches`` counts."""
     from repro_torch.kernels import (decode_attention, expert_gemm,
-                                     flash_attention, paged_decode_attention,
+                                     flash_attention, flash_attention_bwd,
+                                     paged_decode_attention,
                                      ragged_attention, rwkv6_scan)
     return {"ragged_paged_attention": ragged_attention,
             "paged_decode_attention": paged_decode_attention,
             "flash_attention": flash_attention,
             "expert_gemm": expert_gemm,
             "rwkv6_scan": rwkv6_scan,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_launches() -> None:
@@ -3989,6 +4172,223 @@ def phase_tp_parity(torch, arch="minitron-8b") -> None:
     free(torch)
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"  # the reference launcher's default --arch
+TRAIN = dict(steps=30, batch=8, seq=1024)
+TRAIN_PARITY_STEPS = 5
+TRAIN_PARITY_LAYERS = 2
+
+
+def _train_args(dtype, ckpt_dir):
+    """launch/train.py's arguments for a full-width run."""
+    from repro_torch.launch import train
+    return train.parse([
+        "--full", "--arch", TRAIN_ARCH, "--steps", str(TRAIN["steps"]),
+        "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+        "--dtype", dtype, "--device", DEV, "--checkpoint-dir", ckpt_dir,
+        "--checkpoint-every", "1000"])
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else None
+
+
+def phase_train(torch) -> list[dict]:
+    """qwen1.5-0.5b at its published width through launch/train.py's code
+    path (``make_trainer``, then ``Trainer.run``): 30 AdamW steps of 8 x
+    1,024 tokens in float32, then in bf16 weights (AdamW's m and v f32).
+    Each run: the loss falls (last-5 mean at least 0.2 under the first-5),
+    flash forward and backward launch exactly n_layers x micro-batches x
+    steps times, both on the route for the dtype (bf16 at D = 64:
+    tensor_core; f32: cuda_core), every other kernel 0, and the last
+    step's checkpoint
+    committed; the line gives the loss curve, ms a step split into
+    forward, backward and optimizer (CUDA events, steps after the first),
+    tokens/s, the run's seconds (the last checkpoint's write included) and
+    peak memory."""
+    import tempfile
+
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import train
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as d:
+            args = _train_args(dtype, d)
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = train.make_trainer(args)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            spec = tr.model.spec
+            if spec != get_spec(TRAIN_ARCH):
+                raise AssertionError(f"train: not {TRAIN_ARCH}'s published "
+                                     f"width: {spec}")
+            reset_launches()
+            t0 = time.perf_counter()
+            tr.run(0, args.steps)  # waits for the last checkpoint's write
+            run_s = time.perf_counter() - t0
+            counts, routes = read_launches(), read_routes()
+            ckpt = tr.ckpt.latest_step()
+            if ckpt != args.steps - 1:
+                raise AssertionError(f"train {dtype}: the last step's "
+                                     f"checkpoint is missing ({ckpt})")
+        hist = tr.history
+        losses = [h["loss"] for h in hist]
+        n = spec.n_layers * tr.cfg.micro_batches * args.steps
+        fwd_route = ("tensor_core" if flash_attention.tensor_core_route(
+            tr.model.dtype, spec.d_head) else "cuda_core")
+        _expect(f"train {dtype}", counts,
+                {"flash_attention": n, "flash_attention_bwd": n})
+        if routes["flash_attention"][fwd_route] != n \
+                or routes["flash_attention_bwd"][fwd_route] != n:
+            raise AssertionError(f"train {dtype}: routes {routes}")
+        first, last = _mean(losses[:5]), _mean(losses[-5:])
+        if not all(map(math.isfinite, losses)) or last > first - 0.2:
+            raise AssertionError(f"train {dtype}: the loss did not fall by "
+                                 f"0.2: {losses}")
+        steady = hist[1:]
+        step_s = _mean([h["dt"] for h in steady])
+        line = dict(
+            arch=TRAIN_ARCH, dtype=dtype, optimizer_state="float32",
+            params=sum(p.numel() for p in tr.model.parameters()),
+            n_layers=spec.n_layers, d_model=spec.d_model, vocab=spec.vocab,
+            steps=args.steps, batch=args.batch, seq=args.seq,
+            micro_batches=tr.cfg.micro_batches, lr=args.lr,
+            losses=losses, loss_first5=first, loss_last5=last,
+            step_ms=step_s * 1e3, first_step_ms=hist[0]["dt"] * 1e3,
+            **{f"{part}_ms": _mean([h[f"{part}_ms"] for h in steady
+                                    if f"{part}_ms" in h])
+               for part in ("forward", "backward", "optimizer")},
+            tokens_per_s=args.batch * args.seq / step_s,
+            build_s=build_s, run_s=run_s,
+            checkpoint_step=ckpt,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=counts, routes=routes, forward_route=fwd_route)
+        emit("train", **line)
+        out.append(counts)
+        del tr
+    free(torch)
+    return out
+
+
+def _leaf_scale_err(torch, got, want):
+    """max |got - want| over max(1, max |want|), per leaf."""
+    return {n: float((got[n].float() - w.float()).abs().max())
+            / max(1.0, float(w.abs().max())) for n, w in want.items()}
+
+
+def phase_train_parity(torch) -> dict:
+    """f32, qwen1.5-0.5b's width at 2 layers: a trainer through the kernels
+    (impl="kernel") against one through the plain versions (impl="plain")
+    from the same weights and batches: step-0 gradients within 1e-4 of
+    each leaf's scale, then TRAIN_PARITY_STEPS steps' losses within 1e-4
+    and the final weights recorded.  The kernel trainer's flash forward
+    and backward launch n_layers x (1 + steps) times; the plain one's
+    none."""
+    import tempfile
+
+    from repro_torch.configs import get_spec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    spec = get_spec(TRAIN_ARCH).scaled(n_layers=TRAIN_PARITY_LAYERS)
+    data = DataConfig(vocab=spec.vocab, seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"])
+    runs = {}
+    for impl in ("kernel", "plain"):
+        with tempfile.TemporaryDirectory() as d:
+            model = build_model(spec, device=DEV, dtype=torch.float32)
+            model.kernel_impl = impl
+            tr = Trainer(model, data,
+                         TrainConfig(checkpoint_every=1000, checkpoint_dir=d,
+                                     optimizer=AdamWConfig(
+                                         lr=3e-3, warmup_steps=2,
+                                         total_steps=TRAIN_PARITY_STEPS)),
+                         generator=torch.Generator(device=DEV)
+                         .manual_seed(0))
+            reset_launches()
+            batch = tr.data.batch_at(0)
+            x, t = (torch.from_numpy(batch[k]).to(DEV)
+                    for k in ("x", "targets"))
+            loss0, grads = tr._grads(x, t)
+            grads = {n: g.detach().clone()
+                     for n, g in zip(tr.params, grads)}
+            tr.run(0, TRAIN_PARITY_STEPS)
+            runs[impl] = dict(loss0=float(loss0), grads=grads,
+                              losses=[h["loss"] for h in tr.history],
+                              state={n: v.detach().clone() for n, v in
+                                     tr.model.state_dict().items()},
+                              launches=read_launches())
+            del tr, model
+            free(torch)
+    k, p = runs["kernel"], runs["plain"]
+    n = spec.n_layers * (1 + TRAIN_PARITY_STEPS)
+    _expect("train_parity kernel", k["launches"],
+            {"flash_attention": n, "flash_attention_bwd": n})
+    _expect("train_parity plain", p["launches"], {})
+    grad_err = _leaf_scale_err(torch, k["grads"], p["grads"])
+    loss_err = max(abs(a - b) for a, b in zip(k["losses"], p["losses"]))
+    weight_err = max(float((k["state"][n_] - w).abs().max())
+                     for n_, w in p["state"].items())
+    worst = max(grad_err, key=grad_err.get)
+    if grad_err[worst] > 1e-4 or loss_err > 1e-4:
+        raise AssertionError(f"train_parity: step-0 gradient {worst} off by "
+                             f"{grad_err[worst]} of its scale, losses by "
+                             f"{loss_err}")
+    line = dict(arch=TRAIN_ARCH, n_layers=spec.n_layers, dtype="float32",
+                steps=TRAIN_PARITY_STEPS, batch=TRAIN["batch"],
+                seq=TRAIN["seq"], loss0_kernel=k["loss0"],
+                loss0_plain=p["loss0"], losses_kernel=k["losses"],
+                losses_plain=p["losses"], max_loss_err=loss_err,
+                max_grad_err_of_scale=grad_err[worst], worst_leaf=worst,
+                max_weight_err=weight_err, launches_kernel=k["launches"],
+                launches_plain=p["launches"])
+    emit("train_parity", **line)
+    return k["launches"]
+
+
+def phase_train_restart(torch) -> dict:
+    """launch/train_faulty.py's configuration on the card (reduced
+    deepseek-7b at a 128-token vocabulary, f32, 40 steps, a failure
+    injected at step 25, checkpoints every 10): the restarted run's
+    weights within 1e-5 of the uninterrupted run's; whether they are equal
+    bit for bit is recorded, with the leaf that parts most.  Flash
+    forward and backward launch n_layers x (40 + 25 + the replayed steps)
+    times (the uninterrupted run, the run up to the failure, the replay
+    from the newest checkpoint: step 20)."""
+    from repro_torch.launch import train_faulty
+    reset_launches()
+    t0 = time.perf_counter()
+    ref, tr, diff = train_faulty.run(steps=40, fail_at=25, device=DEV,
+                                     log=lambda *a: None)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    # the restarted trainer replays from its checkpoint (step 20 when the
+    # step-19 write had landed before the failure)
+    n = ref.model.spec.n_layers * (40 + 25 + len(tr.history))
+    _expect("train_restart", counts,
+            {"flash_attention": n, "flash_attention_bwd": n})
+    theirs = tr.model.state_dict()
+    parts = {name: float((t - theirs[name]).abs().max())
+             for name, t in ref.model.state_dict().items()}
+    bitwise = all(torch.equal(t, theirs[name])
+                  for name, t in ref.model.state_dict().items())
+    if not diff < 1e-5:
+        raise AssertionError(f"train_restart: weights off by {diff}")
+    emit("train_restart", arch="deepseek-7b (reduced, vocab 128)",
+         steps=40, fail_at=25, replayed_steps=len(tr.history),
+         max_weight_diff=diff, bitwise_equal=bitwise,
+         worst_leaf=max(parts, key=parts.get), seconds=seconds,
+         launches=counts)
+    return counts
+
+
 def ptxas_of(log, marker):
     """ptxas's lines (entry, registers, spills) of the kernels whose
     mangled names hold ``marker``."""
@@ -4119,6 +4519,10 @@ def main(argv: list[str]) -> int:
     serves += phase_serve_tp(torch, base_outs)
     phase_tp_parity(torch)
 
+    serves += phase_train(torch)
+    serves.append(phase_train_parity(torch))
+    serves.append(phase_train_restart(torch))
+
     launches = {name: sum(c[name] for c in serves) for name in mods}
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
@@ -4127,7 +4531,8 @@ def main(argv: list[str]) -> int:
     tops = {"ragged_paged_attention": "decode",
             "paged_decode_attention": "decode", "flash_attention": "prefill",
             "expert_gemm": "mixed", "rwkv6_scan": "decode",
-            "decode_attention": "decode"}
+            "decode_attention": "decode",
+            "flash_attention_bwd": "qwen_train"}
     kernels = [kernel_entry(name, mod, launches[name], checks[name],
                             tops[name]) for name, mod in mods.items()]
     print(smi, flush=True)

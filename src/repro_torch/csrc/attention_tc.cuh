@@ -91,6 +91,7 @@ constexpr int kMaxSplit = 32;
 constexpr int kMaxRows = 64;  // rows of the wide layout
 constexpr float kNegInf = -0.7f * 3.402823466e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
@@ -135,6 +136,16 @@ struct PagedParams : Params {
   int n_tokens;
 };
 
+// The flash forward's problem: with lse non-null the walk also writes
+// each row's log-sum-exp of its scaled scores, in natural-log units, into
+// lse (B, Hq, Sq) f32 (kNegInf for a row with no visible key): the
+// residual of the flash backward (flash_attention_bwd.cu).  A type of its
+// own, so that the dense decode's parameter struct, and so its ptxas
+// allocation, stays as it was.
+struct FlashParams : Params {
+  float* lse;  // (B, Hq, Sq), or null
+};
+
 // How keys and rows are addressed, and the kernels' parameter type.  The
 // dense policy (flash, the dense decode) reads K/V as (B, Skv, Hkv, D);
 // the paged one (the ragged kernel, the paged decode) reads them from the
@@ -144,11 +155,19 @@ struct PagedParams : Params {
 // ptxas allocates their registers differently when the struct grows.)
 struct DenseKV {
   static constexpr bool kPaged = false;
+  static constexpr bool kLse = false;
   using P = Params;
 };
 struct PagedKV {
   static constexpr bool kPaged = true;
+  static constexpr bool kLse = false;
   using P = PagedParams;
+};
+// the flash forward: dense addressing, and the lse output
+struct FlashKV {
+  static constexpr bool kPaged = false;
+  static constexpr bool kLse = true;
+  using P = FlashParams;
 };
 
 // Flattened rows of batch row (segment) b: Sq G, or G per packed query
@@ -430,6 +449,22 @@ __device__ __forceinline__ size_t row_offset(const typename A::P& p, int b,
   return out_offset(p, b, h, row, d);
 }
 
+// The flash forward's lse of row `row` of (b, h) from its final max m (in
+// base-2 units of the scaled scores) and sum l: (m + log2 l) ln 2, or
+// kNegInf for a row with no visible key.  Nothing for the other policies
+// or with a null lse.
+template <class A>
+__device__ __forceinline__ void put_lse(const typename A::P& p, int b, int h,
+                                        int row, float m, float l) {
+  if constexpr (A::kLse) {
+    if (p.lse) {
+      const int g = p.hq / p.hkv;
+      p.lse[((size_t)b * p.hq + h * g + row % g) * p.sq + row / g] =
+          l == 0.f ? kNegInf : (m + log2f(l)) * kLn2;
+    }
+  }
+}
+
 // Writes row `row` (block-local `r`) of a block: the normalised output
 // when the block is the only split, else its unnormalised partial.
 template <int D, class A>
@@ -637,6 +672,9 @@ attn_tc_split_kernel(const typename A::P p) {
         p.m_part[i] = w.m[hh];
         p.l_part[i] = w.l[hh];
       }
+      if (p.n_split == 1 && t == 0) {
+        put_lse<A>(p, b, h, row, w.m[hh], w.l[hh]);
+      }
 #pragma unroll
       for (int n = 0; n < W::kDN; ++n) {
         put_pair<D, A>(p, b, q0, h, bh, rb, split, kBlockRows, row, r,
@@ -707,6 +745,9 @@ attn_tc_split_kernel(const typename A::P p) {
     p.m_part[i] = mm_s[tid];
     p.l_part[i] = ll_s[tid];
   }
+  if (p.n_split == 1 && tid < n_rows) {
+    put_lse<A>(p, b, h, row0 + tid, mm_s[tid], ll_s[tid]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -755,6 +796,7 @@ attn_tc_combine_kernel(const typename A::P p, int block_rows) {
   float ls = wk * l;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ls += __shfl_xor_sync(kFull, ls, o);
+  if (lane == 0) put_lse<A>(p, b, h, row0 + r, mx, ls);
   wk *= ls == 0.f ? 0.f : 1.f / ls;
 
   bf16* dst =
@@ -858,8 +900,8 @@ inline bool takes_walk(int dtype, int d) {
   return dtype == 1 && d % 16 == 0 && d >= 16 && d <= 128;
 }
 
-// A: the addressing (DenseKV, or a type derived from PagedKV, which takes
-// a PagedParams); block_rows: 16 (narrow) or 64 (wide),
+// A: the addressing (DenseKV, FlashKV, or a type derived from PagedKV,
+// which takes a PagedParams); block_rows: 16 (narrow) or 64 (wide),
 // the layouts of launch_walk; scratch as Params says when n_split > 1.
 template <class A>
 cudaError_t launch(const typename A::P& p, int b, int d, int block_rows,

@@ -13,6 +13,11 @@
 //     q_offset[b] + i - p < window.
 //   * f32 online softmax with the finite NEG_INF, so a row with no visible
 //     key writes zeros, as the reference does.
+//   * With a non-null lse (B, Hq, Sq) f32, each row's log-sum-exp of its
+//     scaled scores too (natural log; NEG_INF for a row with no visible
+//     key), as flash_jnp._fwd_core returns it: the residual the backward
+//     (flash_attention_bwd.cu) recomputes P from.  Both routes write it;
+//     with a null lse nothing else changes.
 //
 // What bounds it on the H100: at decode (Sq = 1) bytes, every valid key's K
 // and V once; at a 128-query prefill chunk the arithmetic, 4 D operations
@@ -52,6 +57,7 @@ template <typename T, int kC, int kR>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse,
                        const int* __restrict__ kv_len,
                        const int* __restrict__ q_offset, int sq, int skv,
                        int hq, int hkv, int d, int causal, int window,
@@ -141,6 +147,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = row / g;
     const int head = h * g + row % g;
     T* dst = out + (((size_t)b * sq + i) * hq + head) * d;
+    if (lse && lane == 0) {
+      lse[((size_t)b * hq + head) * sq + i] =
+          st.l[r] == 0.f ? kNegInf : st.m[r] + logf(st.l[r]);
+    }
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       const int dd = lane + 32 * c;
@@ -151,9 +161,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int kC, int kR>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const void* kv_len, const void* q_offset, int b, int sq,
-                   int skv, int hq, int hkv, int d, int causal, int window,
-                   float sm_scale, cudaStream_t stream) {
+                   float* lse, const void* kv_len, const void* q_offset,
+                   int b, int sq, int skv, int hq, int hkv, int d,
+                   int causal, int window, float sm_scale,
+                   cudaStream_t stream) {
   constexpr int kBlockM = kWarps * kR;
   const size_t smem = sizeof(float) * smem_floats(kBlockM, d);
   auto kernel = flash_attention_kernel<T, kC, kR>;
@@ -166,7 +177,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid(b * hkv, (rows + kBlockM - 1) / kBlockM);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<const T*>(v), static_cast<T*>(out), lse,
       static_cast<const int*>(kv_len), static_cast<const int*>(q_offset), sq,
       skv, hq, hkv, d, causal, window, sm_scale);
   return cudaGetLastError();
@@ -174,13 +185,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 template <typename T, int kC>
 cudaError_t launch_r(int rows, const void* q, const void* k, const void* v,
-                     void* out, const void* kv_len, const void* q_offset,
-                     int b, int sq, int skv, int hq, int hkv, int d,
-                     int causal, int window, float sm_scale,
+                     void* out, float* lse, const void* kv_len,
+                     const void* q_offset, int b, int sq, int skv, int hq,
+                     int hkv, int d, int causal, int window, float sm_scale,
                      cudaStream_t stream) {
-#define FA_LAUNCH(R)                                                      \
-  return launch<T, kC, R>(q, k, v, out, kv_len, q_offset, b, sq, skv, hq, \
-                          hkv, d, causal, window, sm_scale, stream)
+#define FA_LAUNCH(R)                                                    \
+  return launch<T, kC, R>(q, k, v, out, lse, kv_len, q_offset, b, sq,   \
+                          skv, hq, hkv, d, causal, window, sm_scale, stream)
   if (rows <= 4) FA_LAUNCH(1);
   if (rows <= 8) FA_LAUNCH(2);
   FA_LAUNCH(4);
@@ -189,13 +200,14 @@ cudaError_t launch_r(int rows, const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     void* out, const void* kv_len, const void* q_offset,
-                     int b, int sq, int skv, int hq, int hkv, int causal,
-                     int window, float sm_scale, cudaStream_t stream) {
+                     void* out, float* lse, const void* kv_len,
+                     const void* q_offset, int b, int sq, int skv, int hq,
+                     int hkv, int causal, int window, float sm_scale,
+                     cudaStream_t stream) {
   const int rows = sq * (hq / hkv);
-#define FA_LAUNCH_D(C)                                                   \
-  return launch_r<T, C>(rows, q, k, v, out, kv_len, q_offset, b, sq, skv, \
-                        hq, hkv, d, causal, window, sm_scale, stream)
+#define FA_LAUNCH_D(C)                                                    \
+  return launch_r<T, C>(rows, q, k, v, out, lse, kv_len, q_offset, b, sq, \
+                        skv, hq, hkv, d, causal, window, sm_scale, stream)
   if (d <= 32) FA_LAUNCH_D(1);
   if (d <= 64) FA_LAUNCH_D(2);
   if (d <= 128) FA_LAUNCH_D(4);
@@ -213,11 +225,12 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 // key split, from the wrapper's `_plan`; with n_split > 1, m_part/l_part
 // hold B * Hkv * ceil(Sq G / block_rows) * n_split * block_rows floats and
 // acc_part that times D (else they may be null).  The CUDA-core route takes
-// n_split == 1.  Returns the cudaError_t of the launches (0 = cudaSuccess).
+// n_split == 1.  lse: (B, Hq, Sq) f32, or null (the serving calls).
+// Returns the cudaError_t of the launches (0 = cudaSuccess).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const void* kv_len, const void* q_offset, void* m_part, void* l_part,
-    void* acc_part, int b, int sq, int skv, int hq, int hkv, int d,
+    void* acc_part, void* lse, int b, int sq, int skv, int hq, int hkv, int d,
     int causal, int window, int dtype, int block_rows, int n_split,
     float sm_scale, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || d <= 0 || d > 256 || d % 8 != 0
@@ -227,7 +240,7 @@ extern "C" int flash_attention_launch(
   if (b == 0 || sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (attn_tc::takes_walk(dtype, d)) {
-    attn_tc::Params p;
+    attn_tc::FlashParams p;
     p.q = static_cast<const __nv_bfloat16*>(q);
     p.k = static_cast<const __nv_bfloat16*>(k);
     p.v = static_cast<const __nv_bfloat16*>(v);
@@ -245,16 +258,19 @@ extern "C" int flash_attention_launch(
     p.window = window;
     p.n_split = n_split;
     p.scale_log2 = sm_scale * attn_tc::kLog2e;
-    return (int)attn_tc::launch<attn_tc::DenseKV>(p, b, d, block_rows, st);
+    p.lse = static_cast<float*>(lse);
+    return (int)attn_tc::launch<attn_tc::FlashKV>(p, b, d, block_rows, st);
   }
   if (n_split != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_d<float>(d, q, k, v, out, kv_len, q_offset, b, sq, skv, hq,
-                          hkv, causal, window, sm_scale, st);
+    err = launch_d<float>(d, q, k, v, out, static_cast<float*>(lse), kv_len,
+                          q_offset, b, sq, skv, hq, hkv, causal, window,
+                          sm_scale, st);
   } else if (dtype == 1) {
-    err = launch_d<__nv_bfloat16>(d, q, k, v, out, kv_len, q_offset, b, sq,
-                                  skv, hq, hkv, causal, window, sm_scale, st);
+    err = launch_d<__nv_bfloat16>(d, q, k, v, out, static_cast<float*>(lse),
+                                  kv_len, q_offset, b, sq, skv, hq, hkv,
+                                  causal, window, sm_scale, st);
   } else {
     err = cudaErrorInvalidValue;
   }

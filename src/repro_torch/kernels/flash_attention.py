@@ -7,8 +7,10 @@ Replaces the forward of the Pallas TPU kernel ``_flash_kernel`` behind
 attention over dense K/V with ``kv_len``, ``q_offset``, causal or
 bidirectional masking, a sliding ``window`` and GQA.  The two-dispatch
 engine runs it for the chunked prefill on its scratch rows and for the
-dense-layout decode (Sq = 1, no padding to a block of queries).  There is
-no backward: the serving path needs none.
+dense-layout decode (Sq = 1, no padding to a block of queries).  With
+``return_lse=True`` it also returns each row's log-sum-exp (B, Hq, Sq)
+f32, the residual of the backward (``flash_attention_bwd``), which
+training takes through ``kernels.ops``'s ``FlashAttention`` function.
 
 What bounds it on the H100: bytes at decode shapes (every valid key's K
 and V once); at a prefill chunk the tensor-core operations (4 D per
@@ -54,7 +56,7 @@ launches = 0
 routes = {"tensor_core": 0, "cuda_core": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 11
+_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 11
              + (ctypes.c_float, ctypes.c_void_p))
 
 #: the flash forward's launch plan: the shared walk's, as it stands
@@ -84,10 +86,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          sm_scale: float | None = None,
                          window: int | None = None,
                          kv_len: torch.Tensor | int | None = None,
-                         q_offset: torch.Tensor | int = 0) -> torch.Tensor:
+                         q_offset: torch.Tensor | int = 0,
+                         return_lse: bool = False
+                         ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); kv_len (default Skv) and
     q_offset: scalars or (B,).  Returns (B, Sq, Hq, D); a row with no
-    visible key is 0."""
+    visible key is 0.  With ``return_lse``, (out, lse): lse (B, Hq, Sq)
+    f32, each row's log-sum-exp of its scaled scores (NEG_INF for a row
+    with no visible key)."""
     global launches, last_plan
     tensors = (q, k, v)
     _check(all(t.device.type == "cuda" for t in tensors),
@@ -116,6 +122,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = _plan(b, sq, skv, hq, hkv, d, q.dtype, sm_count(q.device.index))
 
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     _buf, m_part, l_part, acc_part = scratch(plan.part_rows, d, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -123,7 +131,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          _ARGTYPES)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  kl.data_ptr(), qo.data_ptr(), m_part, l_part, acc_part,
-                 b, sq, skv, hq, hkv,
+                 0 if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv,
                  d, int(causal), window or 0, _DTYPES[q.dtype],
                  plan.block_rows, plan.n_split, scale, stream)
         launches += 1
@@ -132,4 +140,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err}")
-    return out
+    return out if lse is None else (out, lse)

@@ -12,10 +12,11 @@ work) and adds the difference on every replay.
 from __future__ import annotations
 
 from . import (decode_attention, expert_gemm, flash_attention,
-               paged_decode_attention, ragged_attention, rwkv6_scan)
+               flash_attention_bwd, paged_decode_attention, ragged_attention,
+               rwkv6_scan)
 
 MODULES = (ragged_attention, paged_decode_attention, flash_attention,
-           expert_gemm, rwkv6_scan, decode_attention)
+           expert_gemm, rwkv6_scan, decode_attention, flash_attention_bwd)
 
 #: {module name: (launches, {route: calls})}
 Counts = dict[str, tuple[int, dict[str, int]]]

@@ -1,7 +1,10 @@
 """Public kernel API: route each call to the Hopper kernel or its plain
 version (the port of ``repro.kernels.ops``).
 
-  multi_head_attention   : attention over dense K/V (flash forward)
+  multi_head_attention   : attention over dense K/V (flash forward; when
+                           autograd needs a gradient, the FlashAttention
+                           function: the forward with its log-sum-exp,
+                           the flash backward kernel)
   paged_decode_attention : one-token decode against the paged pools
   ragged_paged_attention : token-packed mixed decode + prefill attention
                            against the paged pools
@@ -18,6 +21,11 @@ card and takes the plain version only for tensors on the CPU; it never
 falls back from a failed launch.  ``impl="plain"`` selects the plain
 version on any device, explicitly (``chip_smoke.py`` uses it to hold the
 kernels' serving outputs against the plain path on the card).
+
+Only attention has a backward yet.  The expert GEMM and the WKV scan on
+the card refuse inputs that require a gradient (training MoE and RWKV-6
+stacks needs their backward kernels: ROADMAP item 14b); their plain
+versions, on the CPU, train through autograd.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import torch
 from . import ref
 from .decode_attention import decode_attention_cuda
 from .expert_gemm import expert_gemm_cuda
-from .flash_attention import flash_attention_cuda
+from .flash_attention import _per_row, flash_attention_cuda
+from .flash_attention_bwd import flash_attention_bwd_cuda
 from .paged_decode_attention import paged_decode_attention_cuda
 from .ragged_attention import ragged_paged_attention_cuda
 from .rwkv6_scan import rwkv6_scan_cuda
@@ -42,6 +51,53 @@ def _plain(impl: str, x: torch.Tensor, what: str) -> bool:
     return impl == "plain" or x.device.type == "cpu"
 
 
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``custom_vjp``
+    around the Pallas forward, ``pallas_flash_attention``): the forward
+    saves q, k, v, its output and its log-sum-exp; the backward is
+    FlashAttention-2's recompute.  On the card (``impl="kernel"``) both are
+    the CUDA kernels; on the CPU, or with ``impl="plain"``, the blockwise
+    plain versions (``ref.flash_fwd_reference`` /
+    ``ref.flash_bwd_reference``).  No gradient flows to ``kv_len`` or
+    ``q_offset``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window, kv_len, q_offset,
+                plain):
+        kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+                  kv_len=kv_len, q_offset=q_offset)
+        if plain:
+            o, lse = ref.flash_fwd_reference(q, k, v, **kw)
+        else:
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, kv_len, q_offset)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+        ctx.plain = plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_len, q_offset = ctx.saved_tensors
+        kw = dict(ctx.kw, kv_len=kv_len, q_offset=q_offset)
+        bwd = ref.flash_bwd_reference if ctx.plain \
+            else flash_attention_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _no_backward(what: str, *xs: torch.Tensor) -> None:
+    """A kernel with no backward yet refuses inputs that need one."""
+    if _needs_grad(*xs):
+        raise NotImplementedError(
+            f"{what} on the card has no backward kernel yet: training MoE "
+            "and RWKV-6 stacks is ROADMAP item 14b (run under "
+            "torch.no_grad(), or on the CPU)")
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          sm_scale: float | None = None,
@@ -52,10 +108,18 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
     ``kv_len`` (scalar or (B,), default Skv) and ``q_offset`` (scalar or
     (B,)) place the queries against the keys; ``window`` is the sliding
-    window (None: none)."""
+    window (None: none).  When autograd needs a gradient of q, k or v, the
+    call runs through :class:`FlashAttention`."""
+    plain = _plain(impl, q, "attention")
+    if _needs_grad(q, k, v):
+        b, skv = q.shape[0], k.shape[1]
+        return FlashAttention.apply(
+            q, k, v, causal, sm_scale, window,
+            _per_row(skv if kv_len is None else kv_len, b, q.device),
+            _per_row(q_offset, b, q.device), plain)
     kw = dict(causal=causal, sm_scale=sm_scale, window=window,
               kv_len=kv_len, q_offset=q_offset)
-    if _plain(impl, q, "attention"):
+    if plain:
         return ref.mha_reference(q, k, v, **kw)
     return flash_attention_cuda(q, k, v, **kw)
 
@@ -102,6 +166,7 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor, *,
     ``expand``-ed over the experts."""
     if _plain(impl, x, "expert gemm"):
         return ref.moe_gemm_reference(x, w)
+    _no_backward("the expert GEMM", x, w)
     return expert_gemm_cuda(x, w)
 
 
@@ -118,6 +183,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if state_out is None:
             return out, final
         return out, state_out.copy_(final)
+    _no_backward("the RWKV-6 WKV scan", r, k, v, w, u, state)
     return rwkv6_scan_cuda(r, k, v, w, u, state, state_out)
 
 

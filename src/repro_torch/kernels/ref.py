@@ -40,23 +40,159 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = q.float().reshape(b, sq, hkv, g, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
 
-    qo = torch.as_tensor(q_offset, device=dev)
-    qpos = qo.reshape(-1, 1) + torch.arange(sq, device=dev)  # (B|1, Sq)
-    qpos = qpos.expand(b, sq)
-    kpos = torch.arange(skv, device=dev)
-    valid = torch.ones((b, sq, skv), dtype=torch.bool, device=dev)
-    if causal:
-        valid &= kpos[None, None, :] <= qpos[:, :, None]
-    if window is not None:
-        valid &= (qpos[:, :, None] - kpos[None, None, :]) < window
-    if kv_len is not None:
-        kl = torch.as_tensor(kv_len, device=dev).reshape(-1).expand(b)
-        valid &= kpos[None, None, :] < kl[:, None, None]
+    valid = attention_mask(b, sq, skv, causal=causal, window=window,
+                           kv_len=kv_len, q_offset=q_offset, device=dev)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention_mask(b: int, sq: int, skv: int, *, causal: bool,
+                   window: int | None,
+                   kv_len: torch.Tensor | int | None,
+                   q_offset: torch.Tensor | int,
+                   device: torch.device) -> torch.Tensor:
+    """(B, Sq, Skv) bool: may query i of row b (at position q_offset[b] +
+    i) see key p?  p < kv_len[b]; p <= its position if causal; its
+    position - p < window with a sliding window."""
+    qo = torch.as_tensor(q_offset, device=device)
+    qpos = qo.reshape(-1, 1) + torch.arange(sq, device=device)  # (B|1, Sq)
+    qpos = qpos.expand(b, sq)
+    kpos = torch.arange(skv, device=device)
+    valid = torch.ones((b, sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        valid &= kpos[None, None, :] <= qpos[:, :, None]
+    if window is not None:
+        valid &= (qpos[:, :, None] - kpos[None, None, :]) < window
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=device).reshape(-1).expand(b)
+        valid &= kpos[None, None, :] < kl[:, None, None]
+    return valid
+
+
+def _flash_operands(q, k, v, sm_scale):
+    """The blockwise versions' common set-up: the compute dtype (float32,
+    or float64 for float64 inputs), the scale, and q as (B, Hkv, G, Sq, D),
+    k and v as (B, Hkv, Skv, D) in it."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ct = torch.promote_types(q.dtype, torch.float32)
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    qf = q.to(ct).reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.to(ct).permute(0, 2, 1, 3)
+    vf = v.to(ct).permute(0, 2, 1, 3)
+    return ct, scale, qf, kf, vf
+
+
+def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        sm_scale: float | None = None,
+                        window: int | None = None,
+                        kv_len: torch.Tensor | int | None = None,
+                        q_offset: torch.Tensor | int = 0,
+                        block_kv: int = 128
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise flash forward returning the log-sum-exp: the port of
+    ``flash_jnp._fwd_core``.  An online softmax over ``block_kv``-key
+    blocks in float32 (float64 for float64 inputs), masked elements at the
+    finite NEG_INF.  Same arguments as :func:`mha_reference`.  Returns (o
+    (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) in the compute dtype,
+    natural-log units of the scaled scores); a row with no visible key has
+    o = 0 and lse = NEG_INF."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    ct, scale, qf, kf, vf = _flash_operands(q, k, v, sm_scale)
+    valid = attention_mask(b, sq, skv, causal=causal, window=window,
+                           kv_len=kv_len, q_offset=q_offset,
+                           device=q.device)[:, None, None]
+    shape = qf.shape[:-1]  # (B, Hkv, G, Sq)
+    m = torch.full(shape, NEG_INF, dtype=ct, device=q.device)
+    l = torch.zeros(shape, dtype=ct, device=q.device)
+    acc = torch.zeros(qf.shape, dtype=ct, device=q.device)
+    for j0 in range(0, skv, block_kv):
+        vm = valid[..., j0:j0 + block_kv]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf[:, :, j0:j0 + block_kv])
+        s = torch.where(vm, s * scale, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]) * vm
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p, vf[:, :, j0:j0 + block_kv])
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = acc / l_safe[..., None]
+    lse = m + torch.log(l_safe)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return (o.to(q.dtype).contiguous(),
+            lse.reshape(b, hq, sq).contiguous())
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        sm_scale: float | None = None,
+                        window: int | None = None,
+                        kv_len: torch.Tensor | int | None = None,
+                        q_offset: torch.Tensor | int = 0,
+                        block_q: int = 128, block_kv: int = 128
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The FlashAttention-2 backward of the forward above: the port of
+    ``flash_jnp._bwd_core``.  ``delta = rowsum(o do)``; P is recomputed
+    from the saved ``lse`` (B, Hq, Sq); a dq sweep over query blocks
+    (inner loop over key blocks) and a dk/dv sweep over key blocks (inner
+    loop over query blocks), dk and dv summed over the G query heads of
+    each KV head.  Returns (dq, dk, dv) in q's, k's and v's dtypes.
+
+    A masked element's P is 0 whatever the row's lse (``where``, not the
+    reference's ``exp(s - lse) * valid``), so a row with no visible key
+    (lse = NEG_INF) has zero gradients where ``flash_jnp``'s product gives
+    ``inf * 0 = NaN`` (ROADMAP section 3)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ct, scale, qf, kf, vf = _flash_operands(q, k, v, sm_scale)
+    of = o.to(ct).reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    dof = do.to(ct).reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    lsef = lse.to(ct).reshape(b, hkv, g, sq)
+    delta = (of * dof).sum(dim=-1)  # (B, Hkv, G, Sq)
+    valid = attention_mask(b, sq, skv, causal=causal, window=window,
+                           kv_len=kv_len, q_offset=q_offset,
+                           device=q.device)[:, None, None]
+
+    def blocks(i0, j0):
+        """P, dS of query block i0 against key block j0."""
+        qs, ks = slice(i0, i0 + block_q), slice(j0, j0 + block_kv)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf[..., qs, :], kf[:, :, ks])
+        p = torch.where(valid[..., qs, ks],
+                        torch.exp(s * scale - lsef[..., qs, None]), 0.0)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dof[..., qs, :],
+                          vf[:, :, ks])
+        return p, p * (dp - delta[..., qs, None]) * scale
+
+    dq = torch.zeros_like(qf)
+    for i0 in range(0, sq, block_q):
+        for j0 in range(0, skv, block_kv):
+            _, ds = blocks(i0, j0)
+            dq[..., i0:i0 + block_q, :] += torch.einsum(
+                "bhgqk,bhkd->bhgqd", ds, kf[:, :, j0:j0 + block_kv])
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for j0 in range(0, skv, block_kv):
+        for i0 in range(0, sq, block_q):
+            p, ds = blocks(i0, j0)
+            qs = slice(i0, i0 + block_q)
+            dv[:, :, j0:j0 + block_kv] += torch.einsum(
+                "bhgqk,bhgqd->bhkd", p, dof[..., qs, :])
+            dk[:, :, j0:j0 + block_kv] += torch.einsum(
+                "bhgqk,bhgqd->bhkd", ds, qf[..., qs, :])
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return (dq.to(q.dtype).contiguous(),
+            dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+            dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
 
 
 def paged_gather(pool: torch.Tensor, page_table: torch.Tensor

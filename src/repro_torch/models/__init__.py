@@ -11,8 +11,9 @@ MoE decoders serve through the token-packed paged step; the Mamba hybrid
 """
 
 from .common import Shard, local_spec
-from .convert import from_jax_params, shard_state
+from .convert import from_jax_opt_state, from_jax_params, shard_state
 from .model import Model, ModelCache, build_model
 
-__all__ = ["Model", "ModelCache", "Shard", "build_model", "from_jax_params",
-           "local_spec", "shard_state"]
+__all__ = ["Model", "ModelCache", "Shard", "build_model",
+           "from_jax_opt_state", "from_jax_params", "local_spec",
+           "shard_state"]

@@ -16,6 +16,9 @@ both sides) beside its ``ffn``.  A tied head has no ``lm_head``: the port
 reads ``embed.T`` as the reference does; an encoder-only frontend model
 (hubert) has no ``embed`` at all.
 
+``from_jax_opt_state`` converts the reference's AdamW state (m and v
+mirror the parameter tree) to the port's optimizer state the same way.
+
 ``shard_state`` cuts such a state (or any full model's ``state_dict()``)
 to one rank's part of a (pp, tp) mesh, the names a
 ``Model(spec, ..., shard=shard)`` expects: its stage's layers, renumbered
@@ -66,6 +69,16 @@ def from_jax_params(params_np: dict, spec: ModelSpec
     if not spec.tied_embeddings:
         state["lm_head"] = _f32(params_np["lm_head"])
     return state
+
+
+def from_jax_opt_state(state_np: dict, spec: ModelSpec) -> dict:
+    """The reference's AdamW state (``{"m": tree, "v": tree, "step"}``,
+    every leaf a numpy array; m and v shaped as the parameters) -> the
+    port's optimizer state, ``{"m": {name: f32}, "v": {name: f32},
+    "step": int}`` under the names of :func:`from_jax_params`."""
+    return {"m": from_jax_params(state_np["m"], spec),
+            "v": from_jax_params(state_np["v"], spec),
+            "step": int(state_np["step"])}
 
 
 def shard_state(state: dict[str, torch.Tensor], spec: ModelSpec,

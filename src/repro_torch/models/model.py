@@ -4,6 +4,7 @@ pass and the serving steps (the port of ``repro.models.model``).
     model = build_model(spec)                          # on the card, bf16
     logits = model.forward(tokens)                     # (B, S, V), no cache
     logits = model.forward(embeds=frames)              # hubert, pixtral
+    loss = model.loss(tokens, targets)                 # training (grads)
     cache = model.init_cache(batch, max_len, layout="paged", page_size=16)
     logits, cache = model.unified_step(cache, tokens, positions, packed)
     dec, seg, cache = model.verify_step(cache, tokens, positions, packed,
@@ -25,6 +26,13 @@ is one rank's part of a (pp, tp) mesh: its ``spec`` is the rank's geometry
 all-reduces per layer over the tp ranks, the vocab-parallel head's logits
 gathered, and the pipeline ring over the stages (``Shard.comm``).
 
+``forward`` and ``loss`` follow the caller's grad mode: the weights are
+made trainable with ``model.requires_grad_(True)`` (the trainer does it),
+and attention then runs through the differentiable flash function
+(``kernels.ops.FlashAttention``: on the card the flash forward with its
+log-sum-exp and the flash backward kernel).  The serving steps run under
+``torch.no_grad()`` whatever the weights' flags.
+
 Every step writes K/V (or a Mamba or RWKV layer's state) into the cache's
 tensors in place.  ``unified_step``, ``prefill_chunk`` and
 ``decode_step``, the steps the serving engine captures in CUDA graphs,
@@ -40,7 +48,9 @@ import dataclasses
 from dataclasses import dataclass, field
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.modelspec import ModelSpec
 from ..device import resolve_device
@@ -49,6 +59,16 @@ from .attention import PackedSegs, init_attn_cache, init_paged_attn_cache
 from .common import (Shard, embed_init_, local_spec, rms_norm,
                      tag_tp_shards, weight)
 from .ssm import init_mamba_cache, init_rwkv_cache
+
+
+def _chunk_nll(x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """Masked negative log-likelihood summed over one chunk: logits in
+    f32 from the head product in the model's dtype."""
+    logits = (x @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return ((lse - picked) * mask).sum()
 
 
 @dataclass
@@ -141,7 +161,9 @@ class Model(nn.Module):
             return embeds.to(self.dtype)
         if self.embed is None:
             raise AssertionError("encoder-only frontend archs take embeds")
-        return self.embed[tokens.long()]
+        # the lookup's backward sums each token's rows in a fixed order:
+        # advanced indexing's accumulating scatter differs run to run
+        return F.embedding(tokens.long(), self.embed)
 
     def _head_w(self) -> torch.Tensor:
         if self.spec.tied_embeddings:
@@ -171,8 +193,19 @@ class Model(nn.Module):
             return run(x)
         return self.shard.comm.pp_ring(x, run)
 
-    # -- encoder / full forward --------------------------------------------
-    @torch.no_grad()
+    # -- encoder / full forward and training loss --------------------------
+    def _full_pass(self, x: torch.Tensor,
+                   positions: torch.Tensor | None) -> torch.Tensor:
+        """The stack over (B, S, D) ``x`` with no cache: a Mamba or RWKV
+        layer starts from zero state."""
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        caches = [init_rwkv_cache(self.spec, b, x.device, self.dtype)
+                  if cls.kind == "rwkv6" else None
+                  for cls in T.layer_classes(self.spec)]
+        return self._stack(x, positions, caches)
+
     def forward(self, tokens: torch.Tensor | None = None, *,
                 embeds: torch.Tensor | None = None,
                 positions: torch.Tensor | None = None) -> torch.Tensor:
@@ -180,16 +213,39 @@ class Model(nn.Module):
         (B, S, V) logits at every position.  Attention is one flash call
         per layer over the S tokens (causal as the spec says: HuBERT's is
         bidirectional); a Mamba or RWKV layer starts from zero state.
-        ``positions`` (B, S) default to 0..S-1 (read only by RoPE)."""
-        x = self._embed_in(tokens, embeds)
-        b, s, _ = x.shape
-        if positions is None:
-            positions = torch.arange(s, device=x.device).expand(b, s)
-        caches = [init_rwkv_cache(self.spec, b, x.device, self.dtype)
-                  if cls.kind == "rwkv6" else None
-                  for cls in T.layer_classes(self.spec)]
-        x = self._stack(x, positions, caches)
+        ``positions`` (B, S) default to 0..S-1 (read only by RoPE).  Runs
+        under the caller's grad mode."""
+        x = self._full_pass(self._embed_in(tokens, embeds), positions)
         return self._logits(x)
+
+    def loss(self, tokens: torch.Tensor | None = None,
+             targets: torch.Tensor | None = None, *,
+             embeds: torch.Tensor | None = None,
+             mask: torch.Tensor | None = None,
+             chunk: int = 512) -> torch.Tensor:
+        """Mean next-token (or unit-prediction) cross entropy of
+        ``targets`` (B, S), masked by ``mask`` (B, S) (default: every
+        position), as an f32 scalar (the port of ``Model.loss``).  The head
+        and the log-softmax run over ``chunk`` positions at a time, each
+        chunk under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint``): its (B, chunk, V) logits are recomputed in the
+        backward, so the (B, S, V) logits never exist."""
+        x = self._full_pass(self._embed_in(tokens, embeds), None)
+        b, s, _ = x.shape
+        x = rms_norm(x, self.final_norm)
+        w = self._head_w()
+        if mask is None:
+            mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+        mask = mask.float()
+        chunk = min(chunk, s)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            # the reference pads the last chunk with masked zeros; its
+            # positions add 0, so the port runs the shorter chunk as it is
+            total = total + checkpoint(
+                _chunk_nll, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk], w, use_reentrant=False)
+        return total / mask.sum().clamp(min=1.0)
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *, layout: str = "paged",

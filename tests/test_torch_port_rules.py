@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs import get_reduced
 from repro_torch.core.modelspec import AttnSpec, SSMSpec
 from repro_torch.kernels import (build, decode_attention, expert_gemm,
-                                 flash_attention, ops,
+                                 flash_attention, flash_attention_bwd, ops,
                                  paged_decode_attention, ragged_attention,
                                  rwkv6_scan)
 from repro_torch.models import build_model
@@ -66,6 +66,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.scenario.engine_backend\n"
             "import repro_torch.launch.quickstart\n"
             "import repro_torch.launch.platform_dse\n"
+            "import repro_torch.training.train_loop\n"
+            "import repro_torch.launch.train, repro_torch.launch.train_faulty\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -128,6 +130,26 @@ def test_cluster_and_chat_launcher_default_to_the_card(no_card):
     assert DisaggCluster(model, cfg, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_chat.main(["--requests", "1"])
+
+
+def test_training_launchers_default_to_the_card(no_card):
+    from repro_torch.launch import train, train_faulty
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_faulty.main(["--steps", "1"])
+
+
+def test_kernels_without_a_backward_refuse_grads():
+    """On the card the expert GEMM and the WKV scan refuse inputs that need
+    a gradient (their backward kernels are ROADMAP item 14b); without a
+    gradient, or under no_grad, nothing is refused."""
+    x = torch.zeros(2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        ops._no_backward("the expert GEMM", x)
+    with torch.no_grad():
+        ops._no_backward("the expert GEMM", x)
+    ops._no_backward("the expert GEMM", x.detach())
 
 
 def _cpu_case():
@@ -194,7 +216,7 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     for module in (ragged_attention, paged_decode_attention,
                    flash_attention, expert_gemm, rwkv6_scan,
-                   decode_attention):
+                   decode_attention, flash_attention_bwd):
         assert (REPO / module.SOURCE).is_file()
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -230,6 +252,7 @@ def _c_params(source: Path, symbol: str) -> list:
     (expert_gemm, "expert_gemm_launch"),
     (rwkv6_scan, "rwkv6_scan_launch"),
     (decode_attention, "decode_attention_launch"),
+    (flash_attention_bwd, "flash_attention_bwd_launch"),
 ], ids=lambda x: getattr(x, "__name__", str(x)).split(".")[-1])
 def test_wrapper_argtypes_match_the_c_entry_point(module, symbol):
     """Each wrapper binds its C entry point with one ctypes type per C
@@ -251,7 +274,8 @@ def test_cuda_headers_are_hashed_and_jax_free(tmp_path, monkeypatch):
     names = [Path(m.SOURCE).stem for m in (ragged_attention,
                                             paged_decode_attention,
                                             flash_attention, expert_gemm,
-                                            rwkv6_scan, decode_attention)]
+                                            rwkv6_scan, decode_attention,
+                                            flash_attention_bwd)]
     before = {n: build.digest(n) for n in names}
     tc = copy / "attention_tc.cuh"
     tc.write_text(tc.read_text() + "\n// edited\n")
