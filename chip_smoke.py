@@ -8,7 +8,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
   build         build every CUDA kernel of the serving and training paths
                 from ``src/repro_torch/csrc`` with nvcc for sm_90a, one
-                nvcc per source, all at once (seven kernels)
+                nvcc per source, all at once (eight sources; the expert
+                GEMM's backward is its forward's kernel)
   kernel_check  each kernel against its plain PyTorch version on the card,
                 at minitron-8b's attention shapes (Hq=32, Hkv=8, D=128,
                 page_size=16), deepseek-moe-16b's (Hq=Hkv=16; experts
@@ -89,6 +90,25 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                                and lse (each relative to its gradient's
                                scale), the forward kernel's lse against
                                the plain lse; library: SDPA's backward
+                  expert GEMM backward
+                               granite-moe-3b-a800m's training shapes (E
+                               40, D 1,536 <-> F 512, 1,024 tokens): the
+                               up/gate products' dX with x broadcast (one
+                               1,024 x 20,480 x 1,536 product) and dW, the
+                               down product's per-expert dX and dW, each
+                               timed beside torch.bmm (einsum where x is
+                               broadcast); untimed, 37 tokens (dW's depth
+                               padded to 40), both gradients
+                  WKV backward rwkv6-3b's training micro-batch (1 row x
+                               1,024 steps) from a zero state, a partial
+                               chunk (77 steps, 2 rows) from a non-zero
+                               state with a final-state gradient, timed;
+                               untimed, N 16; dr, dk, dv, dw, du and the
+                               initial state's gradient against the plain
+                               reverse walk on the same boundary states,
+                               the forward's own boundary states against
+                               the plain ones, and its out and final state
+                               unchanged by writing them
                 the ragged, paged decode, flash, dense decode and flash
                 backward lines name the route each dtype took (bf16 at
                 D % 16 == 0, D <= 128: tensor_core; else cuda_core) and the
@@ -374,7 +394,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   train         qwen1.5-0.5b at its published width (24 layers, d_model
                 1,024, a tied 151,936-token head; 463,987,712 parameters,
                 random weights from seed 0) through launch/train.py's code
-                path: 30 AdamW steps of 8 x 1,024 tokens in float32, then
+                path: 10 AdamW steps of 8 x 1,024 tokens in float32, then
                 with bf16 weights (m and v float32); the loss must fall
                 (last-5 mean 0.2 under the first-5), flash forward and
                 backward launch exactly 24 x micro-batches x steps times on
@@ -382,16 +402,37 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 step's checkpoint must commit; the line gives the loss
                 curve, ms a step split into forward, backward and optimizer
                 (CUDA events), tokens/s and peak memory
-  train_parity  float32, qwen1.5-0.5b's width at 2 layers, 8 x 1,024 tokens:
-                a trainer through the kernels against one through the plain
-                versions from the same weights and batches: step-0
-                gradients within 1e-4 of each leaf's scale, 5 steps'
-                losses within 1e-4; the plain one launches nothing
+  train_parity  float32, 2 layers at qwen1.5-0.5b's, deepseek-moe-16b's and
+                rwkv6-3b's widths, 8, 1 and 2 x 1,024 tokens (deepseek's 8
+                did not fit the card): a trainer through the
+                kernels against one through the plain versions from the
+                same weights and batches: step-0 gradients within 1e-4 of
+                each leaf's scale, 5 steps' losses within 1e-4; exact
+                launches of every kernel, forward and backward; the plain
+                one launches nothing
   train_restart launch/train_faulty.py's configuration on the card (reduced
                 deepseek-7b, float32, 40 steps, a failure at step 25, a
                 checkpoint every 10): the restarted weights within 1e-5 of
                 the uninterrupted run's, and whether they are equal bit for
                 bit
+  train_moe     granite-moe-3b-a800m at its published width and depth (32
+                layers, d_model 1,536, 40 experts of 512, top-8, a tied
+                49,155-token head), bf16 weights (m, v and the accumulator
+                float32), launch/train.py's code path, 5 AdamW steps of
+                8 x 1,024 tokens in 1,024-token micro-batches: the loss
+                falls (last half's mean 0.2 under the first half's), flash
+                and the expert GEMM launch exactly per layer, micro-batch
+                and step, forward and backward apart, on tensor cores; the
+                last checkpoint commits; ms a step by part, tokens/s, peak
+                memory
+  train_rwkv    rwkv6-3b at its published width and depth (32 layers,
+                d_model 2,560, 40 heads of 64), the same: the WKV scan and
+                its backward 32 x 8 x steps each
+  train_jamba   jamba-v0.1-52b's first 2 layers at full width (a Mamba
+                layer with the dense MLP, one with 16 experts of 14,336),
+                2 x 1,024 tokens a step: the expert GEMM 3 and its backward
+                6 a micro-batch; the Mamba scan plain torch; the cut of
+                depth and its bytes on the line
 
 A replay does not run the kernel wrappers: the step graph adds each
 capture's launch counts on every replay, so the counts above hold on both
@@ -440,7 +481,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores, published
 TIMED_LAUNCHES = 50
-PLAIN_LAUNCHES = 20
+PLAIN_LAUNCHES = 5  # the plain versions are no yardstick: a median of 5
 SPIN_CYCLES = 5_000_000  # ~3 ms at H100 clocks: longer than any enqueue
 DEV = "cuda"
 
@@ -1075,6 +1116,242 @@ def work_rwkv(prof, itemsize):
     return _bound(nbytes, (5 * n * n + 5 * n) * b * t * h, F32_FLOPS)
 
 
+# expert GEMM backward (training): granite-moe-3b-a800m's experts (E 40,
+# D 1,536 <-> F 512) at its 1,024-token training micro-batch.  A profile
+# is one gradient, one launch of the forward kernel on the operands the
+# wrapper builds: the up/gate products' dX, x broadcast over the experts
+# (one (N, E F) @ (E F, D) product, 20,480 deep), and dW (X^T read through
+# an expert stride of 0); the down product's per-expert dX and dW.
+# Untimed: token counts off the 8-row padding of dW, both gradients.
+# library: the one PyTorch call of the same product (torch.bmm, or
+# einsum where x is broadcast).
+GEMM_BWD_PROFILES = {
+    "granite_dx_broadcast": dict(e=40, c=1024, d=1536, f=512,
+                                 broadcast=True, grad="x"),
+    "granite_dw_broadcast": dict(e=40, c=1024, d=1536, f=512,
+                                 broadcast=True, grad="w"),
+    "granite_dx_down": dict(e=40, c=1024, d=512, f=1536, broadcast=False,
+                            grad="x"),
+    "granite_dw_down": dict(e=40, c=1024, d=512, f=1536, broadcast=False,
+                            grad="w"),
+    "ragged_c37_broadcast": dict(e=5, c=37, d=72, f=200, broadcast=True,
+                                 grad="xw"),
+    "ragged_c37": dict(e=3, c=37, d=200, f=136, broadcast=False, grad="xw"),
+}
+GEMM_BWD_TIMED = ("granite_dx_broadcast", "granite_dw_broadcast",
+                  "granite_dx_down", "granite_dw_down")
+
+
+def make_gemm_bwd_case(torch, prof, dtype, seed):
+    """x ~ N(0, 1) ((C, D) when broadcast), w ~ N(0, 1/D), dy ~ N(0, 1)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    e, c, d, f = prof["e"], prof["c"], prof["d"], prof["f"]
+    x = torch.randn((c, d) if prof["broadcast"] else (e, c, d),
+                    generator=gen, device=DEV)
+    w = torch.randn((e, d, f), generator=gen, device=DEV) / d ** 0.5
+    dy = torch.randn((e, c, f), generator=gen, device=DEV)
+    return dict(x=x.to(dtype), w=w.to(dtype), dy=dy.to(dtype))
+
+
+def work_gemm_bwd(prof, itemsize):
+    """Least bytes and operations of the profile's gradients: dX reads dy
+    and w and writes dX (one (C, D) matrix when x is broadcast); dW reads
+    x and dy and writes dW; 2 E C D F operations each."""
+    e, c, d, f = prof["e"], prof["c"], prof["d"], prof["f"]
+    x = c * d if prof["broadcast"] else e * c * d
+    nbytes = flops = 0
+    if "x" in prof["grad"]:
+        nbytes += (e * c * f + e * d * f + x) * itemsize
+        flops += 2 * e * c * d * f
+    if "w" in prof["grad"]:
+        nbytes += (x + e * c * f + e * d * f) * itemsize
+        flops += 2 * e * c * d * f
+    return _bound(nbytes, flops)
+
+
+def gemm_bwd_library(torch, prof, case):
+    """The one PyTorch call of the profile's product (the yardstick; the
+    port never calls it)."""
+    x, w, dy = case["x"], case["w"], case["dy"]
+    if prof["grad"] == "x":
+        if prof["broadcast"]:
+            return lambda: torch.einsum("ecf,edf->cd", dy, w)
+        return lambda: torch.bmm(dy, w.transpose(1, 2))
+    if prof["broadcast"]:
+        return lambda: torch.einsum("cd,ecf->edf", x, dy)
+    return lambda: torch.bmm(x.transpose(1, 2), dy)
+
+
+def check_gemm_bwd_profile(torch, name, prof):
+    """One profile of the expert GEMM's backward: the kernel's gradients
+    against ``ref.expert_gemm_bwd_reference`` on the same inputs, float32
+    within F32_ATOL and bfloat16 within one bf16 ulp plus F32_ATOL, each
+    relative to the gradient's scale max(1, max |want|); the route (bf16:
+    wgmma, f32: cuda_core) and one backward launch a gradient; in bfloat16
+    the median times of the kernel, the plain backward and the library's
+    product beside the bound."""
+    from repro_torch.kernels import expert_gemm, ref
+    res = dict(prof)
+    need = dict(need_x="x" in prof["grad"], need_w="w" in prof["grad"])
+    for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
+                             (torch.bfloat16, BF16_RTOL, "bf16")):
+        case = make_gemm_bwd_case(torch, prof, dtype, seed=prof["c"])
+        n0 = expert_gemm.bwd_launches
+        got = expert_gemm.expert_gemm_bwd_cuda(**case, **need)
+        if expert_gemm.bwd_launches - n0 != len(prof["grad"]):
+            raise AssertionError(f"expert_gemm_bwd/{name}: "
+                                 f"{expert_gemm.bwd_launches - n0} launches")
+        want = ref.expert_gemm_bwd_reference(**case, **need)
+        torch.cuda.synchronize()
+        route = expert_gemm.last_plan.route
+        if route != ("wgmma" if dtype == torch.bfloat16 else "cuda_core"):
+            raise AssertionError(f"expert_gemm_bwd/{name}/{tag}: route "
+                                 f"{route}")
+        res[f"route_{tag}"] = route
+        errs = []
+        for gname, g, w in zip(("dx", "dw"), got, want):
+            if g is None:
+                continue
+            scale = max(1.0, _amax(w))
+            res[f"{gname}_scale_{tag}"] = scale
+            errs.append(_compare(f"expert_gemm_bwd/{name}/{tag}/{gname}",
+                                 g, w, rtol, scale))
+        res[f"max_abs_err_{tag}"] = max(errs)
+        if tag == "bf16":
+            res["plan_bf16"] = vars(expert_gemm.last_plan)
+            if name in GEMM_BWD_TIMED:
+                res["ms"] = median_ms(
+                    torch, lambda: expert_gemm.expert_gemm_bwd_cuda(
+                        **case, **need), TIMED_LAUNCHES)
+                res["plain_ms"] = median_ms(
+                    torch, lambda: ref.expert_gemm_bwd_reference(
+                        **case, **need), PLAIN_LAUNCHES)
+                res["library_ms"] = median_ms(
+                    torch, gemm_bwd_library(torch, prof, case),
+                    TIMED_LAUNCHES)
+                res.update(work_gemm_bwd(prof, 2))
+        del case, got, want
+    emit("kernel_check", kernel="expert_gemm_bwd", profile=name,
+         atol_f32=F32_ATOL, rtol_bf16=BF16_RTOL, atol_bf16=F32_ATOL, **res)
+    return res
+
+
+# WKV scan backward (training): rwkv6-3b's training micro-batch (1 row of
+# 1,024 steps, 40 heads of 64) from a zero state; a partial last chunk (77
+# = 2 x 32 + 13 steps, 2 rows) from a non-zero state with a gradient of
+# the final state; untimed, N 16.  Both backward versions read the plain
+# forward's chunk-boundary states; the forward kernel's own (return_bounds)
+# are held against them, and its out and final state with them against
+# those of a call without them, bit for bit.  No PyTorch call computes it.
+RWKV_BWD_PROFILES = {
+    "train": dict(b=1, t=1024),
+    "partial_state": dict(b=2, t=77, state=True),
+    "n16": dict(b=2, t=45, h=4, n=16, state=True),
+}
+RWKV_BWD_TIMED = ("train", "partial_state")
+
+
+def make_rwkv_bwd_case(torch, prof, dtype, seed):
+    """make_rwkv_case's inputs (state0 zero unless ``state``), the plain
+    forward's boundary states, dout ~ N(0, 1) in ``dtype`` and, with
+    ``state``, a final-state gradient ~ N(0, 1)."""
+    from repro_torch.kernels import ref, rwkv6_scan
+    case = make_rwkv_case(torch, prof, dtype, seed)
+    if not prof.get("state"):
+        case["state"].zero_()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    b, t, h, n = rwkv_dims(prof)
+    chunk = rwkv6_scan.bound_chunk(t)
+    _, _, bounds = ref.rwkv6_fwd_reference(**case, chunk=chunk)
+    case.update(
+        bounds=bounds, chunk=chunk,
+        dout=torch.randn((b, t, h, n), generator=gen, device=DEV).to(dtype),
+        dstate=(torch.randn((b, h, n, n), generator=gen, device=DEV)
+                if prof.get("state") else None))
+    return case
+
+
+def work_rwkv_bwd(prof, itemsize):
+    """Least bytes and operations of one backward call: r, k, v, dout read
+    and dr, dk, dv written in the compute dtype; w read and dw written, u,
+    the boundary states and the final state's gradient read, du and the
+    initial state's gradient written, in f32; 14 N^2 + 13 N f32 operations
+    per (row, step, head): the chunk's states recomputed (3 N^2), dr's,
+    dk's, dw's and dv's sums over the state (2 N^2 each), the state
+    gradient's update (3 N^2), and the bonus, dout . v and the combine's
+    terms (13 N)."""
+    b, t, h, n = rwkv_dims(prof)
+    seq, state = b * t * h * n, b * h * n * n
+    chunks = -(-t // min(32, max(t, 1)))
+    nbytes = (7 * seq * itemsize + 2 * seq * 4 + 2 * h * n * 4
+              + (chunks + 1 + bool(prof.get("state"))) * state * 4)
+    return _bound(nbytes, (14 * n * n + 13 * n) * b * t * h, F32_FLOPS)
+
+
+def check_rwkv_bwd_profile(torch, name, prof):
+    """One profile of the WKV backward: dr, dk, dv (float32 within
+    F32_ATOL, bfloat16 within one bf16 ulp plus F32_ATOL) and dw, du and
+    the initial state's gradient (f32 in both runs, within F32_ATOL), each
+    relative to its scale max(1, max |want|), against
+    ``ref.rwkv6_bwd_reference`` on the same inputs and boundary states;
+    the forward kernel's boundary states within F32_ATOL of the plain
+    ones, its out and final state equal to a call without them; in
+    bfloat16 the kernel's and the plain backward's median times beside
+    the bound."""
+    from repro_torch.kernels import ref, rwkv6_scan, rwkv6_scan_bwd
+    res = dict(prof)
+    fwd = ("r", "k", "v", "w", "u", "state")
+    for dtype, rtol, tag in ((torch.float32, 0.0, "f32"),
+                             (torch.bfloat16, BF16_RTOL, "bf16")):
+        case = make_rwkv_bwd_case(torch, prof, dtype, seed=prof["t"])
+        args = [case[k] for k in fwd[:5]] + [case["bounds"], case["dout"],
+                                             case["dstate"]]
+        n0 = rwkv6_scan_bwd.launches
+        got = rwkv6_scan_bwd.rwkv6_scan_bwd_cuda(*args, chunk=case["chunk"])
+        want = ref.rwkv6_bwd_reference(*args, chunk=case["chunk"])
+        out_b, fin_b, bounds_k = rwkv6_scan.rwkv6_scan_cuda(
+            *(case[k] for k in fwd), return_bounds=True)
+        out, fin = rwkv6_scan.rwkv6_scan_cuda(*(case[k] for k in fwd))
+        torch.cuda.synchronize()
+        if rwkv6_scan_bwd.launches - n0 != 1:
+            raise AssertionError(f"rwkv6_scan_bwd/{name}: launches")
+        if not (torch.equal(out, out_b) and torch.equal(fin, fin_b)):
+            raise AssertionError(f"rwkv6_scan/{name}/{tag}: return_bounds "
+                                 "changed out or the final state")
+        res[f"max_abs_err_bounds_{tag}"] = _compare(
+            f"rwkv6_scan/{name}/{tag}/bounds", bounds_k, case["bounds"], 0.0,
+            max(1.0, _amax(case["bounds"])))
+        errs = []
+        for gname, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate0"),
+                               got, want):
+            if g.dtype != w.dtype:
+                raise AssertionError(f"rwkv6_scan_bwd/{name}/{gname}: "
+                                     f"dtype {g.dtype}, want {w.dtype}")
+            scale = max(1.0, _amax(w))
+            res[f"{gname}_scale_{tag}"] = scale
+            errs.append(_compare(f"rwkv6_scan_bwd/{name}/{tag}/{gname}", g,
+                                 w, rtol if gname in ("dr", "dk", "dv")
+                                 else 0.0, scale))
+        res[f"max_abs_err_{tag}"] = max(errs)
+        if tag == "bf16":
+            res["plan_bf16"] = vars(rwkv6_scan_bwd.last_plan)
+            if name in RWKV_BWD_TIMED:
+                res["ms"] = median_ms(
+                    torch, lambda: rwkv6_scan_bwd.rwkv6_scan_bwd_cuda(
+                        *args, chunk=case["chunk"]), TIMED_LAUNCHES)
+                res["plain_ms"] = median_ms(
+                    torch, lambda: ref.rwkv6_bwd_reference(
+                        *args, chunk=case["chunk"]), PLAIN_LAUNCHES)
+                res["library_ms"] = None
+                res.update(work_rwkv_bwd(prof, 2))
+        del case, args, got, want
+    h, n = rwkv_dims(prof)[2:]
+    emit("kernel_check", kernel="rwkv6_scan_bwd", profile=name,
+         atol_f32=F32_ATOL, rtol_bf16=BF16_RTOL, atol_bf16=F32_ATOL,
+         **{"h": h, "n": n, **res})
+    return res
+
+
 # dense decode: 8 rows against a 2048-key cache at minitron-8b's heads and
 # at deepseek-moe-16b's (G = 1); DECODE_LENGTHS include a length-0 row.
 # Untimed: granite-moe's heads (G = 3, D = 64), a tile edge of the
@@ -1246,7 +1523,7 @@ def check_profile(torch, kernel, profile, make, run, plain, work_ms, *,
 
 
 def phase_kernel_check(torch, only=None) -> dict:
-    """{kernel: {profile: result}} for the seven kernels (those ``only``
+    """{kernel: {profile: result}} for the nine kernels (those ``only``
     names, when given)."""
     from repro_torch.kernels import (decode_attention, expert_gemm,
                                      flash_attention, paged_decode_attention,
@@ -1341,6 +1618,16 @@ def phase_kernel_check(torch, only=None) -> dict:
             break
         out["flash_attention_bwd"][name] = check_bwd_profile(torch, name,
                                                              prof)
+    for name, prof in GEMM_BWD_PROFILES.items():
+        if skip("expert_gemm_bwd"):
+            break
+        out["expert_gemm_bwd"][name] = check_gemm_bwd_profile(torch, name,
+                                                               prof)
+    for name, prof in RWKV_BWD_PROFILES.items():
+        if skip("rwkv6_scan_bwd"):
+            break
+        out["rwkv6_scan_bwd"][name] = check_rwkv_bwd_profile(torch, name,
+                                                             prof)
     for name in RWKV_EDGES:
         if skip("rwkv6_scan"):
             break
@@ -1360,19 +1647,47 @@ MODES = {"unified": dict(cache_layout="paged", unified=True),
 MAX_NEW = 32
 
 
+class GemmBackward:
+    """The expert GEMM's backward as a kernel of its own in the launch
+    counts and the kernels line: the forward's source and entry point,
+    launched by ``expert_gemm_bwd_cuda`` (one launch a gradient) and
+    counted apart from the forward (``bwd_launches``, ``bwd_routes``).
+    The reference differentiates its jnp einsum."""
+    REPLACES = "src/repro/kernels/ops.py:102"  # expert_gemm, differentiated
+
+    def __init__(self, mod):
+        self._mod = mod
+        self.SOURCE = mod.SOURCE
+
+    @property
+    def launches(self):
+        return self._mod.bwd_launches
+
+    @launches.setter
+    def launches(self, n):
+        self._mod.bwd_launches = n
+
+    @property
+    def routes(self):
+        return self._mod.bwd_routes
+
+
 def kernel_modules():
     """{kernel name: wrapper module}; each module's ``launches`` counts."""
     from repro_torch.kernels import (decode_attention, expert_gemm,
                                      flash_attention, flash_attention_bwd,
                                      paged_decode_attention,
-                                     ragged_attention, rwkv6_scan)
+                                     ragged_attention, rwkv6_scan,
+                                     rwkv6_scan_bwd)
     return {"ragged_paged_attention": ragged_attention,
             "paged_decode_attention": paged_decode_attention,
             "flash_attention": flash_attention,
             "expert_gemm": expert_gemm,
             "rwkv6_scan": rwkv6_scan,
             "decode_attention": decode_attention,
-            "flash_attention_bwd": flash_attention_bwd}
+            "flash_attention_bwd": flash_attention_bwd,
+            "expert_gemm_bwd": GemmBackward(expert_gemm),
+            "rwkv6_scan_bwd": rwkv6_scan_bwd}
 
 
 def reset_launches() -> None:
@@ -2516,16 +2831,19 @@ def phase_serve_profile(torch, model, spec, cfg) -> dict:
         wall = time.perf_counter() - t0
     by_class: dict[str, float] = {}
     launches = graph_launches = 0
-    for ev in prof.key_averages():
-        if ev.key == "cudaGraphLaunch":
-            graph_launches += ev.count
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+    # the raw kineto events: the same sums as key_averages() (checked on an
+    # H100: every class to the last digit), without building its 90,000
+    # Python events (1.0 s against 7.3 for minitron-8b's serve)
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if name == "cudaGraphLaunch":
+            graph_launches += 1
+        if ev.device_type() != DeviceType.CUDA:
             continue  # host-side ops and runtime calls
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        cls = _kernel_class(ev.key)
-        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
-        launches += ev.count
+        cls = _kernel_class(name)
+        by_class[cls] = (by_class.get(cls, 0.0)
+                         + (ev.end_ns() - ev.start_ns()) / 1e6)
+        launches += 1
     busy = sum(by_class.values())
     m = eng.metrics
     if graph_launches < m.dispatches:
@@ -3676,7 +3994,7 @@ def scan_ms(torch, spec, rows, steps):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         ops.mamba_scan(x, dt, a, b, c, d, state)
-    return median_ms(torch, graph.replay, PLAIN_LAUNCHES)
+    return median_ms(torch, graph.replay, TIMED_LAUNCHES)
 
 
 def phase_serve_jamba(torch) -> list[dict]:
@@ -4177,7 +4495,7 @@ def phase_tp_parity(torch, arch="minitron-8b") -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen1.5-0.5b"  # the reference launcher's default --arch
-TRAIN = dict(steps=30, batch=8, seq=1024)
+TRAIN = dict(steps=10, batch=8, seq=1024)
 TRAIN_PARITY_STEPS = 5
 TRAIN_PARITY_LAYERS = 2
 
@@ -4198,7 +4516,7 @@ def _mean(xs):
 
 def phase_train(torch) -> list[dict]:
     """qwen1.5-0.5b at its published width through launch/train.py's code
-    path (``make_trainer``, then ``Trainer.run``): 30 AdamW steps of 8 x
+    path (``make_trainer``, then ``Trainer.run``): 10 AdamW steps of 8 x
     1,024 tokens in float32, then in bf16 weights (AdamW's m and v f32).
     Each run: the loss falls (last-5 mean at least 0.2 under the first-5),
     flash forward and backward launch exactly n_layers x micro-batches x
@@ -4282,14 +4600,57 @@ def _leaf_scale_err(torch, got, want):
             / max(1.0, float(w.abs().max())) for n, w in want.items()}
 
 
-def phase_train_parity(torch) -> dict:
-    """f32, qwen1.5-0.5b's width at 2 layers: a trainer through the kernels
-    (impl="kernel") against one through the plain versions (impl="plain")
-    from the same weights and batches: step-0 gradients within 1e-4 of
-    each leaf's scale, then TRAIN_PARITY_STEPS steps' losses within 1e-4
-    and the final weights recorded.  The kernel trainer's flash forward
-    and backward launch n_layers x (1 + steps) times; the plain one's
-    none."""
+def train_launches(spec, passes) -> dict[str, int]:
+    """Kernel launches of ``passes`` forward and backward passes of the
+    loss through the kernels (one a micro-batch and step): flash forward
+    and backward once per attention layer; the expert GEMM
+    ``expert_launches_per_forward`` times forward and twice that backward
+    (dX and dW of each product); the WKV scan and its backward once per
+    RWKV layer.  The Mamba scan is plain torch."""
+    from repro_torch.models import transformer as T
+    kinds = [c.kind for c in T.layer_classes(spec)]
+    attn, rwkv = kinds.count("attn"), kinds.count("rwkv6")
+    gemm = expert_launches_per_forward(spec)
+    out = {"flash_attention": attn, "flash_attention_bwd": attn,
+           "expert_gemm": gemm, "expert_gemm_bwd": 2 * gemm,
+           "rwkv6_scan": rwkv, "rwkv6_scan_bwd": rwkv}
+    return {k: n * passes for k, n in out.items() if n}
+
+
+#: train_parity's widths, each with its rows of TRAIN["seq"] tokens and
+#: AdamW's peak lr and eps.  deepseek-moe-16b's 64 experts of 1,408 run on
+#: every token in f32: at 8 rows its backward did not fit the card (74 GB
+#: held, on an H100); it and rwkv6-3b run at 1 and 2 rows for the time.
+#: A larger eps and a smaller lr at the MoE and RWKV widths: a leaf whose
+#: gradient is near eps moves by lr g / (|g| + eps), which turns the two
+#: trainers' f32 rounding (deepseek's step-0 gradients agree within 6.4e-7
+#: of their scale) into weight differences of a fraction of lr, and then
+#: into routing.  deepseek's losses parted within 5 steps by 7.6e-3 at lr
+#: 3e-3 and eps 1e-8, by 2.3e-4 at 3e-3 and 1e-6, by 2.1e-4 at 3e-4 and
+#: 1e-6 (on an H100); tests/test_torch_train_moe.py meets the same against
+#: the JAX Trainer on the CPU
+TRAIN_PARITY_ARCHS = {TRAIN_ARCH: (TRAIN["batch"], 3e-3, 1e-8),
+                      "deepseek-moe-16b": (1, 3e-4, 1e-4),
+                      "rwkv6-3b": (2, 3e-4, 1e-6)}
+
+
+def phase_train_parity(torch) -> list[dict]:
+    """train_parity at each width of TRAIN_PARITY_ARCHS."""
+    return [_train_parity(torch, arch, *cfg)
+            for arch, cfg in TRAIN_PARITY_ARCHS.items()]
+
+
+def _train_parity(torch, arch, rows, lr, eps) -> dict:
+    """f32, ``arch``'s width at 2 layers (qwen1.5-0.5b: attention;
+    deepseek-moe-16b: a dense and a MoE layer with shared experts;
+    rwkv6-3b: two RWKV-6 layers), ``rows`` x TRAIN["seq"] tokens, AdamW's
+    peak ``lr`` and ``eps``: a trainer through the kernels
+    (impl="kernel") against one through the plain versions
+    (impl="plain") from the same weights and batches: step-0 gradients
+    within 1e-4 of each leaf's scale, then TRAIN_PARITY_STEPS steps'
+    losses within 1e-4 and the final weights recorded.  The kernel
+    trainer launches ``train_launches`` of 1 + steps passes, forward and
+    backward; the plain one's none."""
     import tempfile
 
     from repro_torch.configs import get_spec
@@ -4297,59 +4658,67 @@ def phase_train_parity(torch) -> dict:
     from repro_torch.models import build_model
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_loop import TrainConfig, Trainer
-    spec = get_spec(TRAIN_ARCH).scaled(n_layers=TRAIN_PARITY_LAYERS)
+    spec = get_spec(arch).scaled(n_layers=TRAIN_PARITY_LAYERS)
     data = DataConfig(vocab=spec.vocab, seq_len=TRAIN["seq"],
-                      global_batch=TRAIN["batch"])
+                      global_batch=rows)
     runs = {}
     for impl in ("kernel", "plain"):
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
             model = build_model(spec, device=DEV, dtype=torch.float32)
             model.kernel_impl = impl
             tr = Trainer(model, data,
                          TrainConfig(checkpoint_every=1000, checkpoint_dir=d,
                                      optimizer=AdamWConfig(
-                                         lr=3e-3, warmup_steps=2,
+                                         lr=lr, warmup_steps=2, eps=eps,
                                          total_steps=TRAIN_PARITY_STEPS)),
                          generator=torch.Generator(device=DEV)
                          .manual_seed(0))
             reset_launches()
-            batch = tr.data.batch_at(0)
-            x, t = (torch.from_numpy(batch[k]).to(DEV)
-                    for k in ("x", "targets"))
-            loss0, grads = tr._grads(x, t)
+            batches = [tuple(torch.from_numpy(b[k]).to(DEV)
+                             for k in ("x", "targets"))
+                       for b in map(tr.data.batch_at,
+                                    range(TRAIN_PARITY_STEPS))]
+            loss0, grads = tr._grads(*batches[0])
             grads = {n: g.detach().clone()
                      for n, g in zip(tr.params, grads)}
-            tr.run(0, TRAIN_PARITY_STEPS)
+            # the trainer's steps without Trainer.run's checkpoint at the
+            # last one (13 GB at deepseek's width in f32: about 20 s a
+            # trainer, and nothing here reads it)
+            losses = [float(tr._step(x, t)) for x, t in batches]
             runs[impl] = dict(loss0=float(loss0), grads=grads,
-                              losses=[h["loss"] for h in tr.history],
+                              losses=losses,
                               state={n: v.detach().clone() for n, v in
                                      tr.model.state_dict().items()},
-                              launches=read_launches())
-            del tr, model
+                              launches=read_launches(),
+                              seconds=time.perf_counter() - t0)
+            del tr, model, grads
             free(torch)
     k, p = runs["kernel"], runs["plain"]
-    n = spec.n_layers * (1 + TRAIN_PARITY_STEPS)
-    _expect("train_parity kernel", k["launches"],
-            {"flash_attention": n, "flash_attention_bwd": n})
-    _expect("train_parity plain", p["launches"], {})
+    _expect(f"train_parity {arch} kernel", k["launches"],
+            train_launches(spec, 1 + TRAIN_PARITY_STEPS))
+    _expect(f"train_parity {arch} plain", p["launches"], {})
     grad_err = _leaf_scale_err(torch, k["grads"], p["grads"])
     loss_err = max(abs(a - b) for a, b in zip(k["losses"], p["losses"]))
     weight_err = max(float((k["state"][n_] - w).abs().max())
                      for n_, w in p["state"].items())
     worst = max(grad_err, key=grad_err.get)
-    if grad_err[worst] > 1e-4 or loss_err > 1e-4:
-        raise AssertionError(f"train_parity: step-0 gradient {worst} off by "
-                             f"{grad_err[worst]} of its scale, losses by "
-                             f"{loss_err}")
-    line = dict(arch=TRAIN_ARCH, n_layers=spec.n_layers, dtype="float32",
-                steps=TRAIN_PARITY_STEPS, batch=TRAIN["batch"],
+    line = dict(arch=arch, n_layers=spec.n_layers, dtype="float32",
+                steps=TRAIN_PARITY_STEPS, batch=rows, lr=lr, adamw_eps=eps,
                 seq=TRAIN["seq"], loss0_kernel=k["loss0"],
                 loss0_plain=p["loss0"], losses_kernel=k["losses"],
                 losses_plain=p["losses"], max_loss_err=loss_err,
                 max_grad_err_of_scale=grad_err[worst], worst_leaf=worst,
                 max_weight_err=weight_err, launches_kernel=k["launches"],
-                launches_plain=p["launches"])
+                launches_plain=p["launches"], seconds_kernel=k["seconds"],
+                seconds_plain=p["seconds"])
     emit("train_parity", **line)
+    if grad_err[worst] > 1e-4 or loss_err > 1e-4:
+        raise AssertionError(f"train_parity {arch}: step-0 gradient {worst} "
+                             f"off by {grad_err[worst]} of its scale, losses "
+                             f"by {loss_err}")
+    del runs
+    free(torch)
     return k["launches"]
 
 
@@ -4386,6 +4755,130 @@ def phase_train_restart(torch) -> dict:
          max_weight_diff=diff, bitwise_equal=bitwise,
          worst_leaf=max(parts, key=parts.get), seconds=seconds,
          launches=counts)
+    return counts
+
+
+# training the MoE, RWKV-6 and Mamba stacks at their published widths
+# through launch/train.py's code path: bf16 weights, f32 AdamW m and v
+# and the trainer's f32 gradient accumulator, 1,024-token micro-batches,
+# the launcher's warmup (10 steps) to a peak of TRAIN_STACK_LR (at the
+# launcher's 3e-3 jamba's loss jumped 10.6 -> 13.5 at step 4, and with a
+# 2-step warmup rwkv6-3b's 11.4 -> 29.6 at step 1; on an H100).
+# granite-moe-3b-a800m and
+# rwkv6-3b at full depth, 8 x 1,024 tokens a step; jamba-v0.1-52b's first
+# 2 layers (a Mamba layer with the dense MLP, a Mamba layer with 16
+# experts of 14,336), 2 x 1,024 tokens: its 32 layers, about 52 B
+# parameters at 16 bytes each (the weight, its accumulator, m, v and a
+# micro-batch's bf16 gradient), would take 0.8 TB.
+TRAIN_STACKS = {
+    "train_moe": dict(arch="granite-moe-3b-a800m", steps=5, batch=8,
+                      micro_batches=8),
+    "train_rwkv": dict(arch="rwkv6-3b", steps=5, batch=8, micro_batches=8),
+    "train_jamba": dict(arch="jamba-v0.1-52b", steps=5, batch=2,
+                        micro_batches=2, n_layers=2),
+}
+TRAIN_STACK_SEQ = 1024
+TRAIN_STACK_LR = 1e-3
+#: bytes a parameter holds while it trains in bf16: the weight, its f32
+#: accumulator, AdamW's f32 m and v, a micro-batch's bf16 gradient
+TRAIN_BYTES_PER_PARAM = 2 + 4 + 4 + 4 + 2
+
+
+def phase_train_stack(torch, phase) -> dict:
+    """One of TRAIN_STACKS through ``make_trainer`` and ``Trainer.run``:
+    the loss falls (the mean of the last half of the steps at least 0.2
+    under the first half's, and the last step's loss under the first's),
+    every kernel launches exactly
+    ``train_launches`` of micro-batches x steps passes, forward and
+    backward apart, every other kernel 0, the bf16 routes (flash at
+    D = 64 and 128 on tensor cores; the expert GEMM forward and backward
+    on wgmma), and the last step's checkpoint commits; the line gives the
+    loss curve, ms a step by part (CUDA events, steps after the first),
+    tokens/s, peak memory and each cut with its bytes."""
+    import tempfile
+
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import train
+    cfg = TRAIN_STACKS[phase]
+    arch, steps, mb = cfg["arch"], cfg["steps"], cfg["micro_batches"]
+    argv = ["--full", "--arch", arch, "--steps", str(steps), "--batch",
+            str(cfg["batch"]), "--seq", str(TRAIN_STACK_SEQ),
+            "--micro-batches", str(mb), "--lr", str(TRAIN_STACK_LR),
+            "--dtype", "bfloat16", "--device", DEV,
+            "--checkpoint-every", "1000"]
+    if "n_layers" in cfg:
+        argv += ["--n-layers", str(cfg["n_layers"])]
+    with tempfile.TemporaryDirectory() as d:
+        args = train.parse(argv + ["--checkpoint-dir", d])
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train.make_trainer(args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        spec, full = tr.model.spec, get_spec(arch)
+        if spec != full.scaled(n_layers=cfg.get("n_layers",
+                                                full.n_layers)):
+            raise AssertionError(f"{phase}: not {arch}'s published width: "
+                                 f"{spec}")
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.run(0, steps)  # waits for the last checkpoint's write
+        run_s = time.perf_counter() - t0
+        counts, routes = read_launches(), read_routes()
+        ckpt = tr.ckpt.latest_step()
+        if ckpt != steps - 1:
+            raise AssertionError(f"{phase}: the last step's checkpoint is "
+                                 f"missing ({ckpt})")
+    want = train_launches(spec, mb * steps)
+    _expect(phase, counts, want)
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        if kernel in want:
+            route = ("tensor_core" if flash_attention.tensor_core_route(
+                torch.bfloat16, spec.d_head) else "cuda_core")
+            _expect_tensor_cores(phase, routes, kernel, want[kernel], route)
+    for kernel in ("expert_gemm", "expert_gemm_bwd"):
+        if kernel in want:
+            _expect_tensor_cores(phase, routes, kernel, want[kernel],
+                                 route="wgmma")
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    half = steps // 2
+    first, last = _mean(losses[:half]), _mean(losses[-half:])
+    if not all(map(math.isfinite, losses)) or last > first - 0.2 \
+            or losses[-1] >= losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall by 0.2: "
+                             f"{losses}")
+    params = sum(p.numel() for p in tr.model.parameters())
+    cuts = {}
+    if spec.n_layers != full.n_layers:
+        cuts["n_layers"] = dict(
+            published=full.n_layers, run=spec.n_layers,
+            published_params=full.param_count(),
+            published_train_bytes=full.param_count()
+            * TRAIN_BYTES_PER_PARAM,
+            card_bytes=torch.cuda.get_device_properties(0).total_memory)
+    steady = hist[1:]
+    step_s = _mean([h["dt"] for h in steady])
+    line = dict(
+        arch=arch, dtype="bfloat16", optimizer_state="float32",
+        params=params, train_bytes=params * TRAIN_BYTES_PER_PARAM,
+        n_layers=spec.n_layers, d_model=spec.d_model, vocab=spec.vocab,
+        steps=steps, batch=args.batch, seq=args.seq, micro_batches=mb,
+        lr=args.lr, losses=losses,
+        loss_first_half=first, loss_last_half=last,
+        step_ms=step_s * 1e3, first_step_ms=hist[0]["dt"] * 1e3,
+        **{f"{part}_ms": _mean([h[f"{part}_ms"] for h in steady
+                                if f"{part}_ms" in h])
+           for part in ("forward", "backward", "optimizer")},
+        tokens_per_s=args.batch * args.seq / step_s, build_s=build_s,
+        run_s=run_s, checkpoint_step=ckpt,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        cuts=cuts, launches=counts, routes=routes)
+    emit(phase, **line)
+    del tr
+    free(torch)
     return counts
 
 
@@ -4448,8 +4941,12 @@ def main(argv: list[str]) -> int:
     smi = nvidia_smi()
 
     mods = kernel_modules()
-    names = [Path(mod.SOURCE).stem for name, mod in mods.items()
-             if only is None or name in only]
+    # the WKV backward's check runs the forward too; the expert GEMM's
+    # backward is the forward's source
+    wanted = None if only is None else only | (
+        {"rwkv6_scan"} if "rwkv6_scan_bwd" in only else set())
+    names = sorted({Path(mod.SOURCE).stem for name, mod in mods.items()
+                    if wanted is None or name in wanted})
     t0 = time.perf_counter()
     built = build.build_all(names)
     for name in names:
@@ -4520,8 +5017,10 @@ def main(argv: list[str]) -> int:
     phase_tp_parity(torch)
 
     serves += phase_train(torch)
-    serves.append(phase_train_parity(torch))
+    serves += phase_train_parity(torch)
     serves.append(phase_train_restart(torch))
+    for phase in TRAIN_STACKS:
+        serves.append(phase_train_stack(torch, phase))
 
     launches = {name: sum(c[name] for c in serves) for name in mods}
     idle = [name for name, n in launches.items() if n == 0]
@@ -4532,7 +5031,9 @@ def main(argv: list[str]) -> int:
             "paged_decode_attention": "decode", "flash_attention": "prefill",
             "expert_gemm": "mixed", "rwkv6_scan": "decode",
             "decode_attention": "decode",
-            "flash_attention_bwd": "qwen_train"}
+            "flash_attention_bwd": "qwen_train",
+            "expert_gemm_bwd": "granite_dx_broadcast",
+            "rwkv6_scan_bwd": "train"}
     kernels = [kernel_entry(name, mod, launches[name], checks[name],
                             tops[name]) for name, mod in mods.items()]
     print(smi, flush=True)

@@ -11,7 +11,11 @@
 //
 //   * r, k, v (B, T, H, N) in the compute dtype (f32 or bf16), w (B, T, H,
 //     N) f32 decays, u (H, N) f32 bonus, state0 (B, H, N, N) f32;
-//   * out (B, T, H, N) in r's dtype, final state (B, H, N, N) f32.
+//   * out (B, T, H, N) in r's dtype, final state (B, H, N, N) f32;
+//   * when the backward will be needed (training), bounds (B, C, H, N, N)
+//     f32: the state before each chunk of `chunk` steps, C = ceil(T /
+//     chunk), which csrc/rwkv6_scan_bwd.cu re-runs each chunk from.
+//     Serving passes a null pointer and writes none.
 //
 // The TPU kernel starts from a zero state and its wrapper folds a non-zero
 // state0 in afterwards, analytically (a cumulative product of the decays).
@@ -215,8 +219,9 @@ __global__ void __launch_bounds__(R * COLS / CPT)
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                   const T* __restrict__ v, const float* __restrict__ w,
                   const float* __restrict__ u, const float* state0,
-                  T* __restrict__ out, float* state_out, int t_len, int h,
-                  int chunk, int ring) {
+                  T* __restrict__ out, float* state_out,
+                  float* __restrict__ bounds, int t_len, int h, int chunk,
+                  int ring) {
   constexpr int kGroup = COLS / CPT;  // threads of a row group
   constexpr int kThreads = R * kGroup;
   constexpr int kRows = N / R;        // state rows of each thread
@@ -304,6 +309,14 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     const int nt = min(chunk, t_len - t0);
     mma_ptx::cp_async_wait<0>();
     __syncthreads();  // chunk ci landed; every thread is done with ci - 1
+    if (bounds != nullptr) {  // the state before this chunk
+      float* sb = bounds + (((size_t)b * n_chunks + ci) * h + hh) * N * N +
+                  (size_t)i0 * N + c0 + lc;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        store_f32<CPT>(sb + (size_t)i * N, s[i]);
+      }
+    }
     const unsigned char* slot = smem + (ci % ring) * lay.slot;
     const T* rs = reinterpret_cast<const T*>(slot);
     const T* ks = reinterpret_cast<const T*>(slot + lay.k);
@@ -401,8 +414,9 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int N>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* w, const void* u, const void* state0,
-                   void* out, void* state_out, int b, int t, int h,
-                   int chunk, int ring, int smem, cudaStream_t stream) {
+                   void* out, void* state_out, void* bounds, int b, int t,
+                   int h, int chunk, int ring, int smem,
+                   cudaStream_t stream) {
   constexpr int COLS = Shape<N>::COLS, CPT = Shape<N>::CPT, R = Shape<N>::R;
   const Layout lay = layout(N, COLS, R, chunk, ring, sizeof(T));
   if (smem != lay.total) return cudaErrorInvalidValue;
@@ -416,26 +430,27 @@ cudaError_t launch(const void* r, const void* k, const void* v,
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(state0),
-      static_cast<T*>(out), static_cast<float*>(state_out), t, h, chunk,
-      ring);
+      static_cast<T*>(out), static_cast<float*>(state_out),
+      static_cast<float*>(bounds), t, h, chunk, ring);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_n(const void* r, const void* k, const void* v,
                      const void* w, const void* u, const void* state0,
-                     void* out, void* state_out, int b, int t, int h, int n,
-                     int chunk, int ring, int smem, cudaStream_t stream) {
+                     void* out, void* state_out, void* bounds, int b, int t,
+                     int h, int n, int chunk, int ring, int smem,
+                     cudaStream_t stream) {
   switch (n) {
     case 16:
-      return launch<T, 16>(r, k, v, w, u, state0, out, state_out, b, t, h,
-                           chunk, ring, smem, stream);
+      return launch<T, 16>(r, k, v, w, u, state0, out, state_out, bounds,
+                           b, t, h, chunk, ring, smem, stream);
     case 32:
-      return launch<T, 32>(r, k, v, w, u, state0, out, state_out, b, t, h,
-                           chunk, ring, smem, stream);
+      return launch<T, 32>(r, k, v, w, u, state0, out, state_out, bounds,
+                           b, t, h, chunk, ring, smem, stream);
     case 64:
-      return launch<T, 64>(r, k, v, w, u, state0, out, state_out, b, t, h,
-                           chunk, ring, smem, stream);
+      return launch<T, 64>(r, k, v, w, u, state0, out, state_out, bounds,
+                           b, t, h, chunk, ring, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -444,9 +459,10 @@ cudaError_t launch_n(const void* r, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype: 0 = float32, 1 =
-// bfloat16 (of r, k, v and out; w, u and both states are always float32).
-// Every pointer is a device pointer of a contiguous tensor, r, k, v and w
-// 16-byte aligned; n (the head size) is 16, 32 or 64.  The launch plan
+// bfloat16 (of r, k, v and out; w, u, both states and the bounds are
+// always float32).  Every pointer is a device pointer of a contiguous
+// tensor, r, k, v and w 16-byte aligned; n (the head size) is 16, 32 or
+// 64.  bounds may be null (no boundary states written).  The launch plan
 // (rwkv6_scan._plan) follows: steps per chunk, ring slots and the dynamic
 // shared memory in bytes.  One launch on `stream`, nothing synchronised.
 // Returns the launch's cudaError_t (0 = cudaSuccess); cudaErrorInvalidValue
@@ -454,9 +470,9 @@ cudaError_t launch_n(const void* r, const void* k, const void* v,
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u,
                                  const void* state0, void* out,
-                                 void* state_out, int b, int t, int h, int n,
-                                 int dtype, int chunk, int ring, int smem,
-                                 void* stream) {
+                                 void* state_out, void* bounds, int b, int t,
+                                 int h, int n, int dtype, int chunk,
+                                 int ring, int smem, void* stream) {
   if (b < 0 || t < 0 || h <= 0 || chunk <= 0 || ring <= 0 || ring > 2 ||
       (t > chunk && ring < 2)) {
     return (int)cudaErrorInvalidValue;
@@ -464,13 +480,13 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   if (b == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch_n<float>(r, k, v, w, u, state0, out, state_out, b, t,
-                                h, n, chunk, ring, smem, st);
+    return (int)launch_n<float>(r, k, v, w, u, state0, out, state_out,
+                                bounds, b, t, h, n, chunk, ring, smem, st);
   }
   if (dtype == 1) {
     return (int)launch_n<__nv_bfloat16>(r, k, v, w, u, state0, out,
-                                        state_out, b, t, h, n, chunk, ring,
-                                        smem, st);
+                                        state_out, bounds, b, t, h, n,
+                                        chunk, ring, smem, st);
   }
   return (int)cudaErrorInvalidValue;
 }

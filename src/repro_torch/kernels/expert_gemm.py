@@ -17,11 +17,16 @@ F issues the products.  The broadcast x of the single-device MoE is read
 from its one copy through an expert stride of 0 (no (E, C, D) copy).  In
 f32 (route ``cuda_core``) the products run on the CUDA cores.
 
+Training's backward (:func:`expert_gemm_bwd_cuda`) runs this same kernel
+on transposed contiguous operands, one launch a gradient; the reference
+differentiates its jnp einsum, so no Pallas backward is replaced.
+
 :func:`plan` picks the launch from the shapes, the dtype and the SM count
 alone, so a call never reads the card and stays capturable in a CUDA
-graph.  ``launches`` counts calls that reach the card, ``routes`` the
-calls of each route and ``last_plan`` holds the plan of the last one;
-``chip_smoke.py`` reads all three.  A CPU tensor is refused here:
+graph.  ``launches`` counts the forward's calls that reach the card,
+``bwd_launches`` the backward's, ``routes`` / ``bwd_routes`` the calls of
+each route and ``last_plan`` holds the plan of the last one;
+``chip_smoke.py`` reads them all.  A CPU tensor is refused here:
 :mod:`repro_torch.kernels.ops` routes CPU tensors to the plain version,
 :func:`repro_torch.kernels.ref.moe_gemm_reference`.
 """
@@ -54,10 +59,15 @@ ALIGN = 1024  # slack to align the ring to the 128-byte swizzle's atom
 #: 320 of 64: x crosses into the SMs once per F tile)
 WIDE_F_BLOCKS_PER_SM = 1
 
-#: kernel calls since import (or since a caller reset it to 0)
+#: kernel calls of the forward since import (or since a caller reset it
+#: to 0)
 launches = 0
-#: calls of each route
+#: forward calls of each route
 routes = {"wgmma": 0, "cuda_core": 0}
+#: kernel calls of the backward (:func:`expert_gemm_bwd_cuda`: one a
+#: gradient, dX or dW), and of each route
+bwd_launches = 0
+bwd_routes = {"wgmma": 0, "cuda_core": 0}
 
 
 @dataclass(frozen=True)
@@ -143,7 +153,76 @@ def expert_gemm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, D), contiguous or one (C, D) matrix ``expand``-ed over the
     experts (expert stride 0); w: (E, D, F) contiguous, x's dtype; D and F
     multiples of 8.  Returns (E, C, F) in x's dtype."""
-    global launches, last_plan
+    global launches
+    out, p = _launch(x, w)
+    launches += 1
+    routes[p.route] += 1
+    return out
+
+
+def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``a`` (..., R, X) with zero rows appended up to ``rows``."""
+    if a.shape[-2] == rows:
+        return a
+    pad = a.new_zeros(a.shape[:-2] + (rows - a.shape[-2], a.shape[-1]))
+    return torch.cat([a, pad], dim=-2)
+
+
+def expert_gemm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                         *, need_x: bool = True, need_w: bool = True
+                         ) -> tuple[torch.Tensor | None,
+                                    torch.Tensor | None]:
+    """The backward of :func:`expert_gemm_cuda` on the same kernel, on
+    transposed contiguous operands: x (E, C, D), or one (C, D) matrix
+    broadcast over the experts; w (E, D, F); dy (E, C, F) contiguous, all
+    one dtype.  Returns (dx in x's shape, dw (E, D, F)), each None when
+    not asked for, in x's dtype, accumulated in f32:
+
+      dW_e = X_e^T dY_e : X^T (E, D, C) @ dY (E, C, F), C padded with zero
+                          rows to a multiple of 8 (the kernel's depth);
+                          a broadcast x's X^T is one (D, C) matrix read
+                          through an expert stride of 0
+      dX_e = dY_e W_e^T : dY (E, C, F) @ W^T (E, F, D)
+      broadcast dX      : [dY_1 .. dY_E] (1, C, E F) @ [W_1^T; ..; W_E^T]
+                          (1, E F, D): the sum over the experts runs in
+                          the product's f32 accumulator, and no (E, C, D)
+                          gradient exists
+
+    Each product is one launch, counted in ``bwd_launches``."""
+    global bwd_launches
+    _check(dy.dim() == 3 and dy.is_contiguous(), "dy (E, C, F) contiguous")
+    e, c, f = dy.shape
+    d = w.shape[1]
+    _check(tuple(w.shape) == (e, d, f),
+           f"w {tuple(w.shape)} does not match dy {tuple(dy.shape)}")
+    _check(tuple(x.shape) in ((c, d), (e, c, d)),
+           f"x {tuple(x.shape)}: ({c}, {d}) or ({e}, {c}, {d})")
+    dx = dw = None
+    if need_w:
+        cp = -(-c // 8) * 8
+        if x.dim() == 2:  # one (D, C) matrix for every expert
+            xt = _pad_rows(x, cp).T.contiguous().expand(e, d, cp)
+        else:
+            xt = _pad_rows(x, cp).transpose(1, 2).contiguous()
+        dw, p = _launch(xt, _pad_rows(dy, cp))
+        bwd_launches += 1
+        bwd_routes[p.route] += 1
+    if need_x:
+        wt = w.transpose(1, 2)
+        if x.dim() == 2:
+            y2 = dy.permute(1, 0, 2).reshape(1, c, e * f)
+            dx, p = _launch(y2, wt.reshape(1, e * f, d))
+            dx = dx.view(c, d)
+        else:
+            dx, p = _launch(dy, wt.contiguous())
+        bwd_launches += 1
+        bwd_routes[p.route] += 1
+    return dx, dw
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, Plan]:
+    """One launch of the kernel, checked; not counted."""
+    global last_plan
     _check(x.dtype in _DTYPES, f"dtype {x.dtype} (float32 or bfloat16)")
     _check(w.dtype == x.dtype, "x and w must share one dtype")
     _check(x.dim() == 3 and w.dim() == 3, "x (E, C, D), w (E, D, F)")
@@ -172,9 +251,7 @@ def expert_gemm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
                  x.stride(0), _DTYPES[x.dtype], p.block_f, p.c_tile,
                  p.c_tiles, p.stages, p.smem, stream)
-        launches += 1
-        routes[p.route] += 1
         last_plan = p
     if err != 0:
         raise RuntimeError(f"expert_gemm launch failed: CUDA error {err}")
-    return out
+    return out, p

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 from . import (decode_attention, expert_gemm, flash_attention,
                flash_attention_bwd, paged_decode_attention, ragged_attention,
-               rwkv6_scan)
+               rwkv6_scan, rwkv6_scan_bwd)
 
 MODULES = (ragged_attention, paged_decode_attention, flash_attention,
-           expert_gemm, rwkv6_scan, decode_attention, flash_attention_bwd)
+           expert_gemm, rwkv6_scan, decode_attention, flash_attention_bwd,
+           rwkv6_scan_bwd)
 
 #: {module name: (launches, {route: calls})}
 Counts = dict[str, tuple[int, dict[str, int]]]

@@ -22,24 +22,30 @@ falls back from a failed launch.  ``impl="plain"`` selects the plain
 version on any device, explicitly (``chip_smoke.py`` uses it to hold the
 kernels' serving outputs against the plain path on the card).
 
-Only attention has a backward yet.  The expert GEMM and the WKV scan on
-the card refuse inputs that require a gradient (training MoE and RWKV-6
-stacks needs their backward kernels: ROADMAP item 14b); their plain
-versions, on the CPU, train through autograd.
+Attention, the expert GEMM and the WKV scan have a backward: when
+autograd needs a gradient, each runs through its ``torch.autograd.Function``
+(:class:`FlashAttention`, :class:`ExpertGemm`, :class:`RWKV6Scan`), whose
+forward and backward are the CUDA kernels on the card and their plain
+versions on the CPU (or with ``impl="plain"``); a gradient never takes a
+plain version on the card in the kernel's place.  The Mamba scan trains
+through autograd on every device, one ``torch.utils.checkpoint`` per chunk
+(the reference's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import ref
 from .decode_attention import decode_attention_cuda
-from .expert_gemm import expert_gemm_cuda
+from .expert_gemm import expert_gemm_bwd_cuda, expert_gemm_cuda
 from .flash_attention import _per_row, flash_attention_cuda
 from .flash_attention_bwd import flash_attention_bwd_cuda
 from .paged_decode_attention import paged_decode_attention_cuda
 from .ragged_attention import ragged_paged_attention_cuda
-from .rwkv6_scan import rwkv6_scan_cuda
+from .rwkv6_scan import bound_chunk, rwkv6_scan_cuda
+from .rwkv6_scan_bwd import rwkv6_scan_bwd_cuda
 
 IMPLS = ("kernel", "plain")
 
@@ -85,17 +91,74 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+class ExpertGemm(torch.autograd.Function):
+    """Differentiable expert GEMM (the reference differentiates its jnp
+    einsum): x (E, C, D), or one (C, D) matrix that the forward broadcasts
+    over the experts, @ w (E, D, F).  The forward saves x and w; the
+    backward gives ``dW_e = X_e^T dY_e`` and ``dX_e = dY_e W_e^T``, a
+    broadcast x's summed over the experts in the product itself.  On the
+    card (``impl="kernel"``) both are the expert GEMM kernel
+    (:func:`expert_gemm_bwd_cuda`, counted apart from the forward); on the
+    CPU, or with ``impl="plain"``, ``ref.moe_gemm_reference`` and
+    ``ref.expert_gemm_bwd_reference``."""
+
+    @staticmethod
+    def forward(ctx, x, w, plain):
+        xe = x.expand(w.shape[0], *x.shape) if x.dim() == 2 else x
+        y = ref.moe_gemm_reference(xe, w) if plain \
+            else expert_gemm_cuda(xe, w)
+        ctx.save_for_backward(x, w)
+        ctx.plain = plain
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        bwd = ref.expert_gemm_bwd_reference if ctx.plain \
+            else expert_gemm_bwd_cuda
+        dx, dw = bwd(x, w, dy.contiguous(), need_x=ctx.needs_input_grad[0],
+                     need_w=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """Differentiable WKV scan (the reference differentiates its chunked
+    jnp scan).  The forward also writes the state at every chunk boundary
+    (``bound_chunk`` steps); the backward walks the recurrence in reverse,
+    re-running each chunk forward from its boundary.  On the card both are
+    the CUDA kernels (``rwkv6_scan_cuda(return_bounds=True)``, then
+    ``csrc/rwkv6_scan_bwd.cu``); on the CPU, or with ``impl="plain"``,
+    ``ref.rwkv6_fwd_reference`` and ``ref.rwkv6_bwd_reference``.
+    Returns (out, final state); either may go unused."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, plain):
+        ctx.set_materialize_grads(False)
+        chunk = bound_chunk(r.shape[1])
+        if plain:
+            out, final, bounds = ref.rwkv6_fwd_reference(
+                r, k, v, w, u, state, chunk=chunk)
+        else:
+            out, final, bounds = rwkv6_scan_cuda(r, k, v, w, u, state,
+                                                 return_bounds=True)
+        ctx.save_for_backward(r, k, v, w, u, bounds)
+        ctx.plain, ctx.chunk = plain, chunk
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, bounds = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        bwd = ref.rwkv6_bwd_reference if ctx.plain else rwkv6_scan_bwd_cuda
+        grads = bwd(r, k, v, w, u, bounds, dout.contiguous(),
+                    None if dstate is None else dstate.contiguous(),
+                    chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def _needs_grad(*xs: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
-
-
-def _no_backward(what: str, *xs: torch.Tensor) -> None:
-    """A kernel with no backward yet refuses inputs that need one."""
-    if _needs_grad(*xs):
-        raise NotImplementedError(
-            f"{what} on the card has no backward kernel yet: training MoE "
-            "and RWKV-6 stacks is ROADMAP item 14b (run under "
-            "torch.no_grad(), or on the CPU)")
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,11 +225,19 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 def expert_gemm(x: torch.Tensor, w: torch.Tensor, *,
                 impl: str = "kernel") -> torch.Tensor:
     """Batched per-expert GEMM: x (E, C, D) @ w (E, D, F) -> (E, C, F) in
-    x's dtype, accumulated in f32.  x may be one (C, D) matrix
-    ``expand``-ed over the experts."""
-    if _plain(impl, x, "expert gemm"):
+    x's dtype, accumulated in f32.  x may be one (C, D) matrix, broadcast
+    over the experts (read through an expert stride of 0), or such a
+    matrix already ``expand``-ed.  When autograd needs a gradient of x or
+    w, the call runs through :class:`ExpertGemm`: give it the (C, D)
+    matrix, so that its gradient is summed over the experts in the
+    backward's product."""
+    plain = _plain(impl, x, "expert gemm")
+    if _needs_grad(x, w):
+        return ExpertGemm.apply(x, w, plain)
+    if x.dim() == 2:
+        x = x.expand(w.shape[0], *x.shape)
+    if plain:
         return ref.moe_gemm_reference(x, w)
-    _no_backward("the expert GEMM", x, w)
     return expert_gemm_cuda(x, w)
 
 
@@ -177,13 +248,20 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RWKV-6 WKV: r, k, v (B, T, H, N) in the compute dtype, w (B, T, H, N)
     float32 decays, u (H, N) float32, state (B, H, N, N) float32 ->
     (out (B, T, H, N) in r's dtype, final state float32).  The final state
-    is written into ``state_out`` when given (it may be ``state``)."""
-    if _plain(impl, r, "rwkv6 scan"):
+    is written into ``state_out`` when given (it may be ``state``).  When
+    autograd needs a gradient, the call runs through :class:`RWKV6Scan`,
+    which takes no ``state_out``."""
+    plain = _plain(impl, r, "rwkv6 scan")
+    if _needs_grad(r, k, v, w, u, state):
+        if state_out is not None:
+            raise ValueError("rwkv6_scan: a differentiated scan returns "
+                             "its final state (no state_out)")
+        return RWKV6Scan.apply(r, k, v, w, u, state, plain)
+    if plain:
         out, final = ref.rwkv6_reference(r, k, v, w, u, state)
         if state_out is None:
             return out, final
         return out, state_out.copy_(final)
-    _no_backward("the RWKV-6 WKV scan", r, k, v, w, u, state)
     return rwkv6_scan_cuda(r, k, v, w, u, state, state_out)
 
 
@@ -205,17 +283,21 @@ def _chunked_recurrence(ref_fn, state: torch.Tensor,
                         other_args: tuple[torch.Tensor, ...], chunk: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run a sequential recurrence chunk by chunk along axis 1, each chunk
-    continuing from the last one's state (the reference's chunks exist for
-    its backward pass; here they bound each chunk's (B, chunk, ...)
-    buffers).  ``ref_fn(*chunk_args, *other_args, state) -> (out,
-    state)``."""
+    continuing from the last one's state: the chunks bound each chunk's
+    (B, chunk, ...) buffers and, when autograd needs a gradient, each runs
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
+    so the backward keeps one state per chunk boundary and recomputes one
+    chunk's steps at a time.  ``ref_fn(*chunk_args, *other_args, state)
+    -> (out, state)``."""
     t = time_args[0].shape[1]
     if t <= chunk:
         return ref_fn(*time_args, *other_args, state)
+    remat = _needs_grad(state, *time_args, *other_args)
     outs = []
     for s in range(0, t, chunk):
-        out, state = ref_fn(*(a[:, s:s + chunk] for a in time_args),
-                            *other_args, state)
+        args = (*(a[:, s:s + chunk] for a in time_args), *other_args, state)
+        out, state = (checkpoint(ref_fn, *args, use_reentrant=False)
+                      if remat else ref_fn(*args))
         outs.append(out)
     return torch.cat(outs, dim=1), state
 

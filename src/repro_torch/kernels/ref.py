@@ -279,6 +279,38 @@ def moe_gemm_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def expert_gemm_bwd_reference(x: torch.Tensor, w: torch.Tensor,
+                              dy: torch.Tensor, *, need_x: bool = True,
+                              need_w: bool = True
+                              ) -> tuple[torch.Tensor | None,
+                                         torch.Tensor | None]:
+    """The gradient of :func:`moe_gemm_reference`: x (E, C, D), or one
+    (C, D) matrix broadcast over the experts, w (E, D, F) and dy (E, C, F)
+    -> (dx in x's shape and dtype, dw (E, D, F) in w's dtype), in f32,
+    each None when not asked for.
+
+      dW_e = X_e^T dY_e ;  dX_e = dY_e W_e^T
+
+    A broadcast x's gradient is the sum over the experts, taken in one
+    product ``[dY_1 .. dY_E] (C, E F) @ [W_1^T; ..; W_E^T] (E F, D)``."""
+    dyf, wf, xf = dy.float(), w.float(), x.float()
+    dx = dw = None
+    if x.dim() == 2:
+        e, c, f = dy.shape
+        if need_x:
+            dx = (dyf.permute(1, 0, 2).reshape(c, e * f)
+                  @ wf.transpose(1, 2).reshape(e * f, wf.shape[1]))
+        if need_w:
+            dw = torch.einsum("cd,ecf->edf", xf, dyf)
+    else:
+        if need_x:
+            dx = torch.einsum("ecf,edf->ecd", dyf, wf)
+        if need_w:
+            dw = torch.einsum("ecd,ecf->edf", xf, dyf)
+    return (None if dx is None else dx.to(x.dtype),
+            None if dw is None else dw.to(w.dtype))
+
+
 def rwkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -302,6 +334,75 @@ def rwkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = wf[:, t, :, :, None] * s + kv
     out = torch.stack(outs, dim=1) if outs else torch.zeros_like(rf)
     return out.to(r.dtype), s
+
+
+def rwkv6_fwd_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                        *, chunk: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6_reference` that also returns the state at every chunk
+    boundary, as the forward kernel writes it for the backward: (out,
+    final, bounds (B, ceil(T / chunk), H, N, N) f32), ``bounds[:, c]`` the
+    state before step ``c * chunk``.  The same numbers as one pass."""
+    outs, bounds, s = [], [], state.float()
+    for t0 in range(0, r.shape[1], chunk):
+        bounds.append(s)
+        out, s = rwkv6_reference(*(x[:, t0:t0 + chunk] for x in (r, k, v, w)),
+                                 u, s)
+        outs.append(out)
+    if not outs:
+        return torch.zeros_like(r), s, s.new_zeros((s.shape[0], 0)
+                                                   + tuple(s.shape[1:]))
+    return torch.cat(outs, dim=1), s, torch.stack(bounds, dim=1)
+
+
+def rwkv6_bwd_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        bounds: torch.Tensor, dout: torch.Tensor,
+                        dstate: torch.Tensor | None, *, chunk: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """The backward of the WKV recurrence, walked in reverse in f32 from
+    the forward's chunk-boundary states (:func:`rwkv6_fwd_reference`):
+    each chunk's states are recomputed forward from its boundary, never by
+    dividing by a decay.  ``dout`` (B, T, H, N) is the output's gradient,
+    ``dstate`` (B, H, N, N) the final state's (None: zero).  With S the
+    state before step t and G the gradient of the state after it:
+
+      dr_t[i] = sum_j dout_t[j] (S[i,j] + u_i k_t[i] v_t[j])
+      dk_t[i] = r_t[i] u_i (dout_t . v_t) + sum_j G[i,j] v_t[j]
+      dv_t[j] = dout_t[j] sum_i r_t[i] u_i k_t[i] + sum_i G[i,j] k_t[i]
+      dw_t[i] = sum_j G[i,j] S[i,j]
+      du[i]  += r_t[i] k_t[i] (dout_t . v_t)
+      G       <- r_t^T dout_t + diag(w_t) G
+
+    Returns (dr, dk, dv in r's, k's and v's dtypes; dw (B, T, H, N), du
+    (H, N) and the initial state's gradient (B, H, N, N), f32)."""
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    uf = u.float()
+    b, _, h, n = r.shape
+    g = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.float().clone())
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for c in reversed(range(bounds.shape[1])):
+        t0, t1 = c * chunk, min(r.shape[1], (c + 1) * chunk)
+        states, s = [], bounds[:, c].float()
+        for t in range(t0, t1):
+            states.append(s)
+            s = wf[:, t, :, :, None] * s \
+                + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        for t in reversed(range(t0, t1)):
+            s = states[t - t0]
+            rt, kt, vt, wt, dt = (x[:, t] for x in (rf, kf, vf, wf, df))
+            dot = (dt * vt).sum(-1, keepdim=True)  # (B, H, 1)
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", s, dt) + uf * kt * dot
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) + rt * uf * dot
+            dv[:, t] = (dt * (rt * uf * kt).sum(-1, keepdim=True)
+                        + torch.einsum("bhij,bhi->bhj", g, kt))
+            dw[:, t] = (g * s).sum(-1)
+            du += (rt * kt * dot).sum(0)
+            g = rt[..., :, None] * dt[..., None, :] + wt[..., :, None] * g
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, g)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -332,6 +433,18 @@ def mamba_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     da = torch.exp(dtf[..., None] * af)  # (B, T, Di, N)
     hs = (dtf * xf)[..., None] * bf[:, :, None, :]  # dBx, then h
     h = state.float()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c, d, state)):
+        # out of place: autograd saves each step's h, which an in-place
+        # step would overwrite (the same numbers: a product, then a sum)
+        steps = []
+        for t in range(x.shape[1]):
+            h = hs[:, t] + da[:, t] * h
+            steps.append(h)
+        if steps:
+            hs = torch.stack(steps, dim=1)
+        y = torch.einsum("btdn,btn->btd", hs, cf) + df * xf
+        return y.to(x.dtype), h
     for t in range(x.shape[1]):
         hs[:, t] += da[:, t] * h
         h = hs[:, t]

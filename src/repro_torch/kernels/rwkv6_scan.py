@@ -50,6 +50,12 @@ HEAD_SIZES = (16, 32, 64)
 SHAPES = {16: (16, 2, 4), 32: (32, 4, 8), 64: (32, 4, 8)}
 CHUNK = 32  # time steps per ring slot, at most
 
+
+def bound_chunk(t: int) -> int:
+    """Steps per chunk of a T-step call: the interval of the boundary
+    states the forward writes for the backward (``return_bounds``)."""
+    return max(1, min(CHUNK, t))
+
 #: kernel calls since import (or since a caller reset it to 0)
 launches = 0
 
@@ -85,7 +91,7 @@ def _plan(b: int, t: int, h: int, n: int, dtype: torch.dtype,
     its blocks at the same chunk."""
     cols, cpt, row_groups = SHAPES[n]
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    chunk = max(1, min(CHUNK, t))
+    chunk = bound_chunk(t)
     ring = 2 if t > chunk else 1
     slot = -(-(chunk * (2 * n * itemsize + 4 * n + cols * itemsize))
              // 16) * 16
@@ -99,7 +105,7 @@ def _plan(b: int, t: int, h: int, n: int, dtype: torch.dtype,
 last_plan: Plan | None = None
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8
+_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8
              + (ctypes.c_void_p,))
 
 
@@ -110,14 +116,17 @@ def _check(cond: bool, msg: str) -> None:
 
 def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                    state_out: torch.Tensor | None = None
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    state_out: torch.Tensor | None = None, *,
+                    return_bounds: bool = False) -> tuple[torch.Tensor, ...]:
     """r, k, v: (B, T, H, N) in one dtype (float32 or bfloat16); w: (B, T,
     H, N) float32 decays; u: (H, N) float32; state: (B, H, N, N) float32;
     all contiguous and 16-byte aligned, N one of ``HEAD_SIZES``.  Returns
     (out (B, T, H, N) in r's dtype, final state (B, H, N, N) float32).
     The final state is written into ``state_out`` when given (it may be
-    ``state`` itself)."""
+    ``state`` itself).  ``return_bounds`` (training) also returns the
+    state before every chunk of ``bound_chunk(T)`` steps, (B, C, H, N, N)
+    float32, C = ceil(T / chunk), which the backward
+    (``rwkv6_scan_bwd``) re-runs each chunk from; serving writes none."""
     global launches, last_plan
     final = torch.empty_like(state) if state_out is None else state_out
     tensors = (r, k, v, w, u, state, final)
@@ -149,15 +158,19 @@ def rwkv6_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = _plan(b, t, h, n, r.dtype, sm_count(r.device.index))
     _check(plan.grid <= 2 ** 31 - 1, "grid too large")
     out = torch.empty_like(r)
+    bounds = (torch.empty((b, -(-t // plan.chunk), h, n, n),
+                          dtype=torch.float32, device=r.device)
+              if return_bounds else None)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         fn = build.entry("rwkv6_scan", "rwkv6_scan_launch", _ARGTYPES)
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                 final.data_ptr(), b, t, h, n, _DTYPES[r.dtype], plan.chunk,
-                 plan.ring, plan.smem, stream)
+                 final.data_ptr(),
+                 None if bounds is None else bounds.data_ptr(), b, t, h, n,
+                 _DTYPES[r.dtype], plan.chunk, plan.ring, plan.smem, stream)
         launches += 1
         last_plan = plan
     if err != 0:
         raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {err}")
-    return out, final
+    return (out, final, bounds) if return_bounds else (out, final)

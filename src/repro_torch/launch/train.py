@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 30 \\
         --batch 8 --seq 1024 [--dtype bfloat16]
+    PYTHONPATH=src python -m repro_torch.launch.train --full \\
+        --arch granite-moe-3b-a800m --batch 8 --seq 1024 \\
+        --micro-batches 8 --dtype bfloat16
 
 The port of ``repro.launch.train``: trains the chosen architecture
 (qwen1.5-0.5b by default; the reduced config unless ``--full``) with
@@ -10,8 +13,12 @@ AdamW, checkpointing, straggler monitoring and deterministic resume, from
 weights drawn from seed 0.  Runs on the card unless ``--device cpu`` is
 given (without a card it raises, as the other launchers do).  ``--dtype``
 is the weights' type (float32, the reference's, or bfloat16; AdamW's m
-and v stay float32).  The reference's ``--devices/--tp`` (a sharded run)
-wait for ``DeviceMesh``: ROADMAP item 15.
+and v stay float32).  Two options are the port's own:
+``--micro-batches`` splits each step's batch for gradient accumulation
+(``TrainConfig.micro_batches``), and ``--n-layers`` cuts the depth of the
+chosen spec (its first layers, at its width).  The reference's
+``--devices/--tp`` (a sharded run) wait for ``DeviceMesh``: ROADMAP item
+15.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ def parse(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true", default=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    ap.add_argument("--micro-batches", type=int, default=1)
+    ap.add_argument("--n-layers", type=int, default=None)
     return ap.parse_args(argv)
 
 
@@ -54,12 +63,15 @@ def make_trainer(args: argparse.Namespace, **kw) -> Trainer:
     dev = resolve_device(args.device)
     spec = (registry.get_reduced(args.arch) if args.reduced
             else registry.get_spec(args.arch))
+    if args.n_layers is not None:
+        spec = spec.scaled(n_layers=args.n_layers)
     model = build_model(spec, device=dev, dtype=DTYPES[args.dtype])
     data_cfg = DataConfig(vocab=spec.vocab, seq_len=args.seq,
                           global_batch=args.batch)
     cfg = TrainConfig(total_steps=args.steps,
                       checkpoint_every=args.checkpoint_every,
                       checkpoint_dir=args.checkpoint_dir,
+                      micro_batches=args.micro_batches,
                       optimizer=AdamWConfig(lr=args.lr, warmup_steps=10,
                                             total_steps=args.steps))
     gen = torch.Generator(device=dev).manual_seed(0)

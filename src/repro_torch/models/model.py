@@ -197,14 +197,11 @@ class Model(nn.Module):
     def _full_pass(self, x: torch.Tensor,
                    positions: torch.Tensor | None) -> torch.Tensor:
         """The stack over (B, S, D) ``x`` with no cache: a Mamba or RWKV
-        layer starts from zero state."""
+        layer starts from zero state and keeps nothing."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        caches = [init_rwkv_cache(self.spec, b, x.device, self.dtype)
-                  if cls.kind == "rwkv6" else None
-                  for cls in T.layer_classes(self.spec)]
-        return self._stack(x, positions, caches)
+        return self._stack(x, positions, [None] * len(self.layers))
 
     def forward(self, tokens: torch.Tensor | None = None, *,
                 embeds: torch.Tensor | None = None,

@@ -75,9 +75,9 @@ def _route(spec: ModelSpec, h: torch.Tensor, router_w: torch.Tensor
 
 def _expert_ffn(spec: ModelSpec, params: MoE, x: torch.Tensor,
                 impl: str) -> torch.Tensor:
-    """Batched per-expert FFN: x (E, C, D) -> (E, C, D).  Each product is
-    rounded to x's dtype, and the activation runs in it, as in the
-    reference."""
+    """Batched per-expert FFN: x, one (C, D) matrix broadcast over the
+    experts, -> (E, C, D).  Each product is rounded to x's dtype, and the
+    activation runs in it, as in the reference."""
     act = activation(spec.act)
     up = ops.expert_gemm(x, params.w_up, impl=impl)
     if spec.act == "swiglu":
@@ -98,8 +98,9 @@ def _moe_dense(spec: ModelSpec, params: MoE, h: torch.Tensor,
     e = params.w_up.shape[0]
     comb = torch.zeros((n, e), dtype=torch.float32, device=h.device)
     comb.scatter_add_(1, ids, weights)  # (N, E) combine weights
-    # the (N, D) tokens broadcast over the experts: a view, no copy
-    outs = _expert_ffn(spec, params, hf.expand(e, n, d), impl)
+    # the (N, D) tokens broadcast over the experts: read through an
+    # expert stride of 0, no copy (and no (E, N, D) gradient)
+    outs = _expert_ffn(spec, params, hf, impl)
     y = torch.einsum("end,ne->nd", outs.float(), comb)
     return y.reshape(h.shape).to(h.dtype)
 

@@ -239,16 +239,21 @@ def _commit(cache: RWKVCache, mask: torch.Tensor | None,
 
 
 def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,
-                cache: RWKVCache, *, mask: torch.Tensor | None = None,
+                cache: RWKVCache | None = None, *,
+                mask: torch.Tensor | None = None,
                 impl: str = "kernel") -> torch.Tensor:
-    """x: (B, T, D) continuing each row from its state in ``cache``.
-    Applies BOTH residuals itself (the channel mix is the layer's FFN) and
-    returns the layer's output; the new state goes into ``cache`` for the
-    rows the (B,) bool ``mask`` selects (None: every row), as the
-    reference's masked ``jnp.where`` keeps the others."""
+    """x: (B, T, D) continuing each row from its state in ``cache`` (None:
+    a full pass from zero state, nothing kept).  Applies BOTH residuals
+    itself (the channel mix is the layer's FFN) and returns the layer's
+    output; the new state goes into ``cache`` for the rows the (B,) bool
+    ``mask`` selects (None: every row), as the reference's masked
+    ``jnp.where`` keeps the others."""
     b, t, d = x.shape
     hs = spec.ssm.head_size
     nh = d // hs
+    keep = cache is not None
+    if not keep:
+        cache = init_rwkv_cache(spec, b, x.device, x.dtype)
 
     # ---- time mix -------------------------------------------------------
     h = rms_norm(x, params.norm_tm)
@@ -266,10 +271,11 @@ def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,
     w = torch.exp(-torch.exp(params.w_bias + w_dyn.float()))
     w = w.reshape(b, t, nh, hs)
     # unmasked, the scan writes its final state into the cache; masked, it
-    # returns the new state for _commit to select
+    # returns the new state for _commit to select; a full pass writes none
+    # (autograd keeps the initial state the scan read)
     wkv, state = kops.rwkv6_scan(
         r, k, v, w, params.u_bonus, cache.wkv,
-        state_out=cache.wkv if mask is None else None, impl=impl)
+        state_out=cache.wkv if keep and mask is None else None, impl=impl)
     # the reference's ln_x: an RMSNorm over the whole width
     wkv = rms_norm(wkv.reshape(b, t, d), params.ln_x)
     x = x + (wkv * F.silu(g)) @ params.wo
@@ -282,6 +288,7 @@ def rwkv6_block(spec: ModelSpec, params: RWKV6, x: torch.Tensor,
     kk = F.relu(kx @ params.cm_key).square()
     y_cm = torch.sigmoid(rx @ params.cm_rec) * (kk @ params.cm_value)
 
-    _commit(cache, mask, h[:, -1:], h2[:, -1:],
-            None if mask is None else state)
+    if keep:
+        _commit(cache, mask, h[:, -1:], h2[:, -1:],
+                None if mask is None else state)
     return x + y_cm

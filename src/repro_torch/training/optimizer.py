@@ -86,6 +86,23 @@ def reference_decay(params: dict[str, torch.Tensor]) -> dict[str, bool]:
             for n, p in params.items()}
 
 
+#: elements of a leaf updated at once: a larger leaf is updated in blocks
+#: of rows, so the update's f32 temporaries stay small (jamba-v0.1-52b's
+#: expert matrices hold 940 M elements, 3.8 GB each temporary in f32)
+UPDATE_BLOCK = 1 << 26
+
+
+def _row_blocks(p: torch.Tensor) -> list:
+    """Index blocks along ``p``'s first axis of at most UPDATE_BLOCK
+    elements each (one row at least; the whole leaf when it is small or
+    a scalar).  The update is elementwise, so the blocks give the same
+    numbers as one pass."""
+    if p.dim() == 0 or p.numel() <= UPDATE_BLOCK:
+        return [...]
+    rows = max(1, UPDATE_BLOCK // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
 def adamw(config: AdamWConfig = AdamWConfig()) -> Optimizer:
     def init(params: dict[str, torch.Tensor]) -> dict[str, Any]:
         def zeros(p):
@@ -108,15 +125,16 @@ def adamw(config: AdamWConfig = AdamWConfig()) -> Optimizer:
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
         decay = reference_decay(params)
         for name, p in params.items():
-            m, v = state["m"][name], state["v"][name]
-            g = grads[name].float() * scale
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).add_(g.square(), alpha=1 - b2)
-            delta = (m / bc1) / ((v / bc2).sqrt() + config.eps)
-            pf = p.float()
-            if decay[name]:  # matrices only (norms/bias exempt)
-                delta = delta + config.weight_decay * pf
-            p.copy_(pf - lr * delta)
+            for rows in _row_blocks(p):
+                m, v = state["m"][name][rows], state["v"][name][rows]
+                g = grads[name][rows].float() * scale
+                m.mul_(b1).add_(g, alpha=1 - b1)
+                v.mul_(b2).add_(g.square(), alpha=1 - b2)
+                delta = (m / bc1) / ((v / bc2).sqrt() + config.eps)
+                pf = p[rows].float()
+                if decay[name]:  # matrices only (norms/bias exempt)
+                    delta = delta + config.weight_decay * pf
+                p[rows] = pf - lr * delta
         state["step"] = step
         return params, state
 

@@ -110,13 +110,18 @@ class Trainer:
     # -- one step ---------------------------------------------------------
     def _grads(self, x: torch.Tensor, t: torch.Tensor
                ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-        """The loss and the gradient of every parameter for one batch."""
+        """The loss and the gradient of every parameter for one batch.  A
+        parameter the loss does not reach (deepseek-moe-16b's shared
+        experts' norm: the shared MLP runs on the block's normed input)
+        gets a zero gradient, as ``jax.value_and_grad`` gives it, and
+        AdamW then treats it as the reference does, decay included."""
         params = list(self.params.values())
         with self._parts.span("forward"):
             loss = self.model.loss(x, t)
         with self._parts.span("backward"):
-            grads = torch.autograd.grad(loss, params)
-        return loss.detach(), list(grads)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(params, grads)]
 
     def _step(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         mb = self.cfg.micro_batches
@@ -133,7 +138,8 @@ class Trainer:
                 for acc, g in zip(grads, gi):
                     acc.add_(g)
             loss = loss / mb
-            grads = [g / mb for g in grads]
+            for g in grads:  # in place: a second f32 copy would not fit
+                g.div_(mb)   # jamba-v0.1-52b's 2 layers on one card
         else:
             loss, grads = self._grads(x, t)
         named = self.errfb(dict(zip(self.params, grads)))

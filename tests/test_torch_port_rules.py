@@ -29,7 +29,7 @@ from repro_torch.core.modelspec import AttnSpec, SSMSpec
 from repro_torch.kernels import (build, decode_attention, expert_gemm,
                                  flash_attention, flash_attention_bwd, ops,
                                  paged_decode_attention, ragged_attention,
-                                 rwkv6_scan)
+                                 ref, rwkv6_scan, rwkv6_scan_bwd)
 from repro_torch.models import build_model
 from repro_torch.launch import serve_chat
 from repro_torch.serving import (DisaggCluster, DisaggClusterConfig,
@@ -140,16 +140,58 @@ def test_training_launchers_default_to_the_card(no_card):
         train_faulty.main(["--steps", "1"])
 
 
-def test_kernels_without_a_backward_refuse_grads():
-    """On the card the expert GEMM and the WKV scan refuse inputs that need
-    a gradient (their backward kernels are ROADMAP item 14b); without a
-    gradient, or under no_grad, nothing is refused."""
-    x = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        ops._no_backward("the expert GEMM", x)
-    with torch.no_grad():
-        ops._no_backward("the expert GEMM", x)
-    ops._no_backward("the expert GEMM", x.detach())
+def test_kernels_without_a_backward_refuse_grads(monkeypatch):
+    """No kernel that training reaches lacks a backward any more: on the
+    card's route a grad-requiring expert GEMM or WKV scan runs through its
+    autograd function, forward and backward both on the CUDA wrappers
+    (stand-ins here that record their calls), never on the plain version;
+    without a gradient, or under no_grad, only the forward runs."""
+    calls = []
+
+    def stand_in(name, fn):
+        def call(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return call
+
+    def fwd_bounds(r, k, v, w, u, state, state_out=None, *,
+                   return_bounds=False):
+        out = ref.rwkv6_fwd_reference(r, k, v, w, u, state,
+                                      chunk=rwkv6_scan.bound_chunk(
+                                          r.shape[1]))
+        return out if return_bounds else out[:2]
+
+    def gemm_bwd(x, w, dy, need_x=True, need_w=True):
+        dx, dw = ref.expert_gemm_bwd_reference(x, w, dy)
+        return (dx if need_x else None), (dw if need_w else None)
+
+    monkeypatch.setattr(ops, "_plain", lambda impl, x, what: impl == "plain")
+    monkeypatch.setattr(ops, "expert_gemm_cuda", stand_in(
+        "gemm", lambda x, w: ref.moe_gemm_reference(x, w)))
+    monkeypatch.setattr(ops, "expert_gemm_bwd_cuda",
+                        stand_in("gemm_bwd", gemm_bwd))
+    monkeypatch.setattr(ops, "rwkv6_scan_cuda", stand_in("wkv", fwd_bounds))
+    monkeypatch.setattr(ops, "rwkv6_scan_bwd_cuda", stand_in(
+        "wkv_bwd", ref.rwkv6_bwd_reference))
+    for grad in (True, False):
+        x = torch.ones((5, 16), requires_grad=grad)
+        w = torch.ones((3, 16, 8), requires_grad=grad)
+        rkvw = [torch.full((2, 3, 4, 16), 0.5, requires_grad=grad)
+                for _ in range(4)]
+        u, s0 = torch.zeros((4, 16)), torch.zeros((2, 4, 16, 16))
+        calls.clear()
+        y = ops.expert_gemm(x, w)
+        out, _ = ops.rwkv6_scan(*rkvw, u, s0)
+        assert calls == ["gemm", "wkv"] and y.shape == (3, 5, 8)
+        if grad:
+            torch.autograd.grad(y.sum() + out.sum(), [x, w, *rkvw])
+            assert calls[2:] == ["wkv_bwd", "gemm_bwd"] \
+                or calls[2:] == ["gemm_bwd", "wkv_bwd"]
+        with torch.no_grad():
+            calls.clear()
+            ops.expert_gemm(x, w)
+            assert calls == ["gemm"]
+    assert not hasattr(ops, "_no_backward")
 
 
 def _cpu_case():
@@ -195,11 +237,19 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
         (decode_attention, lambda: decode_attention.decode_attention_cuda(
             q, kv, kv, lengths=lengths)),
     ]
+    dy = torch.zeros((3, 5, 8))
+    bounds = torch.zeros((2, 1, 4, 16, 16))
+    calls += [
+        (expert_gemm, lambda: expert_gemm.expert_gemm_bwd_cuda(x, w, dy)),
+        (rwkv6_scan_bwd, lambda: rwkv6_scan_bwd.rwkv6_scan_bwd_cuda(
+            rkvw, rkvw, rkvw, rkvw, u, bounds, rkvw, None, chunk=3)),
+    ]
     for module, call in calls:
-        before = module.launches
+        before = module.launches, getattr(module, "bwd_launches", 0)
         with pytest.raises(ValueError, match="must lie on the card"):
             call()
-        assert module.launches == before
+        assert (module.launches, getattr(module, "bwd_launches", 0)) \
+            == before
     assert ops.paged_decode_attention(q, pool, pool, pt, lengths).shape \
         == q.shape
     assert ops.multi_head_attention(q, kv, kv).shape == q.shape
@@ -216,7 +266,7 @@ def test_kernel_build_is_lazy_and_needs_nvcc(monkeypatch):
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     for module in (ragged_attention, paged_decode_attention,
                    flash_attention, expert_gemm, rwkv6_scan,
-                   decode_attention, flash_attention_bwd):
+                   decode_attention, flash_attention_bwd, rwkv6_scan_bwd):
         assert (REPO / module.SOURCE).is_file()
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -253,6 +303,7 @@ def _c_params(source: Path, symbol: str) -> list:
     (rwkv6_scan, "rwkv6_scan_launch"),
     (decode_attention, "decode_attention_launch"),
     (flash_attention_bwd, "flash_attention_bwd_launch"),
+    (rwkv6_scan_bwd, "rwkv6_scan_bwd_launch"),
 ], ids=lambda x: getattr(x, "__name__", str(x)).split(".")[-1])
 def test_wrapper_argtypes_match_the_c_entry_point(module, symbol):
     """Each wrapper binds its C entry point with one ctypes type per C
@@ -275,7 +326,8 @@ def test_cuda_headers_are_hashed_and_jax_free(tmp_path, monkeypatch):
                                             paged_decode_attention,
                                             flash_attention, expert_gemm,
                                             rwkv6_scan, decode_attention,
-                                            flash_attention_bwd)]
+                                            flash_attention_bwd,
+                                            rwkv6_scan_bwd)]
     before = {n: build.digest(n) for n in names}
     tc = copy / "attention_tc.cuh"
     tc.write_text(tc.read_text() + "\n// edited\n")
