@@ -1134,11 +1134,14 @@ def work_rwkv(prof, itemsize):
 
 # expert GEMM backward (training): granite-moe-3b-a800m's experts (E 40,
 # D 1,536 <-> F 512) at its 1,024-token training micro-batch.  A profile
-# is one gradient, one launch of the forward kernel on the operands the
-# wrapper builds: the up/gate products' dX, x broadcast over the experts
-# (one (N, E F) @ (E F, D) product, 20,480 deep), and dW (X^T read through
-# an expert stride of 0); the down product's per-expert dX and dW.
-# Untimed: token counts off the 8-row padding of dW, both gradients.
+# is one gradient, one counted call of the backward (bf16: its own kernel,
+# csrc/expert_gemm_bwd.cu, on the operands as they lie; f32: the forward's
+# kernel on transposed copies): the up/gate products' dX, x broadcast over
+# the experts (summed over their 20,480-deep (expert, F) pairs, in shares
+# when the plan splits it), and dW (X read through an expert stride of 0);
+# the down product's per-expert dX and dW.  Untimed: C = 37 (off the
+# 8-row edge, both gradients), C = 1,000 (past a tile) with F = 200 (the
+# summed dX's last slab of each expert cut at its end) and per expert.
 # library: the one PyTorch call of the same product (torch.bmm, or
 # einsum where x is broadcast).
 GEMM_BWD_PROFILES = {
@@ -1153,6 +1156,9 @@ GEMM_BWD_PROFILES = {
     "ragged_c37_broadcast": dict(e=5, c=37, d=72, f=200, broadcast=True,
                                  grad="xw"),
     "ragged_c37": dict(e=3, c=37, d=200, f=136, broadcast=False, grad="xw"),
+    "c1000_f200_broadcast": dict(e=8, c=1000, d=512, f=200, broadcast=True,
+                                 grad="xw"),
+    "c1000": dict(e=4, c=1000, d=256, f=384, broadcast=False, grad="xw"),
 }
 GEMM_BWD_TIMED = ("granite_dx_broadcast", "granite_dw_broadcast",
                   "granite_dx_down", "granite_dw_down")
@@ -1203,9 +1209,10 @@ def check_gemm_bwd_profile(torch, name, prof):
     against ``ref.expert_gemm_bwd_reference`` on the same inputs, float32
     within F32_ATOL and bfloat16 within one bf16 ulp plus F32_ATOL, each
     relative to the gradient's scale max(1, max |want|); the route (bf16:
-    wgmma, f32: cuda_core) and one backward launch a gradient; in bfloat16
-    the median times of the kernel, the plain backward and the library's
-    product beside the bound."""
+    wgmma, f32: cuda_core) and one backward call a gradient; in bfloat16
+    the plan of each gradient and, in a timed profile, a second launch bit
+    for bit equal to the first and the median times of the kernel, the
+    plain backward and the library's product beside the bound."""
     from repro_torch.kernels import expert_gemm, ref
     res = dict(prof)
     need = dict(need_x="x" in prof["grad"], need_w="w" in prof["grad"])
@@ -1234,8 +1241,18 @@ def check_gemm_bwd_profile(torch, name, prof):
                                  g, w, rtol, scale))
         res[f"max_abs_err_{tag}"] = max(errs)
         if tag == "bf16":
-            res["plan_bf16"] = vars(expert_gemm.last_plan)
+            res["plan_bf16"] = {g: vars(p) for g, p in
+                                expert_gemm.last_bwd_plans.items()}
             if name in GEMM_BWD_TIMED:
+                again = expert_gemm.expert_gemm_bwd_cuda(**case, **need)
+                torch.cuda.synchronize()
+                res["bitwise_equal_bf16"] = all(
+                    g is None or torch.equal(g, h)
+                    for g, h in zip(got, again))
+                if not res["bitwise_equal_bf16"]:
+                    raise AssertionError(f"expert_gemm_bwd/{name}: two bf16 "
+                                         "launches differ")
+                del again
                 res["ms"] = median_ms(
                     torch, lambda: expert_gemm.expert_gemm_bwd_cuda(
                         **case, **need), TIMED_LAUNCHES)
@@ -1665,15 +1682,16 @@ MAX_NEW = 32
 
 class GemmBackward:
     """The expert GEMM's backward as a kernel of its own in the launch
-    counts and the kernels line: the forward's source and entry point,
-    launched by ``expert_gemm_bwd_cuda`` (one launch a gradient) and
-    counted apart from the forward (``bwd_launches``, ``bwd_routes``).
-    The reference differentiates its jnp einsum."""
+    counts and the kernels line: ``csrc/expert_gemm_bwd.cu`` in bf16 (the
+    forward's kernel on transposed copies in f32), called by
+    ``expert_gemm_bwd_cuda`` (one counted call a gradient) and counted
+    apart from the forward (``bwd_launches``, ``bwd_routes``).  The
+    reference differentiates its jnp einsum."""
     REPLACES = "src/repro/kernels/ops.py:102"  # expert_gemm, differentiated
 
     def __init__(self, mod):
         self._mod = mod
-        self.SOURCE = mod.SOURCE
+        self.SOURCE = mod.BWD_SOURCE
 
     @property
     def launches(self):
@@ -4966,9 +4984,10 @@ def main(argv: list[str]) -> int:
 
     mods = kernel_modules()
     # the WKV backward's check runs the forward too; the expert GEMM's
-    # backward is the forward's source
+    # backward runs the forward's source in f32
     wanted = None if only is None else only | (
-        {"rwkv6_scan"} if "rwkv6_scan_bwd" in only else set())
+        {"rwkv6_scan"} if "rwkv6_scan_bwd" in only else set()) | (
+        {"expert_gemm"} if "expert_gemm_bwd" in only else set())
     names = sorted({Path(mod.SOURCE).stem for name, mod in mods.items()
                     if wanted is None or name in wanted})
     t0 = time.perf_counter()

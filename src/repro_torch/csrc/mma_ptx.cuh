@@ -204,9 +204,12 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 // d (64 x N, f32: the m64nN accumulator fragment, N / 2 values a thread)
-// += A (64 x 16, bf16, MN-major: transposed) B (16 x N, bf16, K-major),
-// both read from shared memory through their descriptors
-template <int N>
+// += A (64 x 16, bf16) B (16 x N, bf16), both read from shared memory
+// through their descriptors.  kTA, kTB are wgmma's transpose immediates:
+// 1 reads the operand MN-major (M, or N, contiguous), 0 K-major.  The
+// forward's A is MN-major and its B K-major (the defaults); the backward
+// reads both K-major (dX) or both MN-major (dW).
+template <int N, int kTA = 1, int kTB = 0>
 __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
                                               uint64_t desc_b) {
   static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128
@@ -217,30 +220,30 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
         "%10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -249,7 +252,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
         "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
         "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
         "%30, %31"
-        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -257,7 +260,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -269,7 +272,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
         "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -283,7 +286,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 136) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
@@ -295,7 +298,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
         "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63, %64, %65, %66, %67"
-        "}, %68, %69, p, 1, 1, 1, 0;\n}\n"
+        "}, %68, %69, p, 1, 1, %71, %72;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -310,7 +313,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
           "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 144) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
@@ -323,7 +326,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
         "%70, %71"
-        "}, %72, %73, p, 1, 1, 1, 0;\n}\n"
+        "}, %72, %73, p, 1, 1, %75, %76;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -339,7 +342,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
           "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
           "+f"(d[70]), "+f"(d[71])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 256) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -357,7 +360,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
         "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
         "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 1, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -384,7 +387,7 @@ __device__ __forceinline__ void wgmma_bf16_tn(float* d, uint64_t desc_a,
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(desc_a), "l"(desc_b), "r"(1));
+        : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTA), "n"(kTB));
   }
 
 }

@@ -17,18 +17,25 @@ F issues the products.  The broadcast x of the single-device MoE is read
 from its one copy through an expert stride of 0 (no (E, C, D) copy).  In
 f32 (route ``cuda_core``) the products run on the CUDA cores.
 
-Training's backward (:func:`expert_gemm_bwd_cuda`) runs this same kernel
-on transposed contiguous operands, one launch a gradient; the reference
-differentiates its jnp einsum, so no Pallas backward is replaced.
+Training's backward (:func:`expert_gemm_bwd_cuda`) has a kernel of its own
+in bf16, ``csrc/expert_gemm_bwd.cu``: every operand read where it lies
+(:func:`bwd_products` describes the views, strides and transpose flags it
+hands the launch), a launch that fills the card (:func:`bwd_plan`: the
+summed dX of a broadcast x splits its depth into shares) and one wgmma
+group in flight.  In f32 it runs the forward's CUDA-core kernel on
+transposed contiguous copies.  The reference differentiates its jnp
+einsum, so no Pallas backward is replaced.
 
-:func:`plan` picks the launch from the shapes, the dtype and the SM count
-alone, so a call never reads the card and stays capturable in a CUDA
-graph.  ``launches`` counts the forward's calls that reach the card,
-``bwd_launches`` the backward's, ``routes`` / ``bwd_routes`` the calls of
-each route and ``last_plan`` holds the plan of the last one;
-``chip_smoke.py`` reads them all.  A CPU tensor is refused here:
-:mod:`repro_torch.kernels.ops` routes CPU tensors to the plain version,
-:func:`repro_torch.kernels.ref.moe_gemm_reference`.
+:func:`plan` and :func:`bwd_plan` pick the launch from the shapes, the
+dtype and the SM count alone, so a call never reads the card and stays
+capturable in a CUDA graph.  ``launches`` counts the forward's calls that
+reach the card, ``bwd_launches`` the backward's (one a gradient, whatever
+number of kernels it runs), ``routes`` / ``bwd_routes`` the calls of each
+route and ``last_plan`` holds the plan of the last one (``last_bwd_plans``
+the backward's of each gradient); ``chip_smoke.py`` reads them all.  A
+CPU tensor is refused here: :mod:`repro_torch.kernels.ops` routes CPU
+tensors to the plain versions, :func:`repro_torch.kernels.ref.
+moe_gemm_reference` and ``expert_gemm_bwd_reference``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from .attention_tc import sm_count
 
 SOURCE = "src/repro_torch/csrc/expert_gemm.cu"
 REPLACES = "src/repro/kernels/moe_gemm.py:27"  # _gemm_kernel
+BWD_SOURCE = "src/repro_torch/csrc/expert_gemm_bwd.cu"
 
 # the source's constants (csrc/expert_gemm.cu)
 SLAB = 64  # depth of one ring slot: one 128-byte swizzled row of bf16
@@ -64,10 +72,31 @@ WIDE_F_BLOCKS_PER_SM = 1
 launches = 0
 #: forward calls of each route
 routes = {"wgmma": 0, "cuda_core": 0}
-#: kernel calls of the backward (:func:`expert_gemm_bwd_cuda`: one a
-#: gradient, dX or dW), and of each route
+#: calls of the backward (:func:`expert_gemm_bwd_cuda`: one a gradient,
+#: dX or dW, whatever number of kernels it runs), and of each route
 bwd_launches = 0
 bwd_routes = {"wgmma": 0, "cuda_core": 0}
+
+# the backward's source's constants (csrc/expert_gemm_bwd.cu)
+BWD_TILE_M = 128  # rows of M a block: two consumer warpgroups of 64
+#: wgmma N of a block's tile, widest first
+BWD_WIDTHS = (256, 128, 64)
+BWD_MAX_STAGES = 8
+BWD_THREADS = 384  # two consumer warpgroups and the producer's
+#: most shares of the summed dX's depth (each writes an f32 partial of
+#: the whole (C, D) output)
+BWD_MAX_SHARES = 16
+#: the cost model of :func:`bwd_plan`, in seconds on an H100.  A block's
+#: 64-deep slab of a 128 x 256 tile at a sustained 5.2 TFLOP/s an SM;
+#: narrower tiles cost more a column (their B slab feeds fewer products
+#: per byte of A: at granite's training shapes on an H100, 128-wide tiles
+#: took 1.03-1.09x and 64-wide ones 1.5-1.7x the 256-wide time); the
+#: shares' partials are written and read once at 3.35 TB/s and summed by a
+#: second launch
+BWD_SM_FLOPS = 5.2e12
+BWD_WIDTH_COST = {256: 1.0, 128: 1.15, 64: 1.7}
+BWD_HBM_BYTES = 3.35e12
+BWD_SUM_LAUNCH_S = 4e-6
 
 
 @dataclass(frozen=True)
@@ -168,36 +197,192 @@ def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([a, pad], dim=-2)
 
 
+@dataclass(frozen=True)
+class BwdPlan:
+    """How one gradient runs on the bf16 route.  A tile is BWD_TILE_M rows
+    of M by ``block_n`` columns of N (wgmma's N) over a range of (expert,
+    64-deep slab) pairs, walked through a ring of ``stages`` slots; the
+    ``tiles`` are N tiles x M tiles x ``shares``: one a expert for the
+    per-expert products, else the shares of the summed dX's E * K / 64
+    pairs (share s walks pairs [s P / S, (s + 1) P / S)), whose f32
+    partials a second kernel adds in share order.  ``grid`` is (blocks,
+    1, 1), one block an SM (fewer when there are fewer tiles): block b
+    takes tiles b, b + blocks, ..., and its producer loads the next
+    tile's slabs while the consumers store the last one's (on an H100 6-9%
+    faster than one block a tile at granite's per-expert gradients)."""
+    route: str
+    product: str  # "dx", "dw" or "dx_sum"
+    block_n: int
+    m_tiles: int
+    n_tiles: int
+    shares: int
+    pairs: int
+    tiles: int
+    stages: int
+    smem: int
+    grid: tuple[int, int, int]
+    threads: int
+
+
+def bwd_stage_bytes(block_n: int) -> int:
+    """One ring slot: a 64-deep slab of A (BWD_TILE_M rows) and of B
+    (``block_n`` rows), bf16."""
+    return (BWD_TILE_M + block_n) * SLAB * 2
+
+
+def bwd_plan(product: str, e: int, m: int, n: int, k: int,
+             n_sm: int) -> BwdPlan:
+    """The bf16 launch of one backward product, out^T (M x N) over a depth
+    of K per expert, from the shapes and the SM count alone.
+
+    ``dx`` / ``dw`` (per expert: E shares, one an expert): the tile width
+    whose tiles cost least, ``ceil(tiles / n_sm)`` waves of a tile's width
+    times its BWD_WIDTH_COST, so a last wave that is mostly idle counts
+    as whole.
+    ``dx_sum`` (a broadcast x's dX, summed over the experts): the width and
+    the shares S of the E * ceil(K / 64) pairs whose modelled time, the
+    waves times the longest share's slabs plus the partials' traffic, is
+    least."""
+    if product not in ("dx", "dw", "dx_sum"):
+        raise ValueError(f"unknown backward product {product!r}")
+    m_tiles = -(-m // BWD_TILE_M)
+    pairs = e * -(-k // SLAB)
+    best = None
+    for bn in BWD_WIDTHS:
+        tiles = m_tiles * -(-n // bn)
+        slab_s = (2 * BWD_TILE_M * bn * SLAB / BWD_SM_FLOPS
+                  * BWD_WIDTH_COST[bn])
+        if product == "dx_sum":
+            options = range(1, max(1, min(BWD_MAX_SHARES, pairs)) + 1)
+        else:
+            options = (e,)
+        for shares in options:
+            waves = -(-tiles * shares // n_sm)
+            cost = waves * -(-max(pairs, 1) // shares) * slab_s
+            if product == "dx_sum" and shares > 1:
+                cost += (BWD_SUM_LAUNCH_S
+                         + shares * 8 * m * n / BWD_HBM_BYTES)
+            if best is None or cost < best[0]:
+                best = (cost, bn, shares)
+    _, bn, shares = best
+    slot = bwd_stage_bytes(bn) + 16  # + its two mbarriers
+    stages = min(BWD_MAX_STAGES, (SMEM_LIMIT - ALIGN) // slot)
+    n_tiles = -(-n // bn)
+    tiles = n_tiles * m_tiles * shares
+    return BwdPlan("wgmma", product, bn, m_tiles, n_tiles, shares, pairs,
+                   tiles, stages, ALIGN + stages * slot,
+                   (min(tiles, n_sm), 1, 1), BWD_THREADS)
+
+
+@dataclass(frozen=True)
+class Operand:
+    """One operand of a backward product as the kernel reads it: the
+    caller's own ``tensor`` (never a copy) through a 3-D TMA map of
+    ``dims`` (innermost first, the experts last) whose outer two dims lie
+    ``strides`` elements apart; ``mn_major``: the product reads it with
+    its M (or N) axis contiguous, wgmma's transpose flag."""
+    tensor: torch.Tensor
+    dims: tuple[int, int, int]
+    strides: tuple[int, int]
+    mn_major: bool
+
+
+@dataclass(frozen=True)
+class Product:
+    """One gradient on the bf16 route: out^T (m x n) = A (m x k) B (k x n)
+    per expert, into ``out_shape`` (rows of n, each m contiguous), or
+    summed over the experts (``product == "dx_sum"``)."""
+    grad: str  # "dx" or "dw"
+    product: str  # "dx", "dw" or "dx_sum"
+    a: Operand
+    b: Operand
+    e: int
+    m: int
+    n: int
+    k: int
+    out_shape: tuple[int, ...]
+
+
+def _operand(t: torch.Tensor, mn_major: bool) -> Operand:
+    """``t`` (E, R, X) or (R, X), X contiguous, as a 3-D map (X, R, E)."""
+    if t.dim() == 2:
+        return Operand(t, (t.shape[1], t.shape[0], 1),
+                       (t.stride(0), t.stride(0) * t.shape[0]), mn_major)
+    return Operand(t, (t.shape[2], t.shape[1], t.shape[0]),
+                   (t.stride(1), t.stride(0)), mn_major)
+
+
+def bwd_products(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                 need_x: bool = True, need_w: bool = True) -> list[Product]:
+    """The bf16 route's products, dW first, each read from x, w and dy as
+    they lie (every operand's ``tensor`` is one of the three):
+
+      dW_e: out^T (F x D) = dY_e^T X_e: A dY (E, C, F) MN-major, B X
+            (E, C, D) or one (C, D) for every expert MN-major; k = C
+      dX_e: out^T (D x C) = W_e dY_e^T: A W (E, D, F) K-major, B dY K-major;
+            k = F; summed over the experts for a broadcast (C, D) x"""
+    e, c, f = dy.shape
+    d = w.shape[1]
+    out = []
+    if need_w:
+        out.append(Product("dw", "dw", _operand(dy, True),
+                           _operand(x, True), e, f, d, c, (e, d, f)))
+    if need_x:
+        summed = x.dim() == 2
+        out.append(Product("dx", "dx_sum" if summed else "dx",
+                           _operand(w, False), _operand(dy, False), e, d, c,
+                           f, tuple(x.shape)))
+    return out
+
+
+#: the backward's plan of each gradient in the last bf16 call
+last_bwd_plans: dict[str, BwdPlan] = {}
+
+
 def expert_gemm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                          *, need_x: bool = True, need_w: bool = True
                          ) -> tuple[torch.Tensor | None,
                                     torch.Tensor | None]:
-    """The backward of :func:`expert_gemm_cuda` on the same kernel, on
-    transposed contiguous operands: x (E, C, D), or one (C, D) matrix
-    broadcast over the experts; w (E, D, F); dy (E, C, F) contiguous, all
-    one dtype.  Returns (dx in x's shape, dw (E, D, F)), each None when
-    not asked for, in x's dtype, accumulated in f32:
+    """The backward of :func:`expert_gemm_cuda`: x (E, C, D), or one (C, D)
+    matrix broadcast over the experts; w (E, D, F); dy (E, C, F), all one
+    dtype, each with its last axis contiguous.  Returns (dx in x's shape,
+    dw (E, D, F)), each None when not asked for, in x's dtype, accumulated
+    in f32:
 
-      dW_e = X_e^T dY_e : X^T (E, D, C) @ dY (E, C, F), C padded with zero
-                          rows to a multiple of 8 (the kernel's depth);
-                          a broadcast x's X^T is one (D, C) matrix read
-                          through an expert stride of 0
-      dX_e = dY_e W_e^T : dY (E, C, F) @ W^T (E, F, D)
-      broadcast dX      : [dY_1 .. dY_E] (1, C, E F) @ [W_1^T; ..; W_E^T]
-                          (1, E F, D): the sum over the experts runs in
-                          the product's f32 accumulator, and no (E, C, D)
-                          gradient exists
+      dW_e = X_e^T dY_e,  dX_e = dY_e W_e^T,
+      broadcast dX = sum_e dY_e W_e^T (no (E, C, D) gradient exists)
 
-    Each product is one launch, counted in ``bwd_launches``."""
-    global bwd_launches
-    _check(dy.dim() == 3 and dy.is_contiguous(), "dy (E, C, F) contiguous")
+    bf16 (route ``wgmma``): ``csrc/expert_gemm_bwd.cu`` on the operands as
+    they lie (:func:`bwd_products`), planned by :func:`bwd_plan`.  f32
+    (route ``cuda_core``): the forward's kernel on transposed contiguous
+    copies, C zero-padded to a multiple of 8 for dW and the broadcast dX
+    as one (1, C, E F) @ (1, E F, D) product.  Each gradient is one call,
+    counted in ``bwd_launches``."""
+    global bwd_launches, last_plan
+    _check(dy.dim() == 3, "dy (E, C, F)")
     e, c, f = dy.shape
     d = w.shape[1]
-    _check(tuple(w.shape) == (e, d, f),
+    _check(w.dim() == 3 and tuple(w.shape) == (e, d, f),
            f"w {tuple(w.shape)} does not match dy {tuple(dy.shape)}")
     _check(tuple(x.shape) in ((c, d), (e, c, d)),
            f"x {tuple(x.shape)}: ({c}, {d}) or ({e}, {c}, {d})")
+    _check(x.dtype in _DTYPES, f"dtype {x.dtype} (float32 or bfloat16)")
+    _check(w.dtype == x.dtype == dy.dtype, "x, w and dy must share one dtype")
+    _check(d % 8 == 0 and f % 8 == 0, f"D={d} and F={f} (multiples of 8)")
     dx = dw = None
+    if x.dtype == torch.bfloat16:
+        last_bwd_plans.clear()
+        for prod in bwd_products(x, w, dy, need_x=need_x, need_w=need_w):
+            got, p = _launch_bwd(prod)
+            last_bwd_plans[prod.grad] = last_plan = p
+            if prod.grad == "dx":
+                dx = got
+            else:
+                dw = got
+            bwd_launches += 1
+            bwd_routes[p.route] += 1
+        return dx, dw
+    _check(dy.is_contiguous(), "dy (E, C, F) contiguous")
     if need_w:
         cp = -(-c // 8) * 8
         if x.dim() == 2:  # one (D, C) matrix for every expert
@@ -218,6 +403,57 @@ def expert_gemm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         bwd_launches += 1
         bwd_routes[p.route] += 1
     return dx, dw
+
+
+_BWD_ARGTYPES = ((ctypes.c_void_p,) + (ctypes.c_longlong,) * 5
+                 + (ctypes.c_void_p,) + (ctypes.c_longlong,) * 5
+                 + (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 12
+                 + (ctypes.c_void_p,))
+
+
+def _check_operand(name: str, op: Operand) -> None:
+    t = op.tensor
+    _check(t.stride(-1) == 1,
+           f"{name}: its last axis must be contiguous (strides "
+           f"{t.stride()})")
+    _check(all(s % 8 == 0 for s in op.strides),
+           f"{name}: strides {t.stride()} must be multiples of 8 elements "
+           "(16 bytes, TMA's rule)")
+
+
+def _launch_bwd(prod: Product, p: BwdPlan | None = None
+                ) -> tuple[torch.Tensor, BwdPlan]:
+    """One bf16 gradient on the card, checked; not counted; on ``p``, or
+    on :func:`bwd_plan`'s plan.  The summed dX with shares takes an f32
+    scratch for the partials."""
+    a, b = prod.a, prod.b
+    _check_operand("A", a)
+    _check_operand("B", b)
+    dev = a.tensor.device
+    _check(dev.type == "cuda" and b.tensor.device == dev,
+           "x, w and dy must lie on the card (the CPU takes the plain "
+           "version through repro_torch.kernels.ops)")
+    _check(a.tensor.data_ptr() % 16 == 0 and b.tensor.data_ptr() % 16 == 0,
+           "16-byte aligned x, w and dy")
+    p = p or bwd_plan(prod.product, prod.e, prod.m, prod.n, prod.k,
+                      sm_count(dev.index))
+    _check(p.tiles < 2 ** 31, "too many tiles")
+    out = torch.empty(prod.out_shape, dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((p.shares, prod.n, prod.m), dtype=torch.float32,
+                        device=dev)
+            if prod.product == "dx_sum" and p.shares > 1 else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn = build.entry("expert_gemm_bwd", "expert_gemm_bwd_launch",
+                         _BWD_ARGTYPES)
+        err = fn(a.tensor.data_ptr(), *a.dims, *a.strides,
+                 b.tensor.data_ptr(), *b.dims, *b.strides, out.data_ptr(),
+                 None if part is None else part.data_ptr(), prod.m, prod.n,
+                 prod.k, prod.e, int(a.mn_major), p.block_n, p.m_tiles,
+                 p.n_tiles, p.shares, p.grid[0], p.stages, p.smem, stream)
+    if err != 0:
+        raise RuntimeError(f"expert_gemm_bwd launch failed: CUDA error {err}")
+    return out, p
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, Plan]:

@@ -97,8 +97,9 @@ class ExpertGemm(torch.autograd.Function):
     over the experts, @ w (E, D, F).  The forward saves x and w; the
     backward gives ``dW_e = X_e^T dY_e`` and ``dX_e = dY_e W_e^T``, a
     broadcast x's summed over the experts in the product itself.  On the
-    card (``impl="kernel"``) both are the expert GEMM kernel
-    (:func:`expert_gemm_bwd_cuda`, counted apart from the forward); on the
+    card (``impl="kernel"``) the forward is the expert GEMM kernel and the
+    backward :func:`expert_gemm_bwd_cuda` (in bf16 a kernel of its own,
+    ``csrc/expert_gemm_bwd.cu``; counted apart from the forward); on the
     CPU, or with ``impl="plain"``, ``ref.moe_gemm_reference`` and
     ``ref.expert_gemm_bwd_reference``."""
 

@@ -390,6 +390,9 @@ class ServeEngine:
                 "unified=True supports attention-only stacks; "
                 f"{spec.name!r} has SSM layers whose sequential state has "
                 "no packed-segment forward")
+        if config.unified and spec.attn.kind == "swa":
+            raise ValueError("unified=True has no sliding-window masking in "
+                             "the ragged kernel yet")
         if config.prefix_cache and not config.unified:
             raise ValueError(
                 "prefix_cache=True requires unified=True: shared pages are "
@@ -411,11 +414,6 @@ class ServeEngine:
         validate_engine_sharding(model.full_spec, config)
         self.unified = config.unified
         self.paged = config.cache_layout == "paged"
-        if spec.attn.kind == "swa" and self.unified:
-            raise NotImplementedError(
-                f"sliding-window attention ({spec.name!r}): the unified "
-                "step has no sliding-window masking, as in the reference; "
-                "serve it with cache_layout='dense'")
         if spec.attn.kind == "swa" and self.paged and not model.kv_quant:
             raise NotImplementedError(
                 f"sliding-window attention ({spec.name!r}) in the paged "

@@ -388,7 +388,7 @@ def test_model_and_engine_refuse_unported_architectures():
     base = get_reduced("minitron-8b")
     swa = base.scaled(attn=AttnSpec(kind="swa", window=8))
     model = build_model(swa, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
+    with pytest.raises(ValueError, match="sliding-window"):
         ServeEngine(model, _paged(), device="cpu")
     # Mamba layers are ported: a pure Mamba stack builds, and the engine
     # refuses it only where the reference does (the unified step)

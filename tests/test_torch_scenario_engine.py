@@ -164,7 +164,8 @@ def _refusal(sc, **kw):
 
 
 @pytest.mark.parametrize("case", ["paper-model", "paper-draft",
-                                  "max-slots-1", "ssm", "swa"])
+                                  "max-slots-1", "ssm", "swa",
+                                  "swa-chunked-unified"])
 def test_refusals_carry_the_reference_messages(case):
     sc, kw = {
         "paper-model": (Scenario.make("llama3-70b", use_case="chat",
@@ -176,13 +177,44 @@ def test_refusals_carry_the_reference_messages(case):
             model=treg.get_reduced("rwkv6-3b")), {}),
         "swa": (_scenario("disaggregated").replace(
             model=treg.get_reduced("mistral-7b-swa")), {}),
+        "swa-chunked-unified": (_scenario("chunked", chunked=ChunkedSpec(
+            chunk=4, decode_batch=2)).replace(
+            model=treg.get_reduced("mistral-7b-swa")), dict(unified=True)),
     }[case]
     got, want = _refusal(sc, **kw)
     # the one difference: the registry named is the port's own
     assert got == want.replace("repro.configs", "repro_torch.configs")
     assert {"paper-model": "reduced", "paper-draft": "reduced",
             "max-slots-1": "max_slots", "ssm": "SSM",
-            "swa": "sliding-window"}[case] in got
+            "swa": "sliding-window",
+            "swa-chunked-unified": "ValueError: unified=True has no "
+            "sliding-window"}[case] in got
+
+
+def test_unified_engine_refuses_a_window_as_the_reference_does():
+    """A sliding-window model on the unified step: the port's engine raises
+    the reference's exception type and text, and raises it where the
+    reference does, ahead of the prefix-cache and speculation checks (the
+    config also asks for both, without a draft model)."""
+    from repro.configs.registry import get_reduced as jax_reduced
+    from repro.models import build_model as jax_build_model
+    from repro.serving import EngineConfig as JaxEngineConfig
+    from repro.serving import ServeEngine as JaxServeEngine
+    from repro_torch.serving import EngineConfig, ServeEngine
+    kw = dict(max_slots=2, max_seq=64, page_size=8, chunk_size=8,
+              cache_layout="paged", unified=True, prefix_cache=True,
+              n_spec=2)
+    with pytest.raises(Exception) as ref:
+        JaxServeEngine(jax_build_model(jax_reduced("mistral-7b-swa")), None,
+                       JaxEngineConfig(**kw))
+    with pytest.raises(Exception) as got:
+        ServeEngine(build_model(treg.get_reduced("mistral-7b-swa"),
+                                device="cpu", dtype=torch.float32),
+                    EngineConfig(**kw), device="cpu")
+    assert type(got.value) is type(ref.value) is ValueError
+    assert str(got.value) == str(ref.value) == (
+        "unified=True has no sliding-window masking in the ragged kernel "
+        "yet")
 
 
 @pytest.mark.parametrize("mode", ["monolithic", "chunked", "speculative",
