@@ -1272,14 +1272,18 @@ def check_gemm_bwd_profile(torch, name, prof):
 # WKV scan backward (training): rwkv6-3b's training micro-batch (1 row of
 # 1,024 steps, 40 heads of 64) from a zero state; a partial last chunk (77
 # = 2 x 32 + 13 steps, 2 rows) from a non-zero state with a gradient of
-# the final state; untimed, N 16.  Both backward versions read the plain
+# the final state; untimed, N 16, and the partial chunk again with decays
+# exp(-exp(x)) for x in [-8, 3] (`edge`: decays near 0 and 1, whose
+# products over a chunk underflow).  Both backward versions read the plain
 # forward's chunk-boundary states; the forward kernel's own (return_bounds)
 # are held against them, and its out and final state with them against
-# those of a call without them, bit for bit.  No PyTorch call computes it.
+# those of a call without them, bit for bit; a second bf16 launch must
+# equal the first bit for bit.  No PyTorch call computes it.
 RWKV_BWD_PROFILES = {
     "train": dict(b=1, t=1024),
     "partial_state": dict(b=2, t=77, state=True),
     "n16": dict(b=2, t=45, h=4, n=16, state=True),
+    "edge": dict(b=2, t=77, state=True, decay="edge"),
 }
 RWKV_BWD_TIMED = ("train", "partial_state")
 
@@ -1329,8 +1333,8 @@ def check_rwkv_bwd_profile(torch, name, prof):
     ``ref.rwkv6_bwd_reference`` on the same inputs and boundary states;
     the forward kernel's boundary states within F32_ATOL of the plain
     ones, its out and final state equal to a call without them; in
-    bfloat16 the kernel's and the plain backward's median times beside
-    the bound."""
+    bfloat16 a second launch equal to the first bit for bit, and the
+    kernel's and the plain backward's median times beside the bound."""
     from repro_torch.kernels import ref, rwkv6_scan, rwkv6_scan_bwd
     res = dict(prof)
     fwd = ("r", "k", "v", "w", "u", "state")
@@ -1368,6 +1372,15 @@ def check_rwkv_bwd_profile(torch, name, prof):
         res[f"max_abs_err_{tag}"] = max(errs)
         if tag == "bf16":
             res["plan_bf16"] = vars(rwkv6_scan_bwd.last_plan)
+            again = rwkv6_scan_bwd.rwkv6_scan_bwd_cuda(*args,
+                                                       chunk=case["chunk"])
+            torch.cuda.synchronize()
+            res["bitwise_equal_bf16"] = all(
+                torch.equal(g, h) for g, h in zip(got, again))
+            if not res["bitwise_equal_bf16"]:
+                raise AssertionError(f"rwkv6_scan_bwd/{name}: two bf16 "
+                                     "launches differ")
+            del again
             if name in RWKV_BWD_TIMED:
                 res["ms"] = median_ms(
                     torch, lambda: rwkv6_scan_bwd.rwkv6_scan_bwd_cuda(

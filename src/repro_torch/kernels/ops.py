@@ -152,10 +152,17 @@ class RWKV6Scan(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros_like(r)
         bwd = ref.rwkv6_bwd_reference if ctx.plain else rwkv6_scan_bwd_cuda
-        grads = bwd(r, k, v, w, u, bounds, dout.contiguous(),
-                    None if dstate is None else dstate.contiguous(),
+        grads = bwd(r, k, v, w, u, bounds, _aligned(dout),
+                    None if dstate is None else _aligned(dstate),
                     chunk=ctx.chunk)
         return (*grads, None)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and 16-byte aligned (the kernels move rows in 16-byte
+    vectors): itself when it is, else a copy."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _needs_grad(*xs: torch.Tensor) -> bool:

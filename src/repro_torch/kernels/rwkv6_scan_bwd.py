@@ -8,17 +8,25 @@ scan (``rwkv6_scan``, ``src/repro/kernels/ops.py:153``), each chunk of
 micro-batch, after the forward kernel has written the state before every
 chunk of ``rwkv6_scan.bound_chunk(T)`` steps.
 
-What bounds it on the H100: the f32 issue rate of a walk that is serial
-over time, about 7 instructions per state element and step (the
-recompute's update, four gradient sums and the update of the state's
-gradient G), with the row sums of dr, dk and dw across lanes.  The design:
-the forward's block (``rwkv6_scan.SHAPES``: ``cols`` columns of one (row,
-head), G's columns in registers); each chunk, last first, re-runs forward
-from its boundary state into a per-thread scratch (never inverting the
-decays); dv sums over the block's rows in shared memory; dr, dk and dw,
-which sum over all N columns and so across the blocks of a head, and du,
-which sums over B and T, go through partials and two more passes in a
-fixed order (no atomics).  Three launches make one call.
+What bounds it on the H100: the f32 work on the CUDA cores, about 14 N^2
+operations a step, row and head, and the shared memory and shuffles that
+feed it; the bytes are small.  Only the state gradient G is serial over
+the whole sequence, and across a chunk it is affine, G_in = L_c + P_c G_out
+(L_c the chunk's walk from a zero gradient, P_c its decays' product a
+row), so one call is three stages that each fill the card: ``local``
+(a block per (row, head, chunk): L_c as one product of prefix-scaled r
+and dout, P_c, the chunk's share of du), ``carry`` (a thread per
+CARRY_VEC state elements, serial over the chunks only; it also adds du's
+shares), and ``walk`` (a block per (row, head, chunk) over the whole
+state, of the shape ``WALK`` gives: the chunk re-run forward from the
+forward's boundary state, the state every ``seg`` steps kept in
+registers, each ``sub``-step sub-chunk's states re-run into shared memory
+and walked back from the carried gradient; row sums by shuffles, column
+sums by warp partials, both inside the block).  The three launches are
+chained by programmatic dependent launch, each waiting for the one
+before only where it reads that one's output.  It never divides by a
+decay (w = exp(-exp(x)) reaches 0), and every sum has a fixed order with
+no atomics, so two launches on the same inputs agree bit for bit.
 
 ``launches`` counts calls that reach the card and ``last_plan`` holds the
 plan of the last one; ``chip_smoke.py`` reads both.  A CPU tensor is
@@ -34,12 +42,21 @@ from dataclasses import dataclass
 import torch
 
 from . import build
-from .rwkv6_scan import CHUNK, HEAD_SIZES, SHAPES, bound_chunk
+from .rwkv6_scan import CHUNK, HEAD_SIZES, bound_chunk
 
 SOURCE = "src/repro_torch/csrc/rwkv6_scan_bwd.cu"
 REPLACES = "src/repro/kernels/ops.py:153"  # rwkv6_scan, differentiated
 
-TILE = 32  # steps per block of the combine pass (the source's kTile)
+# the source's constants (tests/test_torch_wkv_bwd_plan.py compares them)
+LANES = 16  # threads across a row of the state (kLanes)
+LOCAL_THREADS = 256  # a block of the local stage (kLocalThreads)
+CARRY_THREADS = 256  # a block of the carry stage (kCarryThreads)
+CARRY_VEC = 4  # adjacent state elements a carry thread (kCarryVec)
+#: the walk's block of each head size, as the source's Walk<N> fixes it:
+#: (rows a thread holds, threads, sub-chunk steps kept in shared memory,
+#: steps between the states kept in registers, blocks an SM); a thread
+#: holds n / LANES adjacent columns of each of its rows
+WALK = {16: (1, 256, 8, 8, 1), 32: (2, 256, 8, 8, 1), 64: (4, 256, 4, 8, 2)}
 
 #: kernel calls since import (or since a caller reset it to 0)
 launches = 0
@@ -47,40 +64,58 @@ launches = 0
 
 @dataclass(frozen=True)
 class Plan:
-    """How one call runs: the walk's ``grid`` blocks of ``threads``
-    (``cols`` columns of one (row, head) each) with ``smem`` bytes of
-    dynamic shared memory over chunks of ``chunk`` steps; the combine
-    pass's ``tiles`` blocks of TILE steps per (row, head); and the f32
-    scratch the wrapper allocates, ``scratch_bytes`` in all."""
+    """How one call runs: the forward's ``chunk`` and the ``chunks`` of
+    the call; the local stage's ``local_grid`` blocks of LOCAL_THREADS
+    with ``local_smem`` bytes of dynamic shared memory; the carry's
+    ``carry_grid`` blocks of CARRY_THREADS; the walk's ``walk_grid``
+    blocks of ``walk_threads``, each thread ``rows`` x ``cols`` of the
+    state, ``sub``-step sub-chunks of states in ``walk_smem`` bytes of
+    shared memory, the states every ``seg`` steps in registers,
+    ``walk_blocks_per_sm`` blocks an SM; and the f32 scratch the wrapper
+    allocates (L_c, then G_out(c), a chunk; P_c and du's shares),
+    ``scratch_bytes`` in all."""
     chunk: int
+    chunks: int
+    local_grid: int
+    local_smem: int
+    carry_grid: int
+    walk_grid: int
+    walk_threads: int
+    rows: int
     cols: int
-    grid: int
-    threads: int
-    smem: int
-    tiles: int
+    sub: int
+    seg: int
+    walk_smem: int
+    walk_blocks_per_sm: int
     scratch_bytes: int
 
 
 def _plan(b: int, t: int, h: int, n: int) -> Plan:
     """The launch plan from the shapes alone, as the source computes it:
-    shared memory for CHUNK steps of r, k, w (whole rows) and v, dout (the
-    block's columns) in f32, a bonus per step and the dv partials
-    [chunk][row_groups][cols]."""
-    cols, cpt, row_groups = SHAPES[n]
-    grid = b * h * (n // cols)
-    tiles = -(-t // TILE)
-    smem = 4 * CHUNK * (3 * n + 2 * cols + 1 + row_groups * cols)
-    scratch = 4 * (grid * CHUNK * n * cols + 3 * (n // cols) * b * t * h * n
-                   + b * tiles * h * n)
-    return Plan(bound_chunk(t), cols, grid, row_groups * cols // cpt, smem,
-                tiles, scratch)
+    a block per (row, head, chunk) in the local and walk stages, a thread
+    per CARRY_VEC state elements (and per (head, i) for du) in the carry; shared
+    memory for CHUNK steps of r, k, w, v and dout in f32, and in the walk
+    the sub-chunk's states [sub][n][n], the warps' dv partials
+    [sub][warps][n], u and two sums a step."""
+    rows, threads, sub, seg, per_sm = WALK[n]
+    chunk = bound_chunk(t)
+    chunks = -(-t // chunk)
+    items = b * h * chunks
+    local_smem = 4 * (5 * CHUNK * n + CHUNK)
+    walk_smem = 4 * (5 * CHUNK * n + sub * n * n + sub * (threads // 32) * n
+                     + n + 2 * CHUNK)
+    carry_grid = (-(-(b * h * n * n) // (CARRY_THREADS * CARRY_VEC))
+                  + -(-(h * n) // CARRY_THREADS))
+    scratch = 4 * (items * n * n + 2 * items * n)
+    return Plan(chunk, chunks, items, local_smem, carry_grid, items, threads,
+                rows, n // LANES, sub, seg, walk_smem, per_sm, scratch)
 
 
 #: the plan of the last call (``chip_smoke.py`` prints it)
 last_plan: Plan | None = None
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ((ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 7
+_ARGTYPES = ((ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 8
              + (ctypes.c_void_p,))
 
 
@@ -131,13 +166,15 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(dstate is None or tuple(dstate.shape) == (b, h, n, n),
            f"dstate {None if dstate is None else tuple(dstate.shape)}")
     _check(all(x.is_contiguous() for x in given), "contiguous tensors")
+    _check(all(x.data_ptr() % 16 == 0 for x in given),
+           "16-byte aligned tensors (rows and the state move in vectors)")
     plan = _plan(b, t, h, n)
-    _check(plan.grid <= 2 ** 31 - 1 and b * h * plan.tiles <= 2 ** 31 - 1,
+    _check(plan.walk_grid <= 2 ** 31 - 1 and plan.carry_grid <= 2 ** 31 - 1,
            "grid too large")
     f32 = dict(dtype=torch.float32, device=r.device)
-    hist = torch.empty((plan.grid * CHUNK * n * plan.cols,), **f32)
-    part = torch.empty((3 * (n // plan.cols) * b * t * h * n,), **f32)
-    du_part = torch.empty((b * plan.tiles * h * n,), **f32)
+    carry = torch.empty((b, plan.chunks, h, n, n), **f32)
+    decay = torch.empty((b, plan.chunks, h, n), **f32)
+    du_part = torch.empty((b, plan.chunks, h, n), **f32)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     du = torch.empty_like(u)
@@ -149,10 +186,11 @@ def rwkv6_scan_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), bounds.data_ptr(), dout.data_ptr(),
                  None if dstate is None else dstate.data_ptr(),
-                 hist.data_ptr(), part.data_ptr(), du_part.data_ptr(),
+                 carry.data_ptr(), decay.data_ptr(), du_part.data_ptr(),
                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
                  du.data_ptr(), dstate0.data_ptr(), b, t, h, n,
-                 _DTYPES[r.dtype], chunk, plan.smem, stream)
+                 _DTYPES[r.dtype], chunk, plan.local_smem, plan.walk_smem,
+                 stream)
         launches += 1
         last_plan = plan
     if err != 0:
