@@ -53,10 +53,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                                x broadcast over the experts) and down
                                products, the decode-only step's (C=8), the
                                mixed shape with distinct per-expert x, and
-                               two ragged cases (C, D, F off the tiles);
-                               untimed, C=1, C=600 broadcast (three C
-                               tiles) and granite-moe-3b-a800m's mixed
-                               up/gate (E=40, D=1536, F=512); each line
+                               two ragged cases (C, D, F off the tiles),
+                               jamba's four, and an expert-parallel
+                               rank's buffer (ep_local, ep_local_down:
+                               E=20, C=512, D=1536 <-> F=512, each
+                               expert's own tokens); untimed, C=1,
+                               C=600 broadcast (three C tiles) and
+                               granite-moe-3b-a800m's mixed up/gate
+                               (E=40, D=1536, F=512); each line
                                names the route (bf16: wgmma; f32:
                                cuda_core) and the bf16 launch plan, and
                                the build line gives ptxas's registers,
@@ -99,8 +103,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                                1,024 x 20,480 x 1,536 product) and dW, the
                                down product's per-expert dX and dW, each
                                timed beside torch.bmm (einsum where x is
-                               broadcast); untimed, 37 tokens (dW's depth
-                               padded to 40), both gradients
+                               broadcast), and the four gradients of an
+                               expert-parallel rank's buffer (E 20, C
+                               512, x per expert: ep_dx_up, ep_dw_up,
+                               ep_dx_down, ep_dw_down); untimed, 37
+                               tokens (dW's depth padded to 40), both
+                               gradients
                   WKV backward rwkv6-3b's training micro-batch (1 row x
                                1,024 steps) from a zero state, a partial
                                chunk (77 steps, 2 rows) from a non-zero
@@ -435,6 +443,40 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 2 x 1,024 tokens a step: the expert GEMM 3 and its backward
                 6 a micro-batch; the Mamba scan plain torch; the cut of
                 depth and its bytes on the line
+  mesh_parity   mesh-sharded training (build_model(mesh=), two gloo
+                ranks sharing the card, f32, granite-moe-3b-a800m's widths
+                at 2 layers, 2 x 256 tokens, every model from seed 0):
+                against the single-rank model's loss and step-0 gradients,
+                the (data 1, model 2) mesh expert-parallel at capacity 8.0
+                through the kernels (tokens partitioned over the ranks and
+                not) and through the plain versions, and the (data 2,
+                model 1) mesh: loss within 1e-5 relative, gradients within
+                1e-4 of each leaf's own scale (max |g|) on the rank's
+                slices, each leaf's scale and error on the line; the
+                kernel runs' launches exact (flash and its
+                backward 1 a layer, the expert GEMM 3 and its backward 6 a
+                MoE layer, CUDA-core routes), 2 all-to-alls forward and 2
+                backward a MoE layer, no drop; at capacity 1.25 each rank's
+                drops and loss recorded
+  train_mesh    launch/train.py's --devices 2 --tp 2 code path
+                (make_trainer(mesh=), Trainer.run) on two gloo ranks
+                sharing the card: granite-moe-3b-a800m's first 4 of 32
+                layers at full width, bf16 weights (m and v f32), a (data
+                1, model 2) mesh (12 of 24 heads over 4 of 8 KV heads and
+                20 of 40 experts a rank), 2 x 1,024 tokens a step, 3 steps,
+                capacity 1.25 with the tokens partitioned over the two
+                ranks before routing (moe_partition_tokens, as the
+                reference's dryrun runs its MoE cells: both ranks then
+                train the same replicated weights; E_local 20, C_cap 512);
+                on each rank the launches exact (flash and its
+                backward once a layer and step on tensor cores and wgmma,
+                the expert GEMM 3 and its backward 6 a MoE layer and step
+                on wgmma), the token all-to-alls 2 forward and 2 backward a
+                MoE layer and step, the losses finite, the gathered last
+                checkpoint committed; each rank's line: losses, ms a step
+                by part, each collective's host ms apart, drops, peak
+                memory, and its label: two ranks on one card measure
+                nothing of collectives across cards
 
 A replay does not run the kernel wrappers: the step graph adds each
 capture's launch counts on every replay, so the counts above hold on both
@@ -768,10 +810,16 @@ GEMM_PROFILES = {
                                broadcast=False),
     "jamba_decode": dict(e=16, c=8, d=4096, f=14336, broadcast=True),
     "jamba_decode_down": dict(e=16, c=8, d=14336, f=4096, broadcast=False),
+    # an expert-parallel rank's buffer (train_mesh): granite-moe-3b-a800m's
+    # 40 experts over 2 ranks (E_local 20), C_cap 512 (2 x 1,024 tokens
+    # partitioned over the 2 ranks, top-8 at capacity 1.25), each expert's
+    # own tokens: up/gate and down
+    "ep_local": dict(e=20, c=512, d=1536, f=512, broadcast=False),
+    "ep_local_down": dict(e=20, c=512, d=512, f=1536, broadcast=False),
 }
 GEMM_TIMED = ("mixed", "mixed_down", "decode", "decode_down",
               "jamba_prefill", "jamba_prefill_down", "jamba_decode",
-              "jamba_decode_down")
+              "jamba_decode_down", "ep_local", "ep_local_down")
 
 
 def make_gemm_case(torch, prof, dtype, seed):
@@ -1159,9 +1207,20 @@ GEMM_BWD_PROFILES = {
     "c1000_f200_broadcast": dict(e=8, c=1000, d=512, f=200, broadcast=True,
                                  grad="xw"),
     "c1000": dict(e=4, c=1000, d=256, f=384, broadcast=False, grad="xw"),
+    # the expert-parallel rank's buffer (E_local 20, C_cap 512): every
+    # product's x is per expert, so both dX are per expert too
+    "ep_dx_up": dict(e=20, c=512, d=1536, f=512, broadcast=False,
+                     grad="x"),
+    "ep_dw_up": dict(e=20, c=512, d=1536, f=512, broadcast=False,
+                     grad="w"),
+    "ep_dx_down": dict(e=20, c=512, d=512, f=1536, broadcast=False,
+                       grad="x"),
+    "ep_dw_down": dict(e=20, c=512, d=512, f=1536, broadcast=False,
+                       grad="w"),
 }
 GEMM_BWD_TIMED = ("granite_dx_broadcast", "granite_dw_broadcast",
-                  "granite_dx_down", "granite_dw_down")
+                  "granite_dx_down", "granite_dw_down", "ep_dx_up",
+                  "ep_dw_up", "ep_dx_down", "ep_dw_down")
 
 
 def make_gemm_bwd_case(torch, prof, dtype, seed):
@@ -4936,6 +4995,335 @@ def phase_train_stack(torch, phase) -> dict:
     free(torch)
     return counts
 
+# ---------------------------------------------------------------------------
+# mesh_parity, train_mesh: mesh-sharded training, two ranks on one card
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "granite-moe-3b-a800m"
+#: mesh_parity: f32, granite's widths at 2 layers, 2 x 256 tokens (at
+#: capacity 8.0 each all-to-all carries 16,384 f32 rows of 1,536 a rank
+#: through host memory; at 2 x 1,024 the phase took 48 s on an H100's
+#: host, at 2 x 256 the shapes still cover every path)
+MESH_PARITY = dict(n_layers=2, batch=2, seq=256)
+#: train_mesh: bf16 weights (m and v f32), granite's first 4 of 32 layers
+#: at full width, a (data 1, model 2) mesh, 2 x 1,024 tokens a step
+TRAIN_MESH = dict(n_layers=4, steps=3, batch=2, seq=1024, lr=1e-3)
+MESH_NOTE = ("two ranks share one card over gloo, which stages every "
+             "collective through host memory: not a measure of collectives "
+             "across cards")
+
+
+def _shard_line(shard) -> dict:
+    """How a mesh rank's shard splits the model."""
+    return dict(tp=shard.tp, ffn_tp=shard.ffn_tp, head_tp=shard.head_tp,
+                ep=shard.ep, shared_tp=shard.shared_tp)
+
+
+def _dispatch_line(calls) -> dict:
+    """The geometry and the summed drops of recorded EP calls."""
+    if not calls:
+        return {}
+    return dict(partition=calls[0]["partition"], c_send=calls[0]["c_send"],
+                c_cap=calls[0]["c_cap"],
+                assignments=sum(c["assignments"] for c in calls),
+                dropped_send=sum(int(c["dropped_send"]) for c in calls),
+                dropped_expert=sum(int(c["dropped_expert"]) for c in calls))
+
+
+def _rank_mesh_parity():
+    """One rank of mesh_parity (f32, MESH_ARCH's widths at 2 layers, 2 x
+    256 tokens, every model from seed 0, so that a mesh rank holds the
+    slices of the single-rank model's weights): the single-rank model's
+    loss and step-0 gradients (the dense MoE route) against, on this
+    rank's slices, the (data 1, model 2) mesh model's through the kernels
+    at capacity 8.0 (expert-parallel, no drop; the tokens routed whole on
+    each rank, and partitioned over the ranks), the same through the plain
+    versions, the (data 2, model 1) mesh model's, and the expert-parallel
+    model's at capacity 1.25 (drops recorded).  Returns each run's loss,
+    each leaf's scale (max |g| of the rank's slice of the single-rank
+    gradient) and error over it, the worst leaf, launches, routes and
+    collectives."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_spec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    _rank_setup(torch)
+    spec = get_spec(MESH_ARCH).scaled(n_layers=MESH_PARITY["n_layers"])
+    batch = TokenPipeline(DataConfig(
+        vocab=spec.vocab, seq_len=MESH_PARITY["seq"],
+        global_batch=MESH_PARITY["batch"])).batch_at(0)
+    x, t = (torch.from_numpy(batch[k]).to(DEV) for k in ("x", "targets"))
+
+    def loss_grads(model):
+        model.requires_grad_(True)
+        loss = model.loss(x, t)
+        names, leaves = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out = {n: torch.zeros_like(p) if g is None else g
+               for n, p, g in zip(names, leaves, grads)}
+        if model.mesh is not None:  # the data ranks' shares
+            axes = model.batch_axes(x.shape[0])
+            out = {n: model.mesh.all_reduce(g, axes) for n, g in out.items()}
+        return float(loss.detach()), out
+
+    single = build_model(spec, DEV, torch.float32, seed=0)
+    ref_loss, ref_g = loss_grads(single)
+    del single
+    free(torch)
+    out = dict(rank=dist.get_rank(), single_loss=ref_loss)
+
+    def run(what, shape, impl, cf, partition=False):
+        mesh = make_mesh(shape, ("data", "model"), DEV)
+        model = build_model(spec, DEV, torch.float32, seed=0, mesh=mesh,
+                            policy="train_2d")
+        model.kernel_impl = impl
+        model.moe_capacity_factor = cf
+        model.moe_partition_tokens = partition
+        model.dispatch_log = calls = []
+        reset_launches()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        loss, g = loss_grads(model)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        places = model.param_placements()
+        leaves = {}
+        for n, v in g.items():
+            want = places[n].local(ref_g[n])
+            scale = float(want.abs().max())
+            leaves[n] = (scale, float((v - want).abs().max())
+                         / max(scale, 1e-30))
+        worst = max(leaves, key=lambda n: leaves[n][1])
+        out[what] = dict(
+            mesh=dict(mesh.shape), impl=impl, capacity_factor=cf,
+            partition_tokens=partition, loss=loss,
+            loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
+            max_grad_err_of_scale=leaves[worst][1], worst_leaf=worst,
+            worst_leaf_scale=leaves[worst][0],
+            leaf_scale_and_err=leaves, launches=read_launches(),
+            routes={k: v for k, v in read_routes().items() if any(v.values())},
+            collectives=dict(mesh.stats["calls"]), seconds=seconds,
+            shard=_shard_line(model.shard), **_dispatch_line(calls))
+        del model, g
+        free(torch)
+
+    run("ep_kernel", (1, 2), "kernel", 8.0)
+    run("ep_part", (1, 2), "kernel", 8.0, partition=True)
+    run("ep_plain", (1, 2), "plain", 8.0)
+    run("data2", (2, 1), "kernel", 8.0)
+    run("ep_drops", (1, 2), "kernel", 1.25)
+    return out
+
+
+def phase_mesh_parity(torch) -> list[dict]:
+    """mesh_parity (``_rank_mesh_parity`` on two gloo ranks sharing the
+    card): against the single-rank model, the expert-parallel mesh
+    through the kernels (tokens whole and partitioned) and through the
+    plain versions and the data mesh: loss within 1e-5 relative, step-0
+    gradients within 1e-4 of each leaf's own scale; the kernel runs
+    launch exactly flash 1 and its backward 1 per layer, the expert GEMM
+    3 and its backward 6 per MoE layer, all on the f32 CUDA-core routes,
+    the plain run none; their all-to-alls 2 forward and 2 backward per MoE
+    layer, with no drop at capacity 8.0; at 1.25 the drops and the loss
+    are recorded.  Returns each rank's kernel-run launches."""
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_mesh_parity)
+    from repro_torch.configs import get_spec
+    spec = get_spec(MESH_ARCH).scaled(n_layers=MESH_PARITY["n_layers"])
+    n_moe = sum(spec.moe.is_moe_layer(i) for i in range(spec.n_layers))
+    want = train_launches(spec, 1)
+    launches = []
+    for r in ranks:
+        what = f"mesh_parity rank {r['rank']}"
+        for run in ("ep_kernel", "ep_part", "ep_plain", "data2"):
+            got = r[run]
+            if got["loss_rel_err"] > 1e-5 \
+                    or got["max_grad_err_of_scale"] > 1e-4:
+                raise AssertionError(f"{what} {run}: loss off by "
+                                     f"{got['loss_rel_err']}, "
+                                     f"{got['worst_leaf']} by "
+                                     f"{got['max_grad_err_of_scale']} of "
+                                     f"its scale {got['worst_leaf_scale']}")
+        _expect(f"{what} ep_plain", r["ep_plain"]["launches"], {})
+        for run, partition in (("ep_kernel", False), ("ep_part", True)):
+            k = r[run]
+            _expect(f"{what} {run}", k["launches"], want)
+            for kernel, n in want.items():
+                routes = k["routes"][kernel]
+                if routes["cuda_core"] != n or sum(routes.values()) != n:
+                    raise AssertionError(f"{what} {run}: {kernel} routes "
+                                         f"{routes}, expected all {n} on "
+                                         "cuda_core")
+            a2a = (k["collectives"].get("all_to_all"),
+                   k["collectives"].get("all_to_all_bwd"))
+            if a2a != (2 * n_moe, 2 * n_moe) or k["dropped_send"] \
+                    or k["dropped_expert"] or k["partition"] != partition:
+                raise AssertionError(f"{what} {run}: all-to-alls {a2a}, "
+                                     f"drops {k['dropped_send']}, "
+                                     f"{k['dropped_expert']} at capacity "
+                                     f"8.0, partition {k['partition']}")
+            launches.append(k["launches"])
+        launches.append(r["data2"]["launches"])
+        launches.append(r["ep_drops"]["launches"])
+        emit("mesh_parity", arch=MESH_ARCH, dtype="float32",
+             n_layers=spec.n_layers, batch=MESH_PARITY["batch"],
+             seq=MESH_PARITY["seq"], label=MESH_NOTE, **r)
+    emit("mesh_parity_phase", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def _rank_train_mesh(argv):
+    """One rank of train_mesh: launch/train.py's code path for a
+    ``--devices 2 --tp 2`` run (``make_trainer(args, mesh=)``, then
+    ``Trainer.run``, its last checkpoint gathered and written by rank 0)
+    on the (data 1, model 2) mesh; returns the history, launches, routes,
+    the mesh's collectives (calls, bytes, seconds by tag), the EP
+    geometry and drops, and peak memory."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+
+    _rank_setup(torch)
+    args = train.parse(argv)
+    with tempfile.TemporaryDirectory() as d:
+        if dist.get_rank() == 0:
+            ckpt = [d]
+        else:
+            ckpt = [None]
+        dist.broadcast_object_list(ckpt, src=0)
+        args.checkpoint_dir = ckpt[0]
+        mesh = make_mesh((args.devices // args.tp, args.tp),
+                         ("data", "model"), DEV)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = train.make_trainer(args, mesh=mesh)
+        # the reference's dryrun runs its MoE cells so: both model ranks
+        # then train one set of replicated weights
+        tr.model.moe_partition_tokens = True
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_launches()
+        mesh.reset_stats()
+        tr.model.dispatch_log = calls = []
+        t0 = time.perf_counter()
+        tr.run(0, args.steps)  # waits for the last checkpoint's write
+        run_s = time.perf_counter() - t0
+        ckpt_step = tr.ckpt.latest_step()
+        dist.barrier()  # rank 0's temporary directory outlives the read
+    stats = {k: dict(v) for k, v in mesh.stats.items()}
+    return dict(rank=dist.get_rank(), coords=dict(mesh.coords),
+                history=tr.history, launches=read_launches(),
+                routes=read_routes(), collectives=stats,
+                dispatch=_dispatch_line(calls), build_s=build_s,
+                run_s=run_s, checkpoint_step=ckpt_step,
+                shard=_shard_line(tr.model.shard),
+                params=sum(p.numel() for p in tr.model.parameters()),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_train_mesh(torch) -> list[dict]:
+    """train_mesh (``_rank_train_mesh`` on two gloo ranks sharing the card):
+    on each rank the losses finite, the last checkpoint committed, and the
+    launches exact: flash and its backward once per layer and step, the
+    expert GEMM 3 and its backward 6 per MoE layer and step, on the bf16
+    tensor-core routes (flash forward tensor_core, its backward and the
+    expert GEMM wgmma), every other kernel 0; the token all-to-alls 2
+    forward and 2 backward per MoE layer and step, the tokens partitioned
+    over the ranks, so that both train one set of replicated weights and
+    their losses agree.  Each rank's line: the
+    loss each step, ms a step by part (CUDA events: forward, backward,
+    the data gradient sum, optimizer), the host seconds of each
+    collective apart, the EP buffers' geometry and drops, peak memory.
+    Returns each rank's launches."""
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    cfg = TRAIN_MESH
+    argv = ["--full", "--arch", MESH_ARCH, "--steps", str(cfg["steps"]),
+            "--batch", str(cfg["batch"]), "--seq", str(cfg["seq"]),
+            "--lr", str(cfg["lr"]), "--dtype", "bfloat16", "--device", DEV,
+            "--n-layers", str(cfg["n_layers"]), "--devices", "2", "--tp",
+            "2", "--checkpoint-every", "1000"]
+    free(torch)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_rank_train_mesh, argv)
+    seconds = time.perf_counter() - t0
+    full = get_spec(MESH_ARCH)
+    spec = full.scaled(n_layers=cfg["n_layers"])
+    n_moe = sum(spec.moe.is_moe_layer(i) for i in range(spec.n_layers))
+    steps = cfg["steps"]
+    want = train_launches(spec, steps)
+    out = []
+    for r in ranks:
+        what = f"train_mesh rank {r['rank']}"
+        _expect(what, r["launches"], want)
+        local_d_head = spec.d_head
+        fwd = ("tensor_core" if flash_attention.tensor_core_route(
+            torch.bfloat16, local_d_head) else "cuda_core")
+        _expect_tensor_cores(what, r["routes"], "flash_attention",
+                             want["flash_attention"], fwd)
+        _expect_tensor_cores(what, r["routes"], "flash_attention_bwd",
+                             want["flash_attention_bwd"],
+                             flash_attention_bwd.route(torch.bfloat16,
+                                                       local_d_head))
+        for kernel in ("expert_gemm", "expert_gemm_bwd"):
+            _expect_tensor_cores(what, r["routes"], kernel, want[kernel],
+                                 route="wgmma")
+        calls = r["collectives"]["calls"]
+        a2a = (calls.get("all_to_all"), calls.get("all_to_all_bwd"))
+        if a2a != (2 * n_moe * steps, 2 * n_moe * steps):
+            raise AssertionError(f"{what}: token all-to-alls {a2a}, expected "
+                                 f"{2 * n_moe * steps} each way")
+        hist = r["history"]
+        losses = [h["loss"] for h in hist]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{what}: losses {losses}")
+        if r["checkpoint_step"] != steps - 1:
+            raise AssertionError(f"{what}: the last step's checkpoint is "
+                                 f"missing ({r['checkpoint_step']})")
+        if not r["dispatch"].get("partition"):
+            raise AssertionError(f"{what}: the tokens were not partitioned "
+                                 f"({r['dispatch']})")
+        first = [h["loss"] for h in ranks[0]["history"]]
+        if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(losses, first)):
+            raise AssertionError(f"{what}: losses {losses} part from rank "
+                                 f"0's {first}: the ranks train different "
+                                 "replicas")
+        steady = hist[1:]
+        step_s = _mean([h["dt"] for h in steady])
+        coll_s = r["collectives"]["seconds"]
+        emit("train_mesh", arch=MESH_ARCH, dtype="bfloat16",
+             optimizer_state="float32", rank=r["rank"], coords=r["coords"],
+             mesh={"data": 1, "model": 2}, n_layers=spec.n_layers,
+             published_layers=full.n_layers, d_model=spec.d_model,
+             experts_local=spec.moe.num_experts // 2, shard=r["shard"],
+             params_rank=r["params"], steps=steps, batch=cfg["batch"],
+             seq=cfg["seq"], lr=cfg["lr"], losses=losses,
+             step_ms=step_s * 1e3, first_step_ms=hist[0]["dt"] * 1e3,
+             **{f"{part}_ms": _mean([h[f"{part}_ms"] for h in steady
+                                     if f"{part}_ms" in h])
+                for part in ("forward", "backward", "grad_sync",
+                             "optimizer")},
+             collective_ms_per_step={
+                 tag: sec * 1e3 / steps for tag, sec in coll_s.items()
+                 if tag != "checkpoint"},
+             collective_calls=calls,
+             collective_mb={tag: b / 1e6 for tag, b in
+                            r["collectives"]["bytes"].items()},
+             checkpoint_gather_s=coll_s.get("checkpoint", 0.0),
+             tokens_per_s=cfg["batch"] * cfg["seq"] / step_s,
+             dispatch=r["dispatch"], build_s=r["build_s"], run_s=r["run_s"],
+             peak_memory_gb=r["peak_memory_gb"], launches=r["launches"],
+             routes=r["routes"], label=MESH_NOTE)
+        out.append(r["launches"])
+    emit("train_mesh_phase", seconds=seconds)
+    return out
+
 
 def ptxas_of(log, marker):
     """ptxas's lines (entry, registers, spills) of the kernels whose
@@ -5077,6 +5465,8 @@ def main(argv: list[str]) -> int:
     serves.append(phase_train_restart(torch))
     for phase in TRAIN_STACKS:
         serves.append(phase_train_stack(torch, phase))
+    serves += phase_mesh_parity(torch)
+    serves += phase_train_mesh(torch)
 
     launches = {name: sum(c[name] for c in serves) for name in mods}
     idle = [name for name, n in launches.items() if n == 0]

@@ -3,8 +3,10 @@
     python3 scripts/chip_phases.py [--root DIR] [--profile] PHASE [PHASE ...]
 
 PHASE is one of ``chip_smoke.TRAIN_STACKS`` (``train_moe``,
-``train_rwkv``, ``train_jamba``) or ``kernel_check:NAME[,NAME...]`` (the
-named kernels' checks).  With ``--root DIR`` the ``chip_smoke.py`` and
+``train_rwkv``, ``train_jamba``), ``kernel_check:NAME[,NAME...]`` (the
+named kernels' checks), or a phase that ``chip_smoke`` runs as
+``phase_PHASE(torch)`` alone (``mesh_parity``, ``train_mesh``, ``train``,
+``train_parity``, ``train_restart``, ``tp_parity``).  With ``--root DIR`` the ``chip_smoke.py`` and
 ``src/`` of the checkout at DIR run instead, for example an unpacked
 ``git archive`` of a parent commit under ``build/``, so that two commits'
 phases compare in one run on one card.  Every kernel source of that
@@ -28,6 +30,9 @@ from pathlib import Path
 TOP = 12
 #: kernel name parts whose device time a profiled phase also sums apart
 KEYS = ("wkv_bwd", "wkv", "gemm", "elementwise", "reduce")
+#: chip_smoke phases that take only ``torch``
+STANDALONE = ("mesh_parity", "train_mesh", "train", "train_parity",
+              "train_restart", "tp_parity")
 
 
 def device_times(prof) -> dict:
@@ -77,6 +82,9 @@ def main(argv: list[str]) -> int:
         elif phase in cs.TRAIN_STACKS:
             def run(phase=phase):
                 cs.phase_train_stack(torch, phase)
+        elif phase in STANDALONE:
+            def run(phase=phase):
+                getattr(cs, f"phase_{phase}")(torch)
         else:
             print(f"chip_phases: unknown phase {phase!r}", file=sys.stderr)
             return 2

@@ -7,6 +7,8 @@ when a caller asks for it by name (the tests do, with ``device="cpu"``).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -21,3 +23,18 @@ def resolve_device(device: str | torch.device | None = None
             "the card by default — pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def sync_mode(device: torch.device, mode: int | str):
+    """``torch.cuda.set_sync_debug_mode(mode)`` for the block, then the mode
+    before it; a no-op off the card, where the mode means nothing."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)

@@ -247,11 +247,15 @@ class Attention(nn.Module):
 
 
 def _project_qkv(spec: ModelSpec, params: Attention, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """x: (..., S, D) -> q (..., S, Hq, Dh), k, v (..., S, Hkv, Dh)."""
+                 positions: torch.Tensor, tp=None):
+    """x: (..., S, D) -> q (..., S, Hq, Dh), k, v (..., S, Hkv, Dh); a
+    tensor-parallel shard's normed input enters its heads' products
+    through ``tp.enter`` (Megatron's f)."""
     lead = tuple(x.shape[:-1])
     hq, hkv, dh = spec.n_heads, spec.n_kv_heads, spec.d_head
     h = rms_norm(x, params.norm)
+    if tp is not None:
+        h = tp.enter(h)
     q = h @ params.wq
     k = h @ params.wk
     v = h @ params.wv
@@ -432,14 +436,14 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
     shared by the layers of one cache.  ``tp`` (a tensor-parallel shard's
     communicator, :class:`~repro_torch.models.common.Shard`'s ``comm``):
     the parameters are this rank's heads, and the row-parallel ``wo``'s
-    partial products are summed over the tp ranks in place (the
+    partial products are summed over the tp ranks by ``tp.exit`` (the
     reference's ``psum``).  Returns the attention output (before the
     residual add)."""
     if packed is not None and spec.attn.kind == "swa":
         raise NotImplementedError(
             "the packed unified step has no sliding-window masking, as in "
             "the reference")
-    q, k, v = _project_qkv(spec, params, x, positions)
+    q, k, v = _project_qkv(spec, params, x, positions, tp)
     if cache is None:
         o = _attend(spec, q, k, v, impl=impl)
     elif packed is not None:
@@ -453,5 +457,5 @@ def attention_block(spec: ModelSpec, params: Attention, x: torch.Tensor,
     out = o.reshape(tuple(x.shape[:-1]) + (spec.n_heads * spec.d_head,)) \
         @ params.wo
     if tp is not None:
-        tp.all_reduce_(out)
+        out = tp.exit(out)
     return out

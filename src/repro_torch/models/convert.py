@@ -20,10 +20,13 @@ reads ``embed.T`` as the reference does; an encoder-only frontend model
 mirror the parameter tree) to the port's optimizer state the same way.
 
 ``shard_state`` cuts such a state (or any full model's ``state_dict()``)
-to one rank's part of a (pp, tp) mesh, the names a
-``Model(spec, ..., shard=shard)`` expects: its stage's layers, renumbered
-from 0, and the tp slice of every leaf :data:`~.common.TP_SHARD_DIM`
-names.
+to one rank's part, the names its model (``Model(spec, ..., shard=)`` or
+``build_model(spec, mesh=, policy=)``) expects: its pipeline stage's
+layers, renumbered from 0, and each tensor cut as that model's
+``param_placements`` say.  The reference's ``init`` on a mesh pads the
+experts to a multiple of the ``model`` axis (``e_pad`` rows of ``w_up``,
+``w_gate`` and ``w_down``); such a tree converts as it is, and a rank
+takes its ``e_pad / model`` rows.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import numpy as np
 import torch
 
 from ..core.modelspec import ModelSpec
-from .common import TP_SHARD_DIM, Shard
+from .common import Shard
+from .model import Model
 from .transformer import stack_period
 
 
@@ -82,24 +86,25 @@ def from_jax_opt_state(state_np: dict, spec: ModelSpec) -> dict:
 
 
 def shard_state(state: dict[str, torch.Tensor], spec: ModelSpec,
-                shard: Shard) -> dict[str, torch.Tensor]:
-    """The part of the full ``state`` of ``spec`` that rank ``shard`` holds:
-    the layers of its pipeline stage (renumbered from 0), each
-    column-parallel leaf's columns and each row-parallel leaf's rows of
-    its tp slice (heads are contiguous d_head blocks, so a slice is whole
-    heads), the untied head's vocab slice; the embedding and the norms
-    whole."""
-    stage = shard.stage_layers(spec.n_layers)
+                shard, policy=None) -> dict[str, torch.Tensor]:
+    """The part of the full ``state`` of ``spec`` that one rank holds, by
+    the names its model has: ``shard`` a :class:`~.common.Shard`, or a
+    ``DeviceMesh`` with ``policy`` (as ``build_model`` takes them).  The
+    layers of the rank's pipeline stage (renumbered from 0), and each
+    tensor cut as the rank's ``Model.param_placements`` says: a
+    column-parallel leaf's columns and a row-parallel leaf's rows of its
+    slice (heads are contiguous d_head blocks, so a slice is whole heads),
+    an untied head's vocab slice, its experts' rows; the embedding and
+    the norms whole."""
+    kw = (dict(shard=shard) if isinstance(shard, Shard)
+          else dict(mesh=shard, policy=policy))
+    model = Model(spec, torch.device("meta"), torch.float32, **kw)
+    first = (model.shard or Shard()).stage_layers(spec.n_layers).start
     out: dict[str, torch.Tensor] = {}
-    for name, t in state.items():
+    for name, place in model.param_placements().items():
+        src = name
         if name.startswith("layers."):
             _, i, rest = name.split(".", 2)
-            if int(i) not in stage:
-                continue
-            name = f"layers.{int(i) - stage.start}.{rest}"
-        dim = TP_SHARD_DIM.get(name.rsplit(".", 1)[-1])
-        if dim is not None and shard.tp > 1:
-            size = t.shape[dim] // shard.tp
-            t = t.narrow(dim, shard.tp_rank * size, size)
-        out[name] = t.contiguous()
+            src = f"layers.{first + int(i)}.{rest}"
+        out[name] = place.local(state[src]).contiguous()
     return out

@@ -31,11 +31,15 @@ def mlp_block(spec: ModelSpec, params: MLP, x: torch.Tensor, *,
               norm: bool = True, tp=None) -> torch.Tensor:
     """``norm=False`` takes x as already normalised (the MoE block's shared
     experts see the block's normed input).  ``tp``: a tensor-parallel
-    shard's communicator; the parameters are this rank's FFN columns, and
-    the row-parallel ``w_down``'s partial products are summed over the tp
-    ranks in place (the reference's ``psum``)."""
+    shard's communicator; the parameters are this rank's FFN columns, the
+    normed input enters the column-parallel products through
+    ``tp.enter`` (Megatron's f) and the row-parallel ``w_down``'s partial
+    products are summed over the tp ranks by ``tp.exit`` (g, the
+    reference's ``psum``)."""
     act = activation(spec.act)
     h = rms_norm(x, params.norm) if norm else x
+    if tp is not None:
+        h = tp.enter(h)
     up = h @ params.w_up
     if spec.act == "swiglu":
         up = act(h @ params.w_gate) * up
@@ -43,5 +47,5 @@ def mlp_block(spec: ModelSpec, params: MLP, x: torch.Tensor, *,
         up = act(up)
     out = up @ params.w_down
     if tp is not None:
-        tp.all_reduce_(out)
+        out = tp.exit(out)
     return out

@@ -20,11 +20,28 @@ as in the reference.  An encoder-only frontend model (hubert-xlarge,
 a decoder with a frontend (pixtral-12b) has both.
 
 A model built with a :class:`~repro_torch.models.common.Shard` (``shard=``)
-is one rank's part of a (pp, tp) mesh: its ``spec`` is the rank's geometry
-(heads, kv heads and FFN width over tp, the stage's n_layers / pp layers),
-``full_spec`` the model's, and its steps run the shard's collectives: two
-all-reduces per layer over the tp ranks, the vocab-parallel head's logits
-gathered, and the pipeline ring over the stages (``Shard.comm``).
+is one rank's part of a model on a mesh: its ``spec`` is the rank's
+geometry (heads, kv heads and FFN width over the shard's splits, the
+stage's n_layers / pp layers), ``full_spec`` the model's, and its passes
+run the shard's collectives (``Shard.comm``).  A serving (pp, tp) mesh's
+shard: two all-reduces per layer over the tp ranks, the vocab-parallel
+head's logits gathered, and the pipeline ring over the stages.
+
+A model built with a mesh (``build_model(spec, mesh=, policy=)``, a
+:class:`~repro_torch.launch.mesh.DeviceMesh` of torch.distributed ranks
+and a sharding policy) takes its shard from them
+(:func:`~repro_torch.models.common.mesh_shard`): one rank's part of a
+(data, model) training mesh, attention heads and the FFN split over
+``model`` where the policy maps them and they divide, with Megatron's f
+and g around the split blocks, the experts split over ``model`` (padded
+to a multiple) and run expert-parallel through all-to-alls
+(``moe_capacity_factor`` and ``moe_partition_tokens``, the reference's
+``ModelContext`` knobs), the rest replicated.  Its ``loss`` takes the
+global batch, runs the rank's rows of it (the batch split over the data
+axes where it divides) and returns the global mean; the gradients it
+gives are the rank's share, which the trainer sums over the data axes.
+``param_placements`` says where each of a shard's tensors lies in the
+full model.
 
 ``forward`` and ``loss`` follow the caller's grad mode: the weights are
 made trainable with ``model.requires_grad_(True)`` (the trainer does it),
@@ -54,10 +71,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.modelspec import ModelSpec
 from ..device import resolve_device
+from ..launch.mesh import Placement, reduce_out
+from ..sharding import get_policy
+from ..sharding.axes import entry_axes, logical_spec
 from . import transformer as T
 from .attention import PackedSegs, init_attn_cache, init_paged_attn_cache
-from .common import (Shard, embed_init_, local_spec, rms_norm,
-                     tag_tp_shards, weight)
+from .common import (Shard, embed_init_, local_spec, mesh_shard, rms_norm,
+                     tag_shards, weight)
 from .ssm import init_mamba_cache, init_rwkv_cache
 
 
@@ -97,14 +117,33 @@ class Model(nn.Module):
 
     kernel_impl = "kernel"
     kv_quant = False
+    #: the reference's ModelContext knobs of the expert-parallel MoE
+    #: blocks (read on a mesh)
+    moe_capacity_factor = 1.25
+    moe_partition_tokens = False
+    #: a list to which each expert-parallel MoE call appends its geometry
+    #: and drops (``moe.moe_block``'s ``dispatch_log``); None: no record
+    dispatch_log = None
 
     def __init__(self, spec: ModelSpec, device: torch.device,
-                 dtype: torch.dtype, shard: Shard | None = None):
+                 dtype: torch.dtype, shard: Shard | None = None,
+                 mesh=None, policy=None):
         super().__init__()
         self.full_spec = spec
+        self.mesh = mesh
+        self.policy = None
+        if mesh is not None:
+            if shard is not None:
+                raise ValueError("a model on a mesh takes its shard from "
+                                 "the mesh and the policy: pass mesh= or "
+                                 "shard=, not both")
+            if policy is None or isinstance(policy, str):
+                policy = get_policy(policy or "inference_tp")
+            self.policy = policy
+            shard = mesh_shard(spec, mesh, policy.rules)
         self.shard = shard
         if shard is not None:
-            spec = dataclasses.replace(local_spec(spec, shard.tp),
+            spec = dataclasses.replace(local_spec(spec, shard),
                                        n_layers=spec.n_layers // shard.pp)
         self.spec = spec
         self.device = device
@@ -115,16 +154,18 @@ class Model(nn.Module):
         self.embed = (weight((spec.vocab, d), device, dtype)
                       if spec.frontend == "none" or spec.decoder else None)
         self.layers = nn.ModuleList(
-            T.Layer(spec, cls, device, dtype) for cls in T.layer_classes(spec))
+            T.Layer(spec, cls, device, dtype, shard)
+            for cls in T.layer_classes(spec))
         self.final_norm = weight((d,), device, dtype, fill=1.0)
         if not spec.tied_embeddings:
-            self.lm_head = weight((d, spec.vocab // self._tp), device, dtype)
+            self.lm_head = weight((d, spec.vocab // self._head_tp), device,
+                                  dtype)
         if shard is not None:
-            tag_tp_shards(self, shard.tp, shard.tp_rank)
+            tag_shards(self, shard)
 
     @property
-    def _tp(self) -> int:
-        return 1 if self.shard is None else self.shard.tp
+    def _head_tp(self) -> int:
+        return 1 if self.shard is None else self.shard.head_tp
 
     def _stage(self) -> range:
         """The global indices of this model's layers."""
@@ -146,8 +187,8 @@ class Model(nn.Module):
                 layer = self.layers[i - stage.start]
             else:
                 layer = T.Layer(self.spec, cls, torch.device("meta"),
-                                self.dtype)
-                tag_tp_shards(layer, self._tp, self.shard.tp_rank)
+                                self.dtype, self.shard)
+                tag_shards(layer, self.shard)
             layer.reset_parameters(generator)
         if not self.spec.tied_embeddings:
             embed_init_(self.lm_head, generator)
@@ -172,7 +213,7 @@ class Model(nn.Module):
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         logits = rms_norm(h, self.final_norm) @ self._head_w()
-        if self._tp > 1 and not self.spec.tied_embeddings:
+        if self._head_tp > 1 and not self.spec.tied_embeddings:
             # the vocab-parallel untied head: the step's one logits gather
             # (a tied head stays replicated: the embedding serves lookups)
             logits = self.shard.comm.all_gather_last(logits)
@@ -184,11 +225,19 @@ class Model(nn.Module):
         route; a shard sums over its tp ranks and, with pp > 1, runs its
         stage inside the pipeline ring, which returns the last stage's
         hidden state on every rank."""
-        tp = self.shard.comm if self._tp > 1 else None
+        shard = self.shard or Shard()
+        tp = shard.comm if shard.tp > 1 else None
+        ffn_tp = shard.comm if shard.ffn_tp > 1 else None
+        if self.mesh is not None:
+            kw["moe_kw"] = dict(mesh=self.mesh,
+                                capacity_factor=self.moe_capacity_factor,
+                                partition_tokens=self.moe_partition_tokens,
+                                dispatch_log=self.dispatch_log)
 
         def run(h: torch.Tensor) -> torch.Tensor:
             return T.apply_stack(self.spec, self.layers, h, positions,
-                                 caches, impl=self.kernel_impl, tp=tp, **kw)
+                                 caches, impl=self.kernel_impl, tp=tp,
+                                 ffn_tp=ffn_tp, **kw)
         if self.shard is None or self.shard.pp == 1:
             return run(x)
         return self.shard.comm.pp_ring(x, run)
@@ -226,7 +275,23 @@ class Model(nn.Module):
         and the log-softmax run over ``chunk`` positions at a time, each
         chunk under ``torch.utils.checkpoint`` (the reference's
         ``jax.checkpoint``): its (B, chunk, V) logits are recomputed in the
-        backward, so the (B, S, V) logits never exist."""
+        backward, so the (B, S, V) logits never exist.
+
+        On a mesh the arguments are the global batch: the rank runs its
+        rows (:meth:`batch_axes`), and the returned value is the global
+        mean, every rank's masked sum over the global count; its gradient
+        is the rank's share (its own sum over the global count), which the
+        caller sums over :meth:`batch_axes`."""
+        axes = ()
+        if self.mesh is not None:
+            b_all = (tokens if tokens is not None else embeds).shape[0]
+            axes = self.batch_axes(b_all)
+            n, i = self.mesh.size(axes), self.mesh.index(axes)
+            rows = slice(i * b_all // n, (i + 1) * b_all // n)
+            tokens = None if tokens is None else tokens[rows]
+            embeds = None if embeds is None else embeds[rows]
+            targets = targets[rows]
+            mask = None if mask is None else mask[rows]
         x = self._full_pass(self._embed_in(tokens, embeds), None)
         b, s, _ = x.shape
         x = rms_norm(x, self.final_norm)
@@ -242,7 +307,38 @@ class Model(nn.Module):
             total = total + checkpoint(
                 _chunk_nll, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
                 mask[:, c0:c0 + chunk], w, use_reentrant=False)
+        if axes:
+            count = self.mesh.all_reduce(mask.sum(), axes, tag="loss_count")
+            return reduce_out(total / count.clamp(min=1.0), self.mesh, axes)
         return total / mask.sum().clamp(min=1.0)
+
+    # -- mesh -------------------------------------------------------------
+    def batch_axes(self, batch: int) -> tuple[str, ...]:
+        """The mesh axes a global batch of ``batch`` rows is split over:
+        the policy's ``batch`` axes of more than one rank taken greedily
+        while their product divides it (the rest hold the batch
+        replicated), as the reference's ``_moe_shardmap`` takes them."""
+        out, n = [], 1
+        want = entry_axes(logical_spec(("batch",), self.policy.rules,
+                                       self.mesh)[0])
+        for ax in want:
+            if self.mesh.shape[ax] > 1 \
+                    and batch % (n * self.mesh.shape[ax]) == 0:
+                out.append(ax)
+                n *= self.mesh.shape[ax]
+        return tuple(out)
+
+    def param_placements(self) -> dict:
+        """Where each of this rank's tensors lies in the full model (the
+        counterpart of the reference's ``param_shardings``): a
+        :class:`~repro_torch.launch.mesh.Placement` by state-dict name,
+        the split dimension over the shard's mesh axis, or replicated."""
+        out = {}
+        for name, p in self.named_parameters():
+            split = getattr(p, "tp_shard", None)
+            out[name] = Placement() if split is None else Placement(
+                split[0], (self.shard.axis,), split[1], split[2])
+        return out
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *, layout: str = "paged",
@@ -401,16 +497,21 @@ class Model(nn.Module):
 
 def build_model(spec: ModelSpec, device: str | torch.device | None = None,
                 dtype: torch.dtype = torch.bfloat16, *, seed: int = 0,
-                kv_quant: bool = False, shard: Shard | None = None) -> Model:
+                kv_quant: bool = False, shard: Shard | None = None,
+                mesh=None, policy=None) -> Model:
     """Build ``spec`` with random weights on ``device`` (default: the card;
     raises without one).  Weights are drawn on the device from a generator
     seeded ``seed``, tensor by tensor, so no f32 copy of the whole model
     ever exists.  ``kv_quant`` gives the model int8 KV caches.  With
     ``shard`` the model is that rank's part, holding the same weights as
     its slices of the unsharded model of the same seed (each full tensor
-    drawn in turn and sliced)."""
+    drawn in turn and sliced).  With ``mesh`` (a ``DeviceMesh``) and
+    ``policy`` (a ``ShardingPolicy`` or its name; default
+    ``inference_tp``, as the reference's) the model is that rank's part of
+    the training mesh, likewise its slices of the full model (whose
+    experts are padded to a multiple of the ``model`` axis)."""
     dev = resolve_device(device)
-    model = Model(spec, dev, dtype, shard=shard)
+    model = Model(spec, dev, dtype, shard=shard, mesh=mesh, policy=policy)
     model.kv_quant = kv_quant
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model

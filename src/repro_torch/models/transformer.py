@@ -68,7 +68,8 @@ class Layer(nn.Module):
     either).  RWKV-6: ``mixer`` (time mix and channel mix) and no ``ffn``,
     as in the reference: the channel mix is its FFN."""
 
-    def __init__(self, spec: ModelSpec, cls: LayerClass, device, dtype):
+    def __init__(self, spec: ModelSpec, cls: LayerClass, device, dtype,
+                 shard=None):
         super().__init__()
         self.cls = cls
         if cls.kind == "rwkv6":
@@ -78,7 +79,9 @@ class Layer(nn.Module):
         self.mixer = (Mamba if cls.kind == "mamba" else Attention)(
             spec, device, dtype)
         if cls.is_moe:
-            self.ffn = MoE(spec, device, dtype)
+            self.ffn = (MoE(spec, device, dtype) if shard is None else
+                        MoE(spec, device, dtype, n_shards=shard.ep,
+                            shared_tp=shard.shared_tp))
         else:
             self.ffn = MLP(spec, device, dtype) if spec.d_ff > 0 else None
 
@@ -90,7 +93,8 @@ class Layer(nn.Module):
 
 def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
                positions: torch.Tensor, cache: LayerCache | None, *,
-               impl: str, tp, **attn_kw) -> torch.Tensor:
+               impl: str, tp, ffn_tp, moe_kw: dict, **attn_kw
+               ) -> torch.Tensor:
     kind = layer.cls.kind
     if kind == "attn":
         x = x + attention_block(spec, layer.mixer, x, positions, cache,
@@ -107,9 +111,9 @@ def _apply_one(spec: ModelSpec, layer: Layer, x: torch.Tensor,
         return rwkv6_block(spec, layer.mixer, x, cache,
                            mask=attn_kw["mask"], impl=impl)
     if layer.cls.is_moe:
-        x = x + moe_block(spec, layer.ffn, x, impl=impl)
+        x = x + moe_block(spec, layer.ffn, x, impl=impl, **moe_kw)
     elif layer.ffn is not None:
-        x = x + mlp_block(spec, layer.ffn, x, tp=tp)
+        x = x + mlp_block(spec, layer.ffn, x, tp=ffn_tp)
     return x
 
 
@@ -121,12 +125,12 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
                 packed: PackedSegs | None = None,
                 mask: torch.Tensor | None = None,
                 views: dict | None = None,
-                impl: str = "kernel", tp=None) -> torch.Tensor:
+                impl: str = "kernel", tp=None, ffn_tp=None,
+                moe_kw: dict | None = None) -> torch.Tensor:
     """Run every layer; each writes its K/V (or its Mamba or RWKV state)
     into its own cache, in place.  ``layers`` may be one pipeline stage's
     contiguous layers (a period-1 stack: the reference shards its stacked
-    ``repeats`` axis), and ``tp`` a tensor-parallel shard's communicator,
-    which sums each layer's two row-parallel products over the tp ranks.
+    ``repeats`` axis).
     A None cache is the full pass of :meth:`Model.forward`: attention over
     the S tokens themselves, a Mamba layer from zero state, nothing
     kept.  ``impl`` routes every kernel of
@@ -137,10 +141,17 @@ def apply_stack(spec: ModelSpec, layers: nn.ModuleList, x: torch.Tensor,
     is a token-packed unified step; ``mask`` the (B,) bool selection of the
     dense rows whose K/V or state a chunk writes (see
     :func:`attention_block`); ``views`` the dequantize buffers the layers of
-    a quantized cache share (``ModelCache.views``; None: this call's own)."""
+    a quantized cache share (``ModelCache.views``; None: this call's own).
+    ``tp`` and ``ffn_tp`` are a shard's communicator where its attention
+    and its dense FFN are split (a serving shard splits both, a training
+    mesh's each where it divides), which sums each split block's
+    row-parallel product over the ranks, and ``moe_kw`` the MoE blocks' mesh and
+    knobs (:func:`repro_torch.models.moe.moe_block`)."""
     views = {} if views is None else views
+    moe_kw = moe_kw or {}
     for layer, cache in zip(layers, caches, strict=True):
         x = _apply_one(spec, layer, x, positions, cache, lengths=lengths,
                        page_table=page_table, packed=packed, mask=mask,
-                       views=views, impl=impl, tp=tp)
+                       views=views, impl=impl, tp=tp, ffn_tp=ffn_tp,
+                       moe_kw=moe_kw)
     return x

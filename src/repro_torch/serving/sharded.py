@@ -48,7 +48,6 @@ shard=make_engine_mesh(tp, pp, device).shard)``).
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import os
 import pickle
@@ -60,11 +59,11 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from ..launch.mesh import AxisComm, DeviceMesh
 from ..models import transformer as T
 from ..models.common import Shard, local_spec
 from ..models.convert import shard_state
 from ..models.model import Model
-from .step_graph import sync_mode
 
 __all__ = ["SUPPORTED_AXES", "EngineMesh", "collective_stats", "local_spec",
            "make_engine_mesh", "shard_model", "spawn",
@@ -168,91 +167,34 @@ def collective_stats(spec, tp: int, pp: int, t_pack: int, n_segs: int,
     return coll, int(bytes_)
 
 
-def _group(ranks: list[int], world: int):
-    """The process group of ``ranks`` (None for one rank, the default
-    group for all); every rank must call this for every group, in the
-    same order."""
-    if len(ranks) == 1:
-        return None
-    if len(ranks) == world:
-        return dist.group.WORLD
-    return dist.new_group(ranks)
-
-
-class EngineMesh:
-    """This rank's (pp, tp) mesh over the default process group: its
-    coordinates, the tp group of its stage and the pp group of its tp
-    index, and the collectives a shard runs.  Over gloo, card tensors are
-    staged through pinned host memory (an explicit host round trip, exempt
-    from the engine's debug guard as its own sampled-token copy is)."""
+class EngineMesh(AxisComm):
+    """This rank's (pp, tp) serving mesh: a view of a
+    :class:`~repro_torch.launch.mesh.DeviceMesh` with axes ``("pp",
+    "tp")`` over the default process group (rank ``pp_rank * tp +
+    tp_rank``), whose collectives it runs (over gloo, card tensors staged
+    through pinned host memory).  As an ``AxisComm`` over ``tp`` it is
+    the shard's communicator: ``enter`` and ``exit`` around the split
+    blocks (a serving step takes no gradient, so ``exit`` sums in
+    place), the vocab-parallel logits' gather, and the pipeline ring."""
 
     def __init__(self, tp: int, pp: int, device: torch.device):
+        super().__init__(DeviceMesh((pp, tp), (PP_AXIS, TP_AXIS), device),
+                         TP_AXIS)
         self.tp, self.pp = tp, pp
-        self.device = device
-        self.rank = dist.get_rank()
-        self.pp_rank, self.tp_rank = divmod(self.rank, tp)
-        self.backend = dist.get_backend()
-        self.staged = self.backend == "gloo" and device.type == "cuda"
-        world = tp * pp
-        for s in range(pp):
-            g = _group([s * tp + t for t in range(tp)], world)
-            if s == self.pp_rank:
-                self.tp_group = g
-        for t in range(tp):
-            g = _group([s * tp + t for s in range(pp)], world)
-            if t == self.tp_rank:
-                self.pp_group = g
+        self.pp_rank = self.mesh.coords[PP_AXIS]
+        self.tp_rank = self.mesh.coords[TP_AXIS]
+        self.device = self.mesh.device
+        self.backend, self.staged = self.mesh.backend, self.mesh.staged
 
     @property
     def shard(self) -> Shard:
         return Shard(tp=self.tp, pp=self.pp, tp_rank=self.tp_rank,
                      pp_rank=self.pp_rank, comm=self)
 
-    def _guard(self):
-        """The debug guard's exemption around a staged host round trip."""
-        if self.staged:
-            return sync_mode(self.device, 0)
-        return contextlib.nullcontext()
-
-    def _host(self, t: torch.Tensor) -> torch.Tensor:
-        """A pinned host copy of card tensor ``t`` (a synchronous copy)."""
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t)
-        return h
-
-    def _inplace(self, t: torch.Tensor, op) -> None:
-        """Run collective ``op`` on ``t`` in place, staged over gloo."""
-        if not self.staged:
-            op(t)
-            return
-        with self._guard():
-            h = self._host(t)
-            op(h)
-            t.copy_(h)
-
-    def all_reduce_(self, t: torch.Tensor) -> None:
-        """Sum ``t`` over the stage's tp ranks, in place (every rank gets
-        the same bits: each element is reduced once and shared)."""
-        self._inplace(t, lambda x: dist.all_reduce(x, group=self.tp_group))
-
     def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """(..., n) on each tp rank -> (..., tp * n), the ranks' slices in
         rank order along the last axis."""
-        with self._guard():
-            src = self._host(t) if self.staged else t.contiguous()
-            parts = [torch.empty_like(src) for _ in range(self.tp)]
-            dist.all_gather(parts, src, group=self.tp_group)
-            out = torch.cat(parts, dim=-1)
-            return out.to(t.device) if self.staged else out
-
-    def _send(self, t: torch.Tensor, dst: int) -> None:
-        with self._guard():
-            dist.send(self._host(t) if self.staged else t, dst=dst)
-
-    def _recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
-        out = torch.empty_like(like)
-        self._inplace(out, lambda x: dist.recv(x, src=src))
-        return out
+        return self.mesh.all_gather(t, TP_AXIS, dim=-1)
 
     def pp_ring(self, x: torch.Tensor, run) -> torch.Tensor:
         """The pipeline ring of one step: stage s > 0 receives the
@@ -261,17 +203,14 @@ class EngineMesh:
         holds the final hidden state and broadcasts it over the pp group.
         ``x`` is the embedded input (read on stage 0 only).  Returns the
         final hidden state on every rank: pp hops and one broadcast."""
-        def peer(stage: int) -> int:
-            return (stage % self.pp) * self.tp + self.tp_rank
-        if self.pp_rank > 0:
-            x = self._recv(x, peer(self.pp_rank - 1))
+        m, s = self.mesh, self.pp_rank
+        if s > 0:
+            x = m.recv(x, s - 1, PP_AXIS)
         y = run(x)
-        self._send(y, peer(self.pp_rank + 1))
-        if self.pp_rank == 0:
-            y = self._recv(y, peer(self.pp - 1))
-        self._inplace(y, lambda h: dist.broadcast(h, src=peer(0),
-                                                  group=self.pp_group))
-        return y
+        m.send(y, (s + 1) % self.pp, PP_AXIS)
+        if s == 0:
+            y = m.recv(y, self.pp - 1, PP_AXIS)
+        return m.broadcast_(y, 0, PP_AXIS)
 
 
 def make_engine_mesh(tp: int, pp: int,

@@ -36,7 +36,6 @@ every replay, and a capture leaves them as it found them.
 
 from __future__ import annotations
 
-import contextlib
 import gc
 import math
 import time
@@ -46,22 +45,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import sync_mode
 from ..kernels import launches
-
-
-@contextlib.contextmanager
-def sync_mode(device: torch.device, mode: int | str):
-    """``torch.cuda.set_sync_debug_mode(mode)`` for the block, then the mode
-    before it; a no-op off the card, where the mode means nothing."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(mode)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 class Staged:

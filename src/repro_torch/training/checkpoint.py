@@ -11,7 +11,12 @@
   * **async**: ``save_async`` copies every tensor to host memory first (a
     snapshot: the train loop updates its tensors in place right after),
     then writes on a background thread, so the loop never waits on the
-    filesystem.
+    filesystem;
+  * **elastic resharding**: on a mesh (``mesh=`` and ``placements=``, a
+    tree of :class:`~repro_torch.launch.mesh.Placement` shaped as the
+    saved one) every leaf is gathered whole from its shards and rank 0
+    writes it, so a restart may use another mesh: ``restore(shardings=)``
+    cuts each full tensor to the placement the new rank asks for.
 
 A checkpoint is a tree of nested dicts of tensors (the model's
 ``state_dict()``, the optimizer's m, v and step), stored as one ``.npz``
@@ -101,19 +106,46 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save ------------------------------------------------------------
-    def save(self, step: int, tree: dict, extra: dict | None = None
-             ) -> Path:
-        named = [(n, _to_host(x)) for n, x in _leaves(tree)]
-        return self._write(step, named, extra or {})
+    @staticmethod
+    def _snapshot(tree: dict, mesh, placements) -> list:
+        """(name, full host tensor) of every leaf; on a mesh each leaf is
+        gathered from its shards first (every rank takes part)."""
+        if mesh is None:
+            return [(n, _to_host(x)) for n, x in _leaves(tree)]
+        places = dict(_leaves(placements))
+        out = []
+        for n, x in _leaves(tree):
+            if isinstance(x, torch.Tensor) and n in places:
+                x = mesh.gather_full(x.detach(), places[n])
+            out.append((n, _to_host(x)))
+        return out
+
+    def save(self, step: int, tree: dict, extra: dict | None = None, *,
+             mesh=None, placements: dict | None = None) -> Path | None:
+        """Write ``tree`` now.  On a mesh every rank calls it; rank 0
+        writes, and every rank returns once the checkpoint is there."""
+        named = self._snapshot(tree, mesh, placements)
+        if mesh is None:
+            return self._write(step, named, extra or {})
+        path = (self._write(step, named, extra or {}) if mesh.rank == 0
+                else None)
+        mesh.barrier()
+        return path
 
     def save_async(self, step: int, tree: dict,
-                   extra: dict | None = None) -> None:
-        """Snapshot to host memory now; write on a background thread."""
+                   extra: dict | None = None, *, mesh=None,
+                   placements: dict | None = None) -> None:
+        """Snapshot to host memory now (gathered on a mesh, where every
+        rank calls it and rank 0 writes); write on a background thread.
+        On a mesh, ``wait`` and then ``mesh.barrier()`` before another
+        rank reads the checkpoint."""
         self.wait()
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise err
-        named = [(n, _to_host(x)) for n, x in _leaves(tree)]
+        named = self._snapshot(tree, mesh, placements)
+        if mesh is not None and mesh.rank != 0:
+            return
 
         def work():
             try:
@@ -166,22 +198,27 @@ class CheckpointManager:
                 shutil.rmtree(p, ignore_errors=True)
 
     # -- restore ---------------------------------------------------------
-    def restore(self, target_tree: dict, step: int | None = None
+    def restore(self, target_tree: dict, step: int | None = None,
+                shardings: dict | None = None
                 ) -> tuple[dict, dict, int] | None:
         """Restore into the structure of ``target_tree`` (each leaf a
-        tensor giving the shape, dtype and device to restore to).  Returns
-        (tree, extra, step) or None when no usable checkpoint exists.
-        Falls back through older checkpoints on corruption."""
+        tensor giving the shape, dtype and device to restore to).  With
+        ``shardings`` (a tree of ``Placement`` shaped as ``target_tree``;
+        a missing leaf is whole) each stored full tensor is cut to the
+        rank's slice, whatever mesh wrote it.  Returns (tree, extra, step)
+        or None when no usable checkpoint exists.  Falls back through
+        older checkpoints on corruption."""
         candidates = ([step] if step is not None
                       else list(reversed(self.available_steps())))
+        places = dict(_leaves(shardings)) if shardings is not None else {}
         for s in candidates:
             try:
-                return self._read(target_tree, s)
+                return self._read(target_tree, s, places)
             except Exception:  # noqa: BLE001 — torn checkpoint: try older
                 continue
         return None
 
-    def _read(self, target_tree: dict, step: int):
+    def _read(self, target_tree: dict, step: int, places: dict):
         d = self._step_dir(step)
         if not (d / "COMMITTED").exists():
             raise FileNotFoundError(d)
@@ -200,9 +237,12 @@ class CheckpointManager:
                 if stored == str(torch.bfloat16):
                     t = t.view(torch.bfloat16)
                 ref = torch.as_tensor(ref)
-                if tuple(t.shape) != tuple(ref.shape):
+                p = places.get(name)
+                want = ref.shape if p is None else p.full_shape(ref.shape)
+                if tuple(t.shape) != tuple(want):
                     raise ValueError(f"leaf {i} ({name}): shape "
-                                     f"{tuple(t.shape)} != "
-                                     f"{tuple(ref.shape)}")
+                                     f"{tuple(t.shape)} != {tuple(want)}")
+                if p is not None:
+                    t = p.local(t)
                 loaded.append(t.to(device=ref.device, dtype=ref.dtype))
         return _unflatten(target_tree, loaded), manifest["extra"], step

@@ -114,12 +114,15 @@ def adamw(config: AdamWConfig = AdamWConfig()) -> Optimizer:
 
     @torch.no_grad()
     def update(grads: dict[str, torch.Tensor], state: dict[str, Any],
-               params: dict[str, torch.Tensor]
+               params: dict[str, torch.Tensor], norm: Callable | None = None
                ) -> tuple[dict[str, torch.Tensor], dict[str, Any]]:
+        """``norm``: the gradients' global norm as a function of them
+        (default :func:`global_norm`; a mesh rank's gradients are slices,
+        whose squares the trainer sums over the ranks)."""
         step = state["step"] + 1
         lr = _schedule(config, step)
-        scale = torch.clamp(config.grad_clip
-                            / (global_norm(grads) + 1e-9), max=1.0)
+        total = (norm or global_norm)(grads)
+        scale = torch.clamp(config.grad_clip / (total + 1e-9), max=1.0)
         b1, b2 = config.b1, config.b2
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))

@@ -17,8 +17,18 @@ parameters in place (``model.requires_grad_(True)``); with a seeded
 ones, in the tests).  A step's loss reaches the host once a step
 (``float(loss)``), as in the reference; on the card each history entry
 also holds the step's forward, backward and optimizer milliseconds
-(CUDA events).  ``mesh=`` (data and tensor
-parallel training) waits for ``DeviceMesh``: ROADMAP item 15.
+(CUDA events).
+
+``mesh=`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`; the model
+built on it, ``build_model(spec, mesh=mesh, policy="train_2d")``) trains
+one rank's part of a (data, model) mesh: every rank reads the same global
+batch (``batch_at(step)``), ``Model.loss`` runs the rank's rows and gives
+the global mean (local sums over the global count), the gradients are
+summed over the batch's data axes (through ``compressed_psum_grads`` when
+compression is on, in place of the single-device error feedback), the
+clip's global norm sums the squares of every rank's slices once, and
+AdamW updates each rank's own tensors.  A checkpoint holds whole tensors
+(gathered, written by rank 0) and restores onto any mesh.
 """
 
 from __future__ import annotations
@@ -33,9 +43,10 @@ import torch
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..models.model import Model
 from .checkpoint import CheckpointManager
-from .compression import CompressionConfig, ErrorFeedback
+from .compression import (CompressionConfig, ErrorFeedback,
+                          compressed_psum_grads, psum_grads)
 from .fault import FailureInjector, StragglerMonitor
-from .optimizer import AdamWConfig, adamw
+from .optimizer import AdamWConfig, adamw, global_norm
 
 
 @dataclass
@@ -85,10 +96,11 @@ class Trainer:
                  cfg: TrainConfig, generator: torch.Generator | None = None,
                  failure_injector: FailureInjector | None = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=): data/tensor-parallel training needs the "
-                "port's DeviceMesh (ROADMAP item 15)")
+        if mesh is not None and getattr(model, "mesh", None) is not mesh:
+            raise ValueError(
+                "Trainer(mesh=): build the model on that mesh, "
+                "build_model(spec, mesh=mesh, policy='train_2d')")
+        self.mesh = mesh
         self.model = model
         self.device = model.device
         self.cfg = cfg
@@ -106,6 +118,8 @@ class Trainer:
         model.requires_grad_(True)
         self.params = dict(model.named_parameters())
         self.opt_state = self.optimizer.init(self.params)
+        self.placements = (model.param_placements() if mesh is not None
+                           else None)
 
     # -- one step ---------------------------------------------------------
     def _grads(self, x: torch.Tensor, t: torch.Tensor
@@ -142,10 +156,47 @@ class Trainer:
                 g.div_(mb)   # jamba-v0.1-52b's 2 layers on one card
         else:
             loss, grads = self._grads(x, t)
-        named = self.errfb(dict(zip(self.params, grads)))
+        named = dict(zip(self.params, grads))
+        norm = None
+        if self.mesh is None:
+            named = self.errfb(named)
+        else:
+            with self._parts.span("grad_sync"):
+                named = self._sum_over_data(named, x.shape[0] // mb)
+            norm = self._mesh_norm
         with self._parts.span("optimizer"):
-            self.optimizer.update(named, self.opt_state, self.params)
+            self.optimizer.update(named, self.opt_state, self.params,
+                                  norm=norm)
         return loss
+
+    # -- mesh -------------------------------------------------------------
+    def _sum_over_data(self, grads: dict[str, torch.Tensor], rows: int
+                       ) -> dict[str, torch.Tensor]:
+        """Each rank's gradient shares summed over the data axes its
+        batch of ``rows`` rows is split over (none: it is replicated, and
+        so are the gradients)."""
+        axes = self.model.batch_axes(rows)
+        if not axes:
+            return grads
+        comp = self.cfg.compression
+        if comp.enabled:
+            return compressed_psum_grads(grads, self.mesh, axes, comp)
+        return psum_grads(grads, self.mesh, axes)
+
+    def _mesh_norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole model's gradients: a split
+        tensor's squares summed over the ranks of its axes, a replicated
+        one's counted once."""
+        by_axes: dict[tuple, list] = {}
+        for n, g in grads.items():
+            p = self.placements[n]
+            by_axes.setdefault(p.axes if p.sharded else (), []).append(g)
+        total = 0.0
+        for axes, gs in by_axes.items():
+            sq = global_norm(gs).square()
+            total = total + (self.mesh.all_reduce(sq, axes, tag="grad_norm")
+                             if axes else sq)
+        return total.sqrt()
 
     # -- checkpoint/restart -----------------------------------------------
     def _state(self) -> dict:
@@ -153,8 +204,15 @@ class Trainer:
                 "opt": {"m": self.opt_state["m"], "v": self.opt_state["v"],
                         "step": torch.tensor(self.opt_state["step"])}}
 
+    def _state_placements(self) -> dict | None:
+        if self.placements is None:
+            return None
+        return {"params": self.placements,
+                "opt": {"m": self.placements, "v": self.placements}}
+
     def resume(self) -> int:
-        restored = self.ckpt.restore(self._state())
+        restored = self.ckpt.restore(self._state(),
+                                     shardings=self._state_placements())
         if restored is None:
             return 0
         tree, extra, _ = restored
@@ -171,7 +229,9 @@ class Trainer:
     def _checkpoint(self, step: int) -> None:
         self.ckpt.save_async(step, self._state(),
                              extra={"next_step": step + 1,
-                                    "data": self.data.state_dict()})
+                                    "data": self.data.state_dict()},
+                             mesh=self.mesh,
+                             placements=self._state_placements())
 
     # -- main loop --------------------------------------------------------
     def run(self, start_step: int, total_steps: int,
@@ -196,3 +256,5 @@ class Trainer:
                     or step + 1 == total_steps:
                 self._checkpoint(step)
         self.ckpt.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's checkpoint is on disk

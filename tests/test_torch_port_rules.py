@@ -4,8 +4,9 @@
   ``jax`` or anything of the JAX package ``repro`` (checked on the AST), and
   importing the port leaves ``jax`` out of ``sys.modules``.
 * Entry points default to the card: without one, ``build_model``,
-  ``ServeEngine``, ``DisaggCluster`` and the launchers raise unless
-  ``device="cpu"`` is given.
+  ``ServeEngine``, ``DisaggCluster``, ``make_mesh`` and the launchers
+  (the mesh-sharded training launcher too) raise unless ``device="cpu"``
+  is given.
 * The CUDA wrappers refuse tensors on the CPU instead of falling back, and
   nothing builds or loads a kernel at import.
 * The engine refuses, by name, every mode the port does not serve yet.
@@ -138,6 +139,18 @@ def test_training_launchers_default_to_the_card(no_card):
         train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_faulty.main(["--steps", "1"])
+
+
+def test_mesh_training_defaults_to_the_card(no_card):
+    """``--devices N --tp T`` and ``make_mesh`` run on the card unless the
+    CPU is asked for: without one they raise before spawning a rank."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--devices", "4", "--tp", "2", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((1, 1), ("data", "model"))
+    assert make_mesh((1, 1), ("data", "model"), "cpu").device.type == "cpu"
 
 
 def test_kernels_without_a_backward_refuse_grads(monkeypatch):

@@ -419,9 +419,12 @@ def test_loss_decreases():
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
+    """``Trainer(mesh=)`` trains a model built on that mesh
+    (``tests/test_torch_mesh.py``); a model built without it is
+    refused."""
     _, tspec = spec_pair("tiny")
     model = build_model(tspec, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="build the model on that mesh"):
         Trainer(model, DataConfig(vocab=64, **DATA),
                 TrainConfig(checkpoint_dir=str(tmp_path)), mesh=object())
 
